@@ -1,0 +1,114 @@
+"""Benchmark harness of the port: prints ONE JSON line with the headline
+metric, rays/s on a CUDA card (the keys of the repo-root bench.py, plus
+"device" = the card's name).
+
+Headline: closest-hit + any-hit ray queries actually issued per second on
+the cornell-box progressive render.  It needs a CUDA device and fails
+without one.
+
+    python -m caitlynrenderer_tpu_torch.bench [--width N] [--height N]
+        [--depth N] [--steps N] [--warmup N] [--scene cornell]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+
+# The root bench.py's documented estimate of reference-class GPU throughput
+# on this scene (the reference publishes no numbers).
+REFERENCE_RAYS_PER_SEC = 1.0e8
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--width", type=int, default=256)
+    ap.add_argument("--height", type=int, default=256)
+    ap.add_argument("--depth", type=int, default=4)
+    ap.add_argument("--accel", default="auto", choices=["auto", "brute"])
+    ap.add_argument("--scene", default="cornell")
+    ap.add_argument("--steps", type=int, default=128, help="samples timed")
+    ap.add_argument("--warmup", type=int, default=1, help="samples before timing")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from caitlynrenderer_tpu.core.types import RenderOptions, make_camera
+    from caitlynrenderer_tpu.io import builtin_scenes
+    from caitlynrenderer_tpu_torch.core.camera import generate_rays
+    from caitlynrenderer_tpu_torch.device import get_device
+    from caitlynrenderer_tpu_torch.render import progressive, sampling
+    from caitlynrenderer_tpu_torch.render.integrator import trace_paths
+    from caitlynrenderer_tpu_torch.scene import auto_accel, scene_families, upload_scene
+
+    if args.scene in ("soup", "grid100k", "grid1m"):
+        raise NotImplementedError(
+            f"scene {args.scene!r} needs the wide BVH, not ported yet (ROADMAP A4)"
+        )
+    if args.scene != "cornell":
+        raise SystemExit(f"unknown scene {args.scene}")
+    device = get_device("cuda")
+    scene, _ = builtin_scenes.cornell_box()
+    pos = np.array([2.78, 2.73, 7.5], np.float32)
+    camera = make_camera(pos, pos + np.array([0, 0, -1.0], np.float32), 40.0)
+    accel = auto_accel(scene) if args.accel == "auto" else args.accel
+
+    t_build0 = time.perf_counter()
+    ds = upload_scene(scene, accel, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build0
+
+    w, h, depth = args.width, args.height, args.depth
+    options = RenderOptions(
+        width=w, height=h, max_depth=depth, accel=accel, families=scene_families(scene)
+    )
+    n = w * h
+
+    # Count the actual ray queries once (instrumented pass).
+    uniforms = sampling.draw_uniforms(sampling.prng_key(0), n, depth, device)
+    o, d = generate_rays(camera, w, h, uniforms)
+    _, stats = trace_paths(ds, o, d, uniforms, options, with_stats=True)
+    rays_per_sample = int(stats["rays_closest"]) + int(stats["rays_anyhit"])
+
+    # Timed section: the production progressive loop.
+    state = progressive.init_state(w, h, 0, device)
+    state = progressive.render_steps(ds, camera, state, w, h, options, max(args.warmup, 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = progressive.render_steps(ds, camera, state, w, h, options, args.steps)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+
+    rays_per_sec = rays_per_sample * args.steps / elapsed
+    name = torch.cuda.get_device_name(device)
+    result = {
+        "metric": "rays/sec/chip",
+        "value": round(rays_per_sec, 1),
+        "unit": "rays/s",
+        "vs_baseline": round(rays_per_sec / REFERENCE_RAYS_PER_SEC, 4),
+        "device": name,
+        "detail": {
+            "scene": args.scene,
+            "triangles": int(scene.num_triangles),
+            "resolution": [w, h],
+            "max_depth": depth,
+            "accel": accel,
+            "ms_per_frame": round(elapsed / args.steps * 1e3, 3),
+            "rays_per_sample": rays_per_sample,
+            "bvh_build_s": round(build_s, 3),
+            "device": name,
+            "steps_timed": args.steps,
+            "spp_per_launch": 1,
+            "alive_per_bounce": [int(x) for x in stats["alive_per_bounce"]],
+        },
+    }
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,200 @@
+"""Wavefront path-tracing integrator on tensors (counterpart of
+caitlynrenderer_tpu/render/integrator.py:376-694).
+
+The whole ray batch advances bounce by bounce as dense (N, ...) tensors:
+raygen → closest hit → shade (emission, NEE with a shadow any-hit, MIS) →
+scatter, with masked lanes for dead paths.  Both ray queries go through
+ops/mt_brute, which launches the CUDA kernel for CUDA tensors.  The
+estimator, the uniform layout and the order of the arithmetic are the
+reference's, so the tests can hold the two against each other per pixel.
+
+Ported: the "lambert" family, NEE + MIS power heuristic,
+`exact_reference_nee`, Russian roulette (`rr_start`) and the ray-count
+stats.  Disney/mirror/glass, textures, the env map and AOVs raise
+NotImplementedError (ROADMAP.md queue A).  The reference's wide-BVH sort
+hints (`og`/`preorder`) have no counterpart: the brute-force sweep needs
+none.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from caitlynrenderer_tpu.core.types import Camera, RenderOptions
+from caitlynrenderer_tpu_torch.core import math as cm
+from caitlynrenderer_tpu_torch.core.camera import generate_rays
+from caitlynrenderer_tpu_torch.ops.intersect import refine_hit_tri
+from caitlynrenderer_tpu_torch.ops.mt_brute import brute_anyhit, brute_closest
+from caitlynrenderer_tpu_torch.scene import DeviceScene
+
+EPS = cm.EPS
+RAY_OFFSET = cm.RAY_OFFSET
+
+
+def check_supported(ds: DeviceScene, options: RenderOptions) -> None:
+    """Raise NotImplementedError for any option the port does not cover yet,
+    naming the ROADMAP item that will."""
+    extra = [f for f in options.families if f != "lambert"]
+    if extra:
+        raise NotImplementedError(
+            f"shading families {extra} are not ported yet (ROADMAP A1); "
+            "set options.families = scene.scene_families(scene)"
+        )
+    sc = ds.scene
+    if options.use_env_map and sc.env_map is not None:
+        raise NotImplementedError("environment maps are not ported yet (ROADMAP A2)")
+    if sc.textures is not None and sc.texcoords.shape[0] > 0:
+        raise NotImplementedError("textured albedo is not ported yet (ROADMAP A2)")
+    if options.aov != "beauty":
+        raise NotImplementedError(f"AOV {options.aov!r} is not ported yet (ROADMAP A3)")
+    if options.accel != "brute":
+        raise NotImplementedError(
+            f"accel {options.accel!r} is not ported yet; only 'brute' is (ROADMAP A4, A7, A8)"
+        )
+
+
+def _power_heuristic(a, b):
+    a = torch.clamp(a, 0.0, 1e12)
+    b = torch.clamp(b, 0.0, 1e12)
+    t = a * a
+    return t / torch.clamp(b * b + t, min=1e-20)
+
+
+def _shading_normal_from_rows(rows, u, v):
+    geo_n = cm.normalize(cm.cross(rows[:, 3:6], rows[:, 6:9]))
+    interp = cm.normalize(cm.interpolate(rows[:, 9:12], rows[:, 12:15], rows[:, 15:18], u, v))
+    return torch.where((rows[:, 18] > 0.5)[:, None], interp, geo_n)
+
+
+def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_stats: bool = False):
+    """Trace one path per input ray; returns radiance (N, 3), or
+    (radiance, stats) when with_stats.  stats counts the ray queries
+    actually issued: "rays_closest", "rays_anyhit" (int tensors) and
+    "alive_per_bounce" ((max_depth,) tensor of live lanes entering each
+    closest-hit query).
+
+    uniforms: (N, 4 + 7*max_depth), layout in render/sampling.py; the first
+    4 (raygen) entries are unused here.
+    """
+    check_supported(ds, options)
+    n, dev = o.shape[0], o.device
+    num_lights = ds.light_tab.shape[0]
+    shade_tab, light_tab = ds.shade_tab, ds.light_tab
+
+    L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    T = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    prev_pdf = torch.ones(n, dtype=torch.float32, device=dev)
+    is_specular = torch.ones(n, dtype=torch.bool, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    alive_per_bounce, anyhit_per_bounce = [], []
+
+    for bounce in range(options.max_depth):
+        base = 4 + 7 * bounce
+        u_lp, u_l1, u_l2, u_b1, u_b2 = (uniforms[:, base + k] for k in range(5))
+
+        # Russian roulette from rr_start on: survive with p = max throughput
+        # component (clamped to [0.05, 1]) and compensate T by 1/p.
+        if 0 <= options.rr_start <= bounce:
+            p_surv = torch.clamp(T.max(dim=1).values, 0.05, 1.0)
+            alive = alive & (uniforms[:, base + 6] < p_surv)
+            T = T / p_surv[:, None]
+
+        if with_stats:
+            alive_per_bounce.append(alive.sum())
+        raw_t, raw_tri, raw_u, raw_v = brute_closest(o, d, alive, ds.tris9)
+        rows = shade_tab[torch.clamp(raw_tri, min=0).long()]
+        t_r, u_r, v_r = refine_hit_tri(o, d, rows[:, 0:3], rows[:, 3:6], rows[:, 6:9])
+        keep = raw_tri >= 0
+        hit_t = torch.where(keep, t_r, raw_t)
+        hit_u = torch.where(keep, u_r, raw_u)
+        hit_v = torch.where(keep, v_r, raw_v)
+        got = alive & keep
+        alive = got
+
+        n_shade = _shading_normal_from_rows(rows, hit_u, hit_v)
+        albedo = rows[:, 26:29]
+        emission = rows[:, 30:33]
+        emissive = rows[:, 33] != -1
+        li_hit = torch.round(rows[:, 25]).long()
+        cos_incident = cm.dot(d, n_shade)
+        n_flip = torch.where((cos_incident > 0)[:, None], -n_shade, n_shade)
+
+        # Emissive hit, weighted against the NEE that could have sampled it.
+        hit_light = got & emissive
+        if num_lights > 0:
+            area = light_tab[torch.clamp(li_hit, 0, num_lights - 1), 15]
+            cos_light = -cm.dot(d, n_flip)
+            pdf_select = 1.0 / num_lights
+            pdf_light = (
+                hit_t * hit_t
+                / torch.clamp(area * torch.clamp(cos_light, min=1e-8), min=1e-20)
+                * pdf_select
+            )
+            w_mis = torch.where(is_specular, 1.0, _power_heuristic(prev_pdf, pdf_light))
+            L = L + torch.where(hit_light[:, None], T * emission * w_mis[:, None], 0.0)
+            alive = alive & ~hit_light
+
+        hit_point = o + d * hit_t[:, None] + n_flip * RAY_OFFSET
+
+        # NEE with MIS: one light sample per vertex, visibility by any-hit.
+        if num_lights > 0:
+            li = torch.clamp((u_lp * num_lights).to(torch.int64), max=num_lights - 1)
+            s = torch.sqrt(u_l1)
+            b0 = 1.0 - s
+            b1 = u_l2 * s
+            lrows = light_tab[li]
+            lpos = lrows[:, 0:3] + b0[:, None] * lrows[:, 3:6] + b1[:, None] * lrows[:, 6:9]
+            ldir = lpos - hit_point
+            dist = cm.norm(ldir)
+            ldir = ldir / torch.clamp(dist[:, None], min=1e-20)
+            cos_mtl = cm.dot(ldir, n_flip)
+            cos_light = cm.dot(ldir, lrows[:, 9:12])
+            cand = alive & (cos_mtl > 0) & (cos_light < 0)
+            if with_stats:
+                anyhit_per_bounce.append(cand.sum())
+            shadowed = brute_anyhit(
+                hit_point, ldir, torch.where(cand, dist - EPS, 0.0), cand, ds.tris9
+            )
+            visible = cand & ~shadowed
+            pdf_light = (
+                dist * dist
+                / torch.clamp(lrows[:, 15] * torch.clamp(-cos_light, min=1e-8), min=1e-20)
+                * pdf_select
+            )
+            cos_pos = torch.clamp(cos_mtl, min=0.0)
+            if options.exact_reference_nee:
+                f_lam = albedo  # the reference shader's estimator (no cos/pi)
+            else:
+                f_lam = albedo * (cos_pos / math.pi)[:, None]
+            w_mis = _power_heuristic(pdf_light, cos_pos / math.pi)
+            contrib = T * lrows[:, 12:15] * f_lam * (
+                w_mis / torch.clamp(pdf_light, min=1e-20)
+            )[:, None]
+            L = L + torch.where(visible[:, None], contrib, 0.0)
+
+        # Continuation: cosine-weighted Lambert sample.
+        local = cm.cosine_hemisphere_dir(u_b1, u_b2)
+        o = hit_point
+        d = cm.normalize(cm.local_to_world(local, n_flip))
+        T = torch.where(alive[:, None], T * albedo, T)
+        prev_pdf = torch.clamp(local[:, 2], min=1e-8) / math.pi
+        is_specular = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    if not with_stats:
+        return L
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    return L, {
+        "rays_closest": sum(alive_per_bounce, zero),
+        "rays_anyhit": sum(anyhit_per_bounce, zero),
+        "alive_per_bounce": torch.stack(alive_per_bounce),
+    }
+
+
+def render_sample(ds: DeviceScene, camera: Camera, uniforms, width: int, height: int,
+                  options: RenderOptions):
+    """One full sample of every pixel: raygen + path trace.  Returns
+    (H*W, 3) radiance on the uniforms' device."""
+    o, d = generate_rays(camera, width, height, uniforms)
+    return trace_paths(ds, o, d, uniforms, options)

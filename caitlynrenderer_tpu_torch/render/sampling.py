@@ -1,0 +1,98 @@
+"""Deterministic, pixel-keyed random numbers (counterpart of
+caitlynrenderer_tpu/render/sampling.py).
+
+Threefry-2x32 `fold_in` and `uniform` written in torch, bitwise equal to
+`jax.random` under jax's default `jax_threefry_partitionable=True`: a
+pixel's numbers depend only on (key, sample index, pixel id), so a port
+render can be compared bitwise with a reference render.
+
+A key is a pair of Python ints (k1, k2), each a uint32 value, as in the
+reference's raw `uint32[2]` key.  torch has little uint32 support
+(especially on CUDA), so the arithmetic runs in int64 with every sum and
+shift masked back to 32 bits.
+
+Uniform layout per pixel-sample (shared with the reference integrator):
+
+    [0:2]  tent-filter AA jitter pair
+    [2:4]  thin-lens aperture pair
+    then per bounce b: [4+7b : 11+7b] =
+        light_pick, light_u1, light_u2, bsdf_u1, bsdf_u2, bsdf_lobe, rr
+"""
+
+from __future__ import annotations
+
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def uniforms_per_sample(max_depth: int) -> int:
+    return 4 + 7 * max_depth
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(k1: int, k2: int, x0, x1):
+    """Threefry-2x32 (20 rounds) of the counter pair (x0, x1) under key
+    (k1, k2).  x0, x1: int64 tensors (or Python ints) holding uint32 values;
+    k1, k2: ints or int64 tensors broadcasting against them.  Returns the
+    two output words, same kind as the inputs."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def fold_in(key, data: int):
+    """`jax.random.fold_in(key, data)` for one key and one integer."""
+    return threefry2x32(int(key[0]), int(key[1]), 0, int(data) & _MASK)
+
+
+def prng_key(seed: int):
+    """`jax.random.PRNGKey(seed)` as an int pair, under jax's default 32-bit
+    integers (the seed's high word is 0)."""
+    return (0, int(seed) & _MASK)
+
+
+def sample_key(base_key, sample_idx: int):
+    """Per-sample key: the progressive sample counter folded into the base
+    key."""
+    return fold_in(base_key, sample_idx)
+
+
+def _bits_to_uniform(b0, b1):
+    """jax.random.uniform's float32 in [0, 1) from one threefry output pair:
+    the 23 high bits of b0 ^ b1 as mantissa of a float in [1, 2), minus 1."""
+    bits = ((b0 ^ b1) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def draw_uniforms(key, num_pixels: int, max_depth: int, device) -> torch.Tensor:
+    """`jax.random.uniform(key, (num_pixels, 4 + 7*max_depth))`: the uniform
+    block for one sample of every pixel, keyed by lane position."""
+    n_u = uniforms_per_sample(max_depth)
+    count = torch.arange(num_pixels * n_u, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(int(key[0]), int(key[1]), torch.zeros_like(count), count)
+    return _bits_to_uniform(b0, b1).reshape(num_pixels, n_u)
+
+
+def pixel_uniforms(key, pixel_ids, max_depth: int) -> torch.Tensor:
+    """Per-pixel-keyed uniforms, `vmap(uniform(fold_in(key, pid), (n_u,)))`:
+    stream i depends only on (key, pixel_ids[i]).  pixel_ids: (N,) integer
+    tensor.  Returns (N, 4 + 7*max_depth) f32 in [0, 1) on its device."""
+    n_u = uniforms_per_sample(max_depth)
+    pid = pixel_ids.to(torch.int64) & _MASK
+    pk1, pk2 = threefry2x32(int(key[0]), int(key[1]), torch.zeros_like(pid), pid)
+    pk1, pk2 = pk1[:, None], pk2[:, None]
+    count = torch.arange(n_u, dtype=torch.int64, device=pixel_ids.device)[None, :]
+    b0, b1 = threefry2x32(pk1, pk2, torch.zeros_like(count), count)
+    return _bits_to_uniform(b0, b1)

@@ -1,0 +1,202 @@
+"""Device scene: host SceneArrays uploaded to a torch device (counterpart of
+caitlynrenderer_tpu/scene.py).
+
+Only the brute-force accelerator is ported: the scene stays in its own
+triangle order and every query sweeps all triangles through the
+mt_brute kernel.  `scene_families`, `validate_scene`, `auto_accel` and
+`BRUTE_MAX_TRIS` are JAX-free copies of the reference's (whose module
+imports jax); tests/test_torch_scene.py holds each copy against the
+original.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from caitlynrenderer_tpu.core.types import (
+    LAMBERT_TYPES,
+    Lights,
+    Materials,
+    MaterialType,
+    SceneArrays,
+)
+from caitlynrenderer_tpu_torch.ops.intersect import pack_tris
+
+ACCELS = ("brute", "bvh2", "sbvh", "wide", "cwbvh")
+# Where each accelerator that is not ported yet stands in ROADMAP.md.
+_UNPORTED = {
+    "wide": "ROADMAP A4 (wide BVH, kernel B2)",
+    "bvh2": "ROADMAP A7 (bvh2/sbvh traversal)",
+    "sbvh": "ROADMAP A7 (bvh2/sbvh traversal)",
+    "cwbvh": "ROADMAP A8 (CWBVH, kernel B3)",
+}
+
+
+class DeviceScene(NamedTuple):
+    """Scene tensors on one device, for the brute-force accelerator.
+
+    scene:     SceneArrays whose array fields are tensors (textures and
+               env_map stay as given: None or numpy)
+    tris9:     (T, 9) f32 — packed v0 | e1 | e2, the kernel's slab
+    shade_tab: (T, 50) f32 — fused per-triangle shading rows (column map
+               at `build_shade_table`)
+    light_tab: (L, 17) f32 — p | u | v | n | e | area | selection pdf
+    """
+
+    scene: SceneArrays
+    tris9: torch.Tensor
+    shade_tab: torch.Tensor
+    light_tab: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.tris9.device
+
+
+def scene_families(scene_np: SceneArrays) -> tuple:
+    """The shading families the scene's materials use: "lambert", "disney"
+    (everything microfacet), "mirror", "glass"."""
+    types = set(int(t) for t in np.asarray(scene_np.materials.albedo[:, 3]))
+    lambert_ids = {int(t) for t in LAMBERT_TYPES}
+    glass_ids = {
+        int(MaterialType.GLASS),
+        int(MaterialType.GLASS_COLOR),
+        int(MaterialType.GLASS_NO_REFRACT),
+        int(MaterialType.ROUGH_DIELECTRIC),
+        int(MaterialType.THIN_DIELECTRIC),
+        int(MaterialType.THIN_SHEET),
+    }
+    mirror_ids = {int(MaterialType.MIRROR), int(MaterialType.CONDUCTOR)}
+    fams = []
+    if types & lambert_ids:
+        fams.append("lambert")
+    if types - lambert_ids - glass_ids - mirror_ids:
+        fams.append("disney")
+    if types & mirror_ids:
+        fams.append("mirror")
+    if types & glass_ids:
+        fams.append("glass")
+    return tuple(fams) if fams else ("lambert",)
+
+
+def validate_scene(scene_np: SceneArrays) -> None:
+    """Fail-fast structural validation of scene inputs: a malformed scene
+    raises ValueError naming the problem before anything is uploaded."""
+    v = np.asarray(scene_np.vertices)
+    tv = np.asarray(scene_np.tri_v)
+    if v.ndim != 2 or v.shape[1] != 3:
+        raise ValueError(f"vertices must be (V, 3), got {v.shape}")
+    if not np.isfinite(v).all():
+        bad = np.argwhere(~np.isfinite(v).all(axis=1))[:5].ravel().tolist()
+        raise ValueError(f"non-finite vertex coordinates at rows {bad}")
+    if tv.ndim != 2 or tv.shape[1] != 4:
+        raise ValueError(f"tri_v must be (T, 4), got {tv.shape}")
+    if tv.shape[0]:
+        idx = tv[:, :3]
+        if idx.min() < 0 or idx.max() >= max(len(v), 1):
+            raise ValueError(
+                f"triangle vertex indices out of range [0, {len(v)}): "
+                f"min {idx.min()}, max {idx.max()}"
+            )
+        m = np.asarray(scene_np.materials.albedo).shape[0]
+        if tv[:, 3].min() < 0 or tv[:, 3].max() >= max(m, 1):
+            raise ValueError(
+                f"material indices out of range [0, {m}): "
+                f"min {tv[:, 3].min()}, max {tv[:, 3].max()}"
+            )
+        vn = np.asarray(scene_np.normals)
+        tn = np.asarray(scene_np.tri_vn)
+        if len(vn) and len(tn):
+            used = tn[tn[:, 3] == 1][:, :3]
+            if used.size and (used.min() < 0 or used.max() >= len(vn)):
+                raise ValueError(f"normal indices out of range [0, {len(vn)})")
+    li = scene_np.lights
+    if np.asarray(li.p).shape[0]:
+        pdf = np.asarray(li.area_pdf)
+        if not np.isfinite(pdf).all() or (pdf < 0).any():
+            raise ValueError("light area/pdf table contains invalid values")
+
+
+BRUTE_MAX_TRIS = 2048  # at most this many triangles: brute force, else wide
+
+
+def auto_accel(scene_np: SceneArrays) -> str:
+    """Production accelerator policy: brute force for small scenes, the wide
+    BVH above BRUTE_MAX_TRIS triangles."""
+    return "brute" if scene_np.num_triangles <= BRUTE_MAX_TRIS else "wide"
+
+
+def build_shade_table(sc: SceneArrays) -> torch.Tensor:
+    """(T, 50) f32 fused shading table, the reference's column map
+    (caitlynrenderer_tpu/render/integrator.py:_build_shade_table):
+
+      0:3 p0 | 3:6 e1 | 6:9 e2 | 9:12 n0 | 12:15 n1 | 15:18 n2 | 18 n-interp
+      19:21 t0 | 21:23 t1 | 23:25 t2 | 25 light idx
+      26:30 albedo(rgb+type) | 30:34 emission(rgb+flag) | 34:38 specular(rgb+ior)
+      38:42 disney | 42:46 disney2 | 46:50 tex_ind
+    """
+    tv = sc.tri_v.long()
+    t = tv.shape[0]
+    dev = sc.vertices.device
+    p0 = sc.vertices[tv[:, 0]]
+    e1 = sc.vertices[tv[:, 1]] - p0
+    e2 = sc.vertices[tv[:, 2]] - p0
+    if sc.normals.shape[0] > 0:
+        nid = torch.clamp(sc.tri_vn[:, :3].long(), 0, sc.normals.shape[0] - 1)
+        n0, n1, n2 = (sc.normals[nid[:, k]] for k in range(3))
+        nflag = (sc.tri_vn[:, 3] == 1).to(torch.float32)[:, None]
+    else:
+        n0 = n1 = n2 = torch.zeros((t, 3), dtype=torch.float32, device=dev)
+        nflag = torch.zeros((t, 1), dtype=torch.float32, device=dev)
+    if sc.texcoords.shape[0] > 0:
+        tid = torch.clamp(sc.tri_vt[:, :3].long(), 0, sc.texcoords.shape[0] - 1)
+        t0, t1, t2 = (sc.texcoords[tid[:, k]] for k in range(3))
+    else:
+        t0 = t1 = t2 = torch.zeros((t, 2), dtype=torch.float32, device=dev)
+    light_idx = sc.tri_vt[:, 3].to(torch.float32)[:, None]
+    m = sc.materials
+    mat_tab = torch.cat([m.albedo, m.emission, m.specular, m.disney, m.disney2, m.tex_ind], dim=1)
+    mrows = mat_tab[tv[:, 3]]
+    return torch.cat([p0, e1, e2, n0, n1, n2, nflag, t0, t1, t2, light_idx, mrows], dim=1)
+
+
+def build_light_table(lights: Lights) -> torch.Tensor:
+    """(L, 17) f32: p | u | v | n | e | area | selection pdf."""
+    return torch.cat([lights.p, lights.u, lights.v, lights.n, lights.e, lights.area_pdf], dim=1)
+
+
+def upload_scene(scene_np: SceneArrays, accel: str, device) -> DeviceScene:
+    """Validate the scene and move it to `device` (a torch.device or name)
+    with the tables the integrator reads every bounce.  `accel` must be
+    "brute"; the other reference accelerators raise NotImplementedError."""
+    if accel not in ACCELS:
+        raise ValueError(f"unknown accel {accel!r} (expected one of {'/'.join(ACCELS)})")
+    if accel != "brute":
+        raise NotImplementedError(f"accel {accel!r} is not ported yet: {_UNPORTED[accel]}")
+    validate_scene(scene_np)
+
+    def put(x, dtype):  # copies: the caller's arrays stay the caller's
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    f32, i32 = torch.float32, torch.int32
+    sc = SceneArrays(
+        vertices=put(scene_np.vertices, f32),
+        normals=put(scene_np.normals, f32),
+        texcoords=put(scene_np.texcoords, f32),
+        tri_v=put(scene_np.tri_v, i32),
+        tri_vn=put(scene_np.tri_vn, i32),
+        tri_vt=put(scene_np.tri_vt, i32),
+        materials=Materials(*(put(x, f32) for x in scene_np.materials)),
+        lights=Lights(*(put(x, f32) for x in scene_np.lights)),
+        textures=scene_np.textures,
+        env_map=scene_np.env_map,
+    )
+    return DeviceScene(
+        scene=sc,
+        tris9=pack_tris(sc.vertices, sc.tri_v).contiguous(),
+        shade_tab=build_shade_table(sc),
+        light_tab=build_light_table(sc.lights),
+    )
