@@ -8,8 +8,9 @@ against (tests/test_torch_*.py).  This package imports `torch` and never
 Layout mirrors the reference so each module's counterpart is easy to find:
 
   core/    vector math and camera ray generation on tensors
-  ops/     intersection: the plain PyTorch Möller–Trumbore and the
-           hand-written CUDA kernel (csrc/mt_brute.cu) behind one wrapper
+  ops/     ray queries: brute-force Möller–Trumbore (csrc/mt_brute.cu) and
+           the wide-BVH walk (csrc/traverse_mega.cu), each hand-written
+           CUDA kernel behind one wrapper with its plain PyTorch twin
   render/  counter-based sampling, the wavefront integrator, progressive
            accumulation and resolve
   scene.py upload to a device; convert.py carries state across packages

@@ -3,11 +3,14 @@ metric, rays/s on a CUDA card (the keys of the repo-root bench.py, plus
 "device" = the card's name).
 
 Headline: closest-hit + any-hit ray queries actually issued per second on
-the cornell-box progressive render.  It needs a CUDA device and fails
-without one.
+a progressive render: the cornell box (default) or the root bench's large
+scenes, each with its camera.  It needs a CUDA device and fails without
+one.
 
     python -m caitlynrenderer_tpu_torch.bench [--width N] [--height N]
-        [--depth N] [--steps N] [--warmup N] [--scene cornell]
+        [--depth N] [--steps N] [--warmup N]
+        [--scene cornell|soup|grid100k|grid1m] [--accel auto|brute|wide]
+        [--group-tris N]
 """
 
 from __future__ import annotations
@@ -24,41 +27,57 @@ import numpy as np
 REFERENCE_RAYS_PER_SEC = 1.0e8
 
 
+def bench_scene(name: str):
+    """(scene, camera) of the root bench.py's scene `name`."""
+    from caitlynrenderer_tpu.core.types import make_camera
+    from caitlynrenderer_tpu.io import builtin_scenes
+
+    if name == "cornell":
+        pos = np.array([2.78, 2.73, 7.5], np.float32)
+        return builtin_scenes.cornell_box()[0], make_camera(
+            pos, pos + np.array([0, 0, -1.0], np.float32), 40.0)
+    if name == "soup":
+        return builtin_scenes.random_triangle_soup(20000)[0], make_camera(
+            np.array([5.0, 6.0, 25.0], np.float32), np.array([5.0, 5.0, 5.0], np.float32), 45.0)
+    # grid100k / grid1m: the terrain framed from above
+    scene = builtin_scenes.displaced_grid(resolution=GRID_RESOLUTION[name])[0]
+    return scene, make_camera(np.array([5.0, 9.0, 11.0], np.float32),
+                              np.array([5.0, 2.0, 5.0], np.float32), 50.0)
+
+
+GRID_RESOLUTION = {"grid100k": 224, "grid1m": 708}  # ~100k and ~1M triangles
+SCENES = ("cornell", "soup", *GRID_RESOLUTION)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--width", type=int, default=256)
     ap.add_argument("--height", type=int, default=256)
     ap.add_argument("--depth", type=int, default=4)
-    ap.add_argument("--accel", default="auto", choices=["auto", "brute"])
-    ap.add_argument("--scene", default="cornell")
+    ap.add_argument("--accel", default="auto", choices=["auto", "brute", "wide"])
+    ap.add_argument("--scene", default="cornell", choices=SCENES)
     ap.add_argument("--steps", type=int, default=128, help="samples timed")
     ap.add_argument("--warmup", type=int, default=1, help="samples before timing")
+    ap.add_argument("--group-tris", type=int, default=None,
+                    help="wide-BVH group size (default: by triangle count; explicit values "
+                    "are used as given)")
     args = ap.parse_args(argv)
 
     import torch
 
-    from caitlynrenderer_tpu.core.types import RenderOptions, make_camera
-    from caitlynrenderer_tpu.io import builtin_scenes
+    from caitlynrenderer_tpu.core.types import RenderOptions
     from caitlynrenderer_tpu_torch.core.camera import generate_rays
     from caitlynrenderer_tpu_torch.device import get_device
     from caitlynrenderer_tpu_torch.render import progressive, sampling
     from caitlynrenderer_tpu_torch.render.integrator import trace_paths
     from caitlynrenderer_tpu_torch.scene import auto_accel, scene_families, upload_scene
 
-    if args.scene in ("soup", "grid100k", "grid1m"):
-        raise NotImplementedError(
-            f"scene {args.scene!r} needs the wide BVH, not ported yet (ROADMAP A4)"
-        )
-    if args.scene != "cornell":
-        raise SystemExit(f"unknown scene {args.scene}")
     device = get_device("cuda")
-    scene, _ = builtin_scenes.cornell_box()
-    pos = np.array([2.78, 2.73, 7.5], np.float32)
-    camera = make_camera(pos, pos + np.array([0, 0, -1.0], np.float32), 40.0)
+    scene, camera = bench_scene(args.scene)
     accel = auto_accel(scene) if args.accel == "auto" else args.accel
 
     t_build0 = time.perf_counter()
-    ds = upload_scene(scene, accel, device)
+    ds = upload_scene(scene, accel, device, wide_group_tris=args.group_tris)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t_build0
 

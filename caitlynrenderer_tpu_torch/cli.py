@@ -79,7 +79,8 @@ def main(argv=None) -> int:
     r.add_argument("--height", type=int, default=None)
     r.add_argument("--depth", type=int, default=None)
     r.add_argument("--accel", default="auto",
-                   help="auto (default) picks by triangle count; only brute is ported")
+                   help="auto (default): brute up to 2048 triangles, wide above; "
+                   "brute and wide are ported")
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--device", default="cuda", help="torch device (default cuda)")
     r.add_argument("--resume", default=None, help="not ported yet")

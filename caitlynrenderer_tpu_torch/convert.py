@@ -14,16 +14,33 @@ import torch
 
 from caitlynrenderer_tpu.core.types import SceneArrays
 from caitlynrenderer_tpu_torch.render.progressive import RenderState
-from caitlynrenderer_tpu_torch.scene import DeviceScene, upload_scene
+from caitlynrenderer_tpu_torch.scene import (
+    WIDE_FIELDS,
+    DeviceScene,
+    empty_wide_arrays,
+    scene_to_device,
+    validate_scene,
+)
 
 
-def device_scene_from_numpy(scene: SceneArrays, device) -> DeviceScene:
+def device_scene_from_numpy(scene: SceneArrays, device, wide=None) -> DeviceScene:
     """The port's DeviceScene from the reference DeviceScene's `scene`
     field with every array as numpy (e.g.
-    `jax.tree_util.tree_map(np.asarray, ds.scene)`).  The reference keeps a
-    brute-force scene in its own triangle order and a BVH scene in leaf
-    order; either is a valid scene for the brute-force sweep."""
-    return upload_scene(scene, "brute", device)
+    `jax.tree_util.tree_map(np.asarray, ds.scene)`), and, for the wide
+    accelerator, its wide arrays: `wide` maps each name of
+    `scene.WIDE_FIELDS` ("wb_group_bounds", "wb_mega", "wb_oct_bounds",
+    "wb_oct_gid", "wb_oct_start", "wb_oct_blk") to a numpy array, e.g.
+    `{k: np.asarray(getattr(ds, k)) for k in WIDE_FIELDS}`.  Nothing is
+    rebuilt: the port then sees the reference's triangle ids and groups.
+    Without `wide` the scene serves the brute-force sweep, in whatever
+    triangle order it has."""
+    validate_scene(scene)
+    if wide is None:
+        wide = empty_wide_arrays()
+    missing = set(WIDE_FIELDS) - set(wide)
+    if missing:
+        raise ValueError(f"wide arrays missing: {sorted(missing)}")
+    return scene_to_device(scene, wide, device)
 
 
 def state_from_numpy(accum, frame_count, base_key, device) -> RenderState:

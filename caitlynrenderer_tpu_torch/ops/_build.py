@@ -1,4 +1,5 @@
-"""Lazy builder and loader for the hand-written CUDA kernels.
+"""Lazy builder and loader for the hand-written CUDA kernels, and the checks
+their wrappers share.
 
 Each `csrc/<name>.cu` has a plain C interface.  At first use it is compiled
 with nvcc into `build/lib<name>-<hash>.so` inside this package (the hash
@@ -15,6 +16,8 @@ import os
 import shutil
 import subprocess
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -81,3 +84,35 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
             getattr(lib, fn).argtypes = list(argtypes)
         _loaded[name] = lib
     return lib
+
+
+def is_cpu(*xs) -> bool:
+    """True when every tensor is on the CPU, False when every one is on a
+    CUDA device; raises on a mix or any other device."""
+    types = {x.device.type for x in xs if isinstance(x, torch.Tensor)}
+    if types == {"cpu"}:
+        return True
+    if types == {"cuda"}:
+        return False
+    raise ValueError(f"tensors must all be on the CPU or all on CUDA, got {sorted(types)}")
+
+
+def check_tensor(name, x, dtype, shape, device) -> None:
+    """Raise unless x is a contiguous tensor of this dtype, shape and device."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on(rc: int, error_string, fn: str) -> None:
+    """Raise if a C launcher returned a CUDA error; error_string is the
+    library's code -> message function."""
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc} ({error_string(rc).decode()})")

@@ -110,54 +110,24 @@ def brute_anyhit_plain(o, d, t_max, active, tris9):
 # --------------------------------------------------------------------------
 
 
-def _check(name, x, dtype, shape, device):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_rays(o, d, active, tris9, t_max=None):
     n, tcount, dev = o.shape[0], tris9.shape[0], o.device
-    _check("o", o, torch.float32, (n, 3), dev)
-    _check("d", d, torch.float32, (n, 3), dev)
-    _check("active", active, torch.bool, (n,), dev)
-    _check("tris9", tris9, torch.float32, (tcount, 9), dev)
+    _build.check_tensor("o", o, torch.float32, (n, 3), dev)
+    _build.check_tensor("d", d, torch.float32, (n, 3), dev)
+    _build.check_tensor("active", active, torch.bool, (n,), dev)
+    _build.check_tensor("tris9", tris9, torch.float32, (tcount, 9), dev)
     if t_max is not None:
-        _check("t_max", t_max, torch.float32, (n,), dev)
+        _build.check_tensor("t_max", t_max, torch.float32, (n,), dev)
     if n >= 2**31 or tcount * 9 >= 2**31:
         raise ValueError(f"too many rays ({n}) or triangles ({tcount}) for int32 indexing")
     return n, tcount, dev
-
-
-def _raise_on(rc: int, lib, fn: str):
-    if rc != 0:
-        msg = lib.mt_brute_error_string(rc).decode()
-        raise RuntimeError(f"{fn} launch failed: CUDA error {rc} ({msg})")
-
-
-def _is_cpu(*xs) -> bool:
-    """True when every tensor is on the CPU, False when every one is on a
-    CUDA device; raises on a mix or any other device."""
-    types = {x.device.type for x in xs if isinstance(x, torch.Tensor)}
-    if types == {"cpu"}:
-        return True
-    if types == {"cuda"}:
-        return False
-    raise ValueError(f"tensors must all be on the CPU or all on CUDA, got {sorted(types)}")
 
 
 def brute_closest(o, d, active, tris9, t_max: float = INF):
     """Closest hit of every active ray over all triangles of `tris9`
     ((T, 9) v0|e1|e2 in scene order).  Returns (t, tri, u, v), see
     `brute_closest_plain`.  CUDA tensors launch the kernel."""
-    if _is_cpu(o, d, active, tris9):
+    if _build.is_cpu(o, d, active, tris9):
         return brute_closest_plain(o, d, active, tris9, t_max)
     if not isinstance(t_max, (int, float)):
         raise TypeError("the closest-hit kernel takes a scalar t_max")
@@ -175,7 +145,7 @@ def brute_closest(o, d, active, tris9, t_max: float = INF):
             float(t_max), n, tcount, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
             v.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, lib, "mt_brute_closest")
+    _build.raise_on(rc, lib.mt_brute_error_string, "mt_brute_closest")
     launches["closest"] += 1
     return t, tri, u, v
 
@@ -183,7 +153,7 @@ def brute_closest(o, d, active, tris9, t_max: float = INF):
 def brute_anyhit(o, d, t_max, active, tris9):
     """Occlusion of every active ray by any triangle at 0 <= t < t_max
     ((N,) f32).  Returns (N,) bool.  CUDA tensors launch the kernel."""
-    if _is_cpu(o, d, t_max, active, tris9):
+    if _build.is_cpu(o, d, t_max, active, tris9):
         return brute_anyhit_plain(o, d, t_max, active, tris9)
     n, tcount, dev = _check_rays(o, d, active, tris9, t_max)
     occ = torch.empty(n, dtype=torch.bool, device=dev)
@@ -196,6 +166,6 @@ def brute_anyhit(o, d, t_max, active, tris9):
             tris9.data_ptr(), n, tcount, occ.data_ptr(), dev.index,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, lib, "mt_brute_anyhit")
+    _build.raise_on(rc, lib.mt_brute_error_string, "mt_brute_anyhit")
     launches["anyhit"] += 1
     return occ

@@ -4,16 +4,16 @@ caitlynrenderer_tpu/render/integrator.py:376-694).
 The whole ray batch advances bounce by bounce as dense (N, ...) tensors:
 raygen → closest hit → shade (emission, NEE with a shadow any-hit, MIS) →
 scatter, with masked lanes for dead paths.  Both ray queries go through
-ops/mt_brute, which launches the CUDA kernel for CUDA tensors.  The
-estimator, the uniform layout and the order of the arithmetic are the
+the scene's accelerator: ops/mt_brute under "brute", ops/traverse_mega
+under "wide", each of which launches its CUDA kernel for CUDA tensors.
+The estimator, the uniform layout and the order of the arithmetic are the
 reference's, so the tests can hold the two against each other per pixel.
 
 Ported: the "lambert" family, NEE + MIS power heuristic,
 `exact_reference_nee`, Russian roulette (`rr_start`) and the ray-count
 stats.  Disney/mirror/glass, textures, the env map and AOVs raise
-NotImplementedError (ROADMAP.md queue A).  The reference's wide-BVH sort
-hints (`og`/`preorder`) have no counterpart: the brute-force sweep needs
-none.
+NotImplementedError (ROADMAP.md queue A).  The wide path threads the
+reference's origin-group hint (`og`); its `preorder` has no counterpart.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from caitlynrenderer_tpu_torch.core import math as cm
 from caitlynrenderer_tpu_torch.core.camera import generate_rays
 from caitlynrenderer_tpu_torch.ops.intersect import refine_hit_tri
 from caitlynrenderer_tpu_torch.ops.mt_brute import brute_anyhit, brute_closest
+from caitlynrenderer_tpu_torch.ops.traverse_mega import mega_anyhit, mega_closest
 from caitlynrenderer_tpu_torch.scene import DeviceScene
 
 EPS = cm.EPS
@@ -49,10 +50,36 @@ def check_supported(ds: DeviceScene, options: RenderOptions) -> None:
         raise NotImplementedError("textured albedo is not ported yet (ROADMAP A2)")
     if options.aov != "beauty":
         raise NotImplementedError(f"AOV {options.aov!r} is not ported yet (ROADMAP A3)")
-    if options.accel != "brute":
+    if options.accel not in ("brute", "wide"):
         raise NotImplementedError(
-            f"accel {options.accel!r} is not ported yet; only 'brute' is (ROADMAP A4, A7, A8)"
+            f"accel {options.accel!r} is not ported yet; 'brute' and 'wide' are (ROADMAP A7, A8)"
         )
+    if options.accel == "wide" and ds.wb_mega.shape[0] == 0 and ds.tris9.shape[0] > 0:
+        raise ValueError("options.accel is 'wide' but the scene was uploaded without it: "
+                         "upload_scene(scene, 'wide', device)")
+
+
+def _wide(ds: DeviceScene):
+    return (ds.wb_group_bounds, ds.wb_mega, ds.wb_oct_bounds, ds.wb_oct_gid,
+            ds.wb_oct_start, ds.wb_oct_blk)
+
+
+def _closest_hit_raw(ds: DeviceScene, o, d, active, options: RenderOptions, og):
+    """Closest-hit dispatch on options.accel.  Returns (t, tri, u, v, group):
+    group is the wide BVH's winning group (None under "brute"), and the
+    wide path's u = v = 0 (the caller refines them from the triangle)."""
+    if options.accel == "wide":
+        t, tri, grp = mega_closest(o, d, active, *_wide(ds), og=og)
+        zero = torch.zeros_like(t)
+        return t, tri, zero, zero, grp
+    return (*brute_closest(o, d, active, ds.tris9), None)
+
+
+def _occluded(ds: DeviceScene, o, d, t_max, active, options: RenderOptions, og):
+    """Any-hit visibility dispatch on options.accel."""
+    if options.accel == "wide":
+        return mega_anyhit(o, d, t_max, active, *_wide(ds), og=og)
+    return brute_anyhit(o, d, t_max, active, ds.tris9)
 
 
 def _power_heuristic(a, b):
@@ -88,6 +115,9 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
     prev_pdf = torch.ones(n, dtype=torch.float32, device=dev)
     is_specular = torch.ones(n, dtype=torch.bool, device=dev)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
+    # The wide BVH's origin-group hint: the group that produced each ray's
+    # origin (0 for primary rays).
+    og = torch.zeros(n, dtype=torch.int32, device=dev)
     alive_per_bounce, anyhit_per_bounce = [], []
 
     for bounce in range(options.max_depth):
@@ -103,7 +133,7 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
 
         if with_stats:
             alive_per_bounce.append(alive.sum())
-        raw_t, raw_tri, raw_u, raw_v = brute_closest(o, d, alive, ds.tris9)
+        raw_t, raw_tri, raw_u, raw_v, grp = _closest_hit_raw(ds, o, d, alive, options, og)
         rows = shade_tab[torch.clamp(raw_tri, min=0).long()]
         t_r, u_r, v_r = refine_hit_tri(o, d, rows[:, 0:3], rows[:, 3:6], rows[:, 6:9])
         keep = raw_tri >= 0
@@ -112,6 +142,8 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
         hit_v = torch.where(keep, v_r, raw_v)
         got = alive & keep
         alive = got
+        if grp is not None:
+            og = torch.clamp(grp, min=0)
 
         n_shade = _shading_normal_from_rows(rows, hit_u, hit_v)
         albedo = rows[:, 26:29]
@@ -154,8 +186,8 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
             cand = alive & (cos_mtl > 0) & (cos_light < 0)
             if with_stats:
                 anyhit_per_bounce.append(cand.sum())
-            shadowed = brute_anyhit(
-                hit_point, ldir, torch.where(cand, dist - EPS, 0.0), cand, ds.tris9
+            shadowed = _occluded(
+                ds, hit_point, ldir, torch.where(cand, dist - EPS, 0.0), cand, options, og
             )
             visible = cand & ~shadowed
             pdf_light = (

@@ -1,12 +1,15 @@
 """Device scene: host SceneArrays uploaded to a torch device (counterpart of
 caitlynrenderer_tpu/scene.py).
 
-Only the brute-force accelerator is ported: the scene stays in its own
-triangle order and every query sweeps all triangles through the
-mt_brute kernel.  `scene_families`, `validate_scene`, `auto_accel` and
-`BRUTE_MAX_TRIS` are JAX-free copies of the reference's (whose module
-imports jax); tests/test_torch_scene.py holds each copy against the
-original.
+Two accelerators are ported.  "brute" keeps the scene in its own triangle
+order and every query sweeps all triangles through the mt_brute kernel.
+"wide" builds the binary SAH BVH (accel/bvh.py), reorders the scene into
+its leaf order, cuts it into groups (accel/wide.py) and packs the groups'
+Baldwin–Weber planes and per-octant worklists for the traverse_mega
+kernel.  `scene_families`, `validate_scene`, `auto_accel`,
+`BRUTE_MAX_TRIS` and the wide group-size policy are JAX-free copies of
+the reference's (whose module imports jax); tests/test_torch_scene.py and
+tests/test_torch_mega.py hold each copy against the original.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from caitlynrenderer_tpu.accel.bvh import build_bvh, reorder_scene
+from caitlynrenderer_tpu.accel.wide import build_wide
 from caitlynrenderer_tpu.core.types import (
     LAMBERT_TYPES,
     Lights,
@@ -24,32 +29,51 @@ from caitlynrenderer_tpu.core.types import (
     SceneArrays,
 )
 from caitlynrenderer_tpu_torch.ops.intersect import pack_tris
+from caitlynrenderer_tpu_torch.ops.traverse_mega import pack_mega, pack_octants
 
 ACCELS = ("brute", "bvh2", "sbvh", "wide", "cwbvh")
 # Where each accelerator that is not ported yet stands in ROADMAP.md.
 _UNPORTED = {
-    "wide": "ROADMAP A4 (wide BVH, kernel B2)",
     "bvh2": "ROADMAP A7 (bvh2/sbvh traversal)",
     "sbvh": "ROADMAP A7 (bvh2/sbvh traversal)",
     "cwbvh": "ROADMAP A8 (CWBVH, kernel B3)",
 }
 
 
+# The wide accelerator's arrays, by their names in both packages'
+# DeviceScene (convert.device_scene_from_numpy carries them across).
+WIDE_FIELDS = (
+    "wb_group_bounds", "wb_mega", "wb_oct_bounds", "wb_oct_gid", "wb_oct_start", "wb_oct_blk",
+)
+
+
 class DeviceScene(NamedTuple):
-    """Scene tensors on one device, for the brute-force accelerator.
+    """Scene tensors on one device.
 
     scene:     SceneArrays whose array fields are tensors (textures and
-               env_map stay as given: None or numpy)
-    tris9:     (T, 9) f32 — packed v0 | e1 | e2, the kernel's slab
+               env_map stay as given: None or numpy); under "wide" in the
+               BVH's leaf order, so triangle ids are the reference's
+    tris9:     (T, 9) f32 — packed v0 | e1 | e2, the brute kernel's slab
     shade_tab: (T, 50) f32 — fused per-triangle shading rows (column map
                at `build_shade_table`)
     light_tab: (L, 17) f32 — p | u | v | n | e | area | selection pdf
+    wb_*:      the wide accelerator (empty placeholders under "brute"):
+               group_bounds (G, 6) f32, mega (G, 8, 3·Kp) f32 plane blocks,
+               oct_bounds (8, gpad, 16) f32, oct_gid and oct_start
+               (8, gpad) i32, oct_blk (8, nblk, 16) f32 — layouts at
+               ops/traverse_mega.pack_mega and pack_octants
     """
 
     scene: SceneArrays
     tris9: torch.Tensor
     shade_tab: torch.Tensor
     light_tab: torch.Tensor
+    wb_group_bounds: torch.Tensor
+    wb_mega: torch.Tensor
+    wb_oct_bounds: torch.Tensor
+    wb_oct_gid: torch.Tensor
+    wb_oct_start: torch.Tensor
+    wb_oct_blk: torch.Tensor
 
     @property
     def device(self) -> torch.device:
@@ -168,15 +192,61 @@ def build_light_table(lights: Lights) -> torch.Tensor:
     return torch.cat([lights.p, lights.u, lights.v, lights.n, lights.e, lights.area_pdf], dim=1)
 
 
-def upload_scene(scene_np: SceneArrays, accel: str, device) -> DeviceScene:
-    """Validate the scene and move it to `device` (a torch.device or name)
-    with the tables the integrator reads every bounce.  `accel` must be
-    "brute"; the other reference accelerators raise NotImplementedError."""
+def wide_group_size(num_triangles: int, group_tris=None) -> int:
+    """Triangles per wide-BVH group: an explicit `group_tris` as given
+    (at least 1); by default 256, doubled while the scene would have more
+    than 2000 groups, up to 1024."""
+    if group_tris is not None:
+        return max(group_tris, 1)
+    gt = 256
+    while num_triangles / gt > 2000 and gt < 1024:
+        gt *= 2
+    return gt
+
+
+def _build_wide_arrays(scene_np: SceneArrays, max_leaf: int = 4, group_tris=None):
+    """Host build of the wide accelerator.  Returns (scene in the BVH's leaf
+    order, {WIDE_FIELDS name: numpy array})."""
+    bvh = build_bvh(scene_np.vertices, scene_np.tri_v, max_leaf=max_leaf)
+    ordered = reorder_scene(scene_np, bvh)
+    wb = build_wide(
+        np.asarray(ordered.vertices), np.asarray(ordered.tri_v), bvh,
+        group_tris=wide_group_size(scene_np.num_triangles, group_tris),
+    )
+    octs = pack_octants(wb.group_bounds, wb.tri_index[:, 0])
+    arrays = (wb.group_bounds, pack_mega(wb.packed_tris, wb.tri_index)) + octs
+    return ordered, dict(zip(WIDE_FIELDS, arrays))
+
+
+def empty_wide_arrays() -> dict:
+    """The wide fields of a scene without groups: every query misses."""
+    octs = pack_octants(np.zeros((0, 6), np.float32), np.zeros(0, np.int32))
+    arrays = (np.zeros((0, 6), np.float32), np.zeros((0, 8, 384), np.float32)) + octs
+    return dict(zip(WIDE_FIELDS, arrays))
+
+
+def upload_scene(scene_np: SceneArrays, accel: str, device, max_leaf: int = 4,
+                 wide_group_tris=None) -> DeviceScene:
+    """Validate the scene, build `accel` and move everything to `device` (a
+    torch.device or name) with the tables the integrator reads every
+    bounce.  `accel` is "brute" or "wide" (max_leaf and wide_group_tris
+    shape the wide build, as in the reference); the other reference
+    accelerators raise NotImplementedError."""
     if accel not in ACCELS:
         raise ValueError(f"unknown accel {accel!r} (expected one of {'/'.join(ACCELS)})")
-    if accel != "brute":
+    if accel in _UNPORTED:
         raise NotImplementedError(f"accel {accel!r} is not ported yet: {_UNPORTED[accel]}")
     validate_scene(scene_np)
+    if accel == "wide" and scene_np.num_triangles > 0:
+        scene_np, wide = _build_wide_arrays(scene_np, max_leaf, wide_group_tris)
+    else:
+        wide = empty_wide_arrays()
+    return scene_to_device(scene_np, wide, device)
+
+
+def scene_to_device(scene_np: SceneArrays, wide: dict, device) -> DeviceScene:
+    """DeviceScene of an already validated (and, for "wide", already
+    reordered) scene and its wide arrays ({WIDE_FIELDS name: array})."""
 
     def put(x, dtype):  # copies: the caller's arrays stay the caller's
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
@@ -194,9 +264,11 @@ def upload_scene(scene_np: SceneArrays, accel: str, device) -> DeviceScene:
         textures=scene_np.textures,
         env_map=scene_np.env_map,
     )
+    int_fields = ("wb_oct_gid", "wb_oct_start")
     return DeviceScene(
         scene=sc,
         tris9=pack_tris(sc.vertices, sc.tri_v).contiguous(),
         shade_tab=build_shade_table(sc),
         light_tab=build_light_table(sc.lights),
+        **{k: put(wide[k], i32 if k in int_fields else f32) for k in WIDE_FIELDS},
     )

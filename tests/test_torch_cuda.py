@@ -1,12 +1,12 @@
-"""CUDA tier: the hand-written mt_brute kernel against its plain PyTorch
-twin on the card, and the golden render through the kernel.
+"""CUDA tier: the hand-written kernels (mt_brute, traverse_mega) against
+their plain PyTorch twins on the card, and the golden render through each.
 
 Marked `cuda`; every test skips (inside the fixture, never at import)
 when torch sees no CUDA device.  Run on an NVIDIA card with
-`python -m pytest tests/ -m cuda -q`.  The first test builds
-csrc/mt_brute.cu with nvcc (a few seconds).  Tolerance: tri and occlusion
-equal on every ray, t/u/v within 1e-6 relative (kernel and twin evaluate
-the same float32 expressions, neither contracts into FMAs).
+`python -m pytest tests/ -m cuda -q`.  The first test of each kernel
+builds its csrc/*.cu with nvcc (a few seconds).  Tolerance: tri, group and
+occlusion equal on every ray, t/u/v within 1e-6 relative (kernel and twin
+evaluate the same float32 expressions, neither contracts into FMAs).
 """
 
 import os
@@ -16,13 +16,13 @@ import pytest
 import torch
 
 from caitlynrenderer_tpu.core.types import RenderOptions
-from caitlynrenderer_tpu.io.builtin_scenes import random_triangle_soup
+from caitlynrenderer_tpu.io.builtin_scenes import displaced_grid, random_triangle_soup
 from caitlynrenderer_tpu.utils import config
 from caitlynrenderer_tpu_torch.core import math as cm
-from caitlynrenderer_tpu_torch.ops import mt_brute
+from caitlynrenderer_tpu_torch.ops import mt_brute, traverse_mega
 from caitlynrenderer_tpu_torch.ops.intersect import pack_tris
 from caitlynrenderer_tpu_torch.render import progressive
-from caitlynrenderer_tpu_torch.scene import scene_families, upload_scene
+from caitlynrenderer_tpu_torch.scene import WIDE_FIELDS, scene_families, upload_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -109,6 +109,74 @@ def test_golden_render_on_cuda(dev, cornell):
     img = img.cpu().numpy()
     assert mt_brute.launches["closest"] == 48 * 3 and mt_brute.launches["anyhit"] == 48 * 3
     assert mt_brute.launches["closest_twin"] == 0 and mt_brute.launches["anyhit_twin"] == 0
+    err = np.abs(img - np.load(GOLDEN)["img"])
+    assert err.mean() < 2e-3, err.mean()
+    assert err.max() < 0.06, err.max()
+    assert img[32, 4, 0] > img[32, 4, 1] and img[32, 60, 1] > img[32, 60, 0]
+
+
+def _wide_case(case, dev, cornell):
+    """(wide DeviceScene, o, d, active, t_max) for a B2 case."""
+    if case == "soup":
+        ds = upload_scene(random_triangle_soup(2000, seed=1)[0], "wide", dev, wide_group_tris=128)
+        return (ds, *_rays(dev, 20_000, 0.0, 10.0, 5))
+    if case == "grid":
+        ds = upload_scene(displaced_grid(resolution=60)[0], "wide", dev, wide_group_tris=32)
+        o, d, active, t_max = _rays(dev, 20_000, 0.0, 10.0, 6)
+        d = cm.normalize(torch.where((d[:, 1] > 0)[:, None], d * torch.tensor(
+            [1.0, -1.0, 1.0], device=dev), d))  # mostly downwards, onto the terrain
+        return ds, o + torch.tensor([0.0, 3.0, 0.0], device=dev), d.contiguous(), active, t_max
+    # cornell with 2-triangle groups: each wall quad has a flat box
+    ds = upload_scene(cornell[0], "wide", dev, wide_group_tris=2)
+    return (ds, *_rays(dev, 20_000, 0.1, 5.4, 7))
+
+
+@pytest.mark.parametrize("case", ["soup", "grid", "cornell_flat_groups"])
+def test_mega_kernel_matches_twin(case, dev, cornell):
+    ds, o, d, active, t_max = _wide_case(case, dev, cornell)
+    wide = [getattr(ds, k) for k in WIDE_FIELDS]
+    og = torch.randint(0, ds.wb_mega.shape[0], (o.shape[0],), dtype=torch.int32, device=dev)
+    tk, trk, gk = traverse_mega.mega_closest(o, d, active, *wide, og=og)
+    tt, trt, gt = traverse_mega.mega_closest_plain(o, d, active, *wide)
+    occ_k = traverse_mega.mega_anyhit(o, d, t_max, active, *wide, og=og)
+    occ_t = traverse_mega.mega_anyhit_plain(o, d, t_max, active, *wide)
+    torch.cuda.synchronize()
+    assert torch.equal(trk, trt) and torch.equal(gk, gt)
+    assert torch.equal(occ_k, occ_t)
+    assert int((trt >= 0).sum()) > 0 and int(occ_t.sum()) > 0
+    assert bool(((tk - tt).abs() <= 1e-6 * tt.abs()).all())
+
+
+def test_mega_kernel_rejects_bad_inputs(dev, cornell):
+    ds = upload_scene(cornell[0], "wide", dev, wide_group_tris=2)
+    wide = [getattr(ds, k) for k in WIDE_FIELDS]
+    o, d, active, t_max = _rays(dev, 64, 0.1, 5.4, 8)
+    with pytest.raises(TypeError):
+        traverse_mega.mega_closest(o.double(), d, active, *wide)
+    with pytest.raises(ValueError):
+        traverse_mega.mega_closest(o.t().contiguous().t(), d, active, *wide)
+    with pytest.raises(ValueError):
+        traverse_mega.mega_anyhit(o, d, t_max[:10], active, *wide)
+    with pytest.raises(TypeError):
+        traverse_mega.mega_closest(o, d, active, *wide, og=torch.zeros(64, device=dev))
+    with pytest.raises(ValueError):
+        traverse_mega.mega_closest(o, d, active, *wide[:5], wide[5][:, :0])
+    with pytest.raises(ValueError):
+        traverse_mega.mega_closest(o.cpu(), d, active, *wide)
+
+
+def test_golden_render_through_wide_on_cuda(dev, cornell):
+    scene, camera = cornell
+    options = RenderOptions(width=64, height=64, max_depth=3, accel="wide",
+                            families=scene_families(scene))
+    mt_brute.reset_launches()
+    traverse_mega.reset_launches()
+    ds = upload_scene(scene, "wide", dev, wide_group_tris=64)
+    img, _ = progressive.render_image(ds, camera, options, spp=48, seed=0)
+    img = img.cpu().numpy()
+    assert traverse_mega.launches == {"closest": 48 * 3, "anyhit": 48 * 3,
+                                      "closest_twin": 0, "anyhit_twin": 0}
+    assert all(v == 0 for v in mt_brute.launches.values())
     err = np.abs(img - np.load(GOLDEN)["img"])
     assert err.mean() < 2e-3, err.mean()
     assert err.max() < 0.06, err.max()

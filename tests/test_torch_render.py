@@ -131,7 +131,7 @@ def test_cli_render_writes_png(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "auto"], ["--turntable", "4"], ["--resume", "c.npz"],
-                                  ["--accel", "wide"]])
+                                  ["--accel", "cwbvh"]])
 def test_cli_unported_options_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError):
         cli.main(["render", TOML, "--device", "cpu", "--spp", "1", "--width", "8",
@@ -152,7 +152,7 @@ def test_unported_render_options_raise(change):
     elif change == "aov":
         options = options._replace(aov="normal")
     else:
-        options = options._replace(accel="wide")
+        options = options._replace(accel="cwbvh")
     ds = t_upload(scene, "brute", "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_progressive.render_image(ds, camera, options, spp=1)

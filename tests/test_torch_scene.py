@@ -92,7 +92,7 @@ def test_validate_scene_copy_raises_like_reference(kind):
 
 def test_unported_and_unknown_accels_raise():
     sc, _ = cornell_box()
-    for accel in ("wide", "bvh2", "sbvh", "cwbvh"):
+    for accel in ("bvh2", "sbvh", "cwbvh"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_scene.upload_scene(sc, accel, "cpu")
     with pytest.raises(ValueError):
@@ -113,6 +113,7 @@ def test_port_never_imports_jax():
         "import sys\n"
         "import caitlynrenderer_tpu_torch.cli, caitlynrenderer_tpu_torch.bench\n"
         "import caitlynrenderer_tpu_torch.convert, caitlynrenderer_tpu_torch.render.progressive\n"
+        "import caitlynrenderer_tpu_torch.ops.traverse_mega\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
