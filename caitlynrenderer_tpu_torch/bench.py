@@ -9,7 +9,8 @@ one.
 
     python -m caitlynrenderer_tpu_torch.bench [--width N] [--height N]
         [--depth N] [--steps N] [--warmup N]
-        [--scene cornell|soup|grid100k|grid1m] [--accel auto|brute|wide]
+        [--scene cornell|soup|grid100k|grid1m]
+        [--accel auto|brute|bvh2|sbvh|wide|cwbvh]
         [--group-tris N]
 """
 
@@ -54,7 +55,8 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=256)
     ap.add_argument("--height", type=int, default=256)
     ap.add_argument("--depth", type=int, default=4)
-    ap.add_argument("--accel", default="auto", choices=["auto", "brute", "wide"])
+    ap.add_argument("--accel", default="auto",
+                    choices=["auto", "brute", "bvh2", "sbvh", "wide", "cwbvh"])
     ap.add_argument("--scene", default="cornell", choices=SCENES)
     ap.add_argument("--steps", type=int, default=128, help="samples timed")
     ap.add_argument("--warmup", type=int, default=1, help="samples before timing")
@@ -70,21 +72,27 @@ def main(argv=None) -> int:
     from caitlynrenderer_tpu_torch.device import get_device
     from caitlynrenderer_tpu_torch.render import progressive, sampling
     from caitlynrenderer_tpu_torch.render.integrator import trace_paths
-    from caitlynrenderer_tpu_torch.scene import auto_accel, scene_families, upload_scene
+    from caitlynrenderer_tpu_torch.scene import (
+        auto_accel,
+        required_stack,
+        scene_families,
+        upload_scene,
+    )
 
     device = get_device("cuda")
     scene, camera = bench_scene(args.scene)
     accel = auto_accel(scene) if args.accel == "auto" else args.accel
 
     t_build0 = time.perf_counter()
-    ds = upload_scene(scene, accel, device, wide_group_tris=args.group_tris)
+    options = RenderOptions(width=args.width, height=args.height, max_depth=args.depth,
+                            accel=accel, families=scene_families(scene))
+    ds = upload_scene(scene, accel, device, max_leaf=options.max_leaf,
+                      wide_group_tris=args.group_tris)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t_build0
+    options = options._replace(max_stack=required_stack(ds))
 
     w, h, depth = args.width, args.height, args.depth
-    options = RenderOptions(
-        width=w, height=h, max_depth=depth, accel=accel, families=scene_families(scene)
-    )
     n = w * h
 
     # Count the actual ray queries once (instrumented pass).

@@ -45,14 +45,17 @@ def cmd_render(args) -> int:
     from caitlynrenderer_tpu.utils import config
     from caitlynrenderer_tpu_torch.device import get_device
     from caitlynrenderer_tpu_torch.render import progressive
-    from caitlynrenderer_tpu_torch.scene import upload_scene
+    from caitlynrenderer_tpu_torch.scene import required_stack, upload_scene
 
     device = get_device(args.device)
     scene, camera, options = render_setup(
         config.load_config(args.config), os.path.dirname(args.config),
         width=args.width, height=args.height, max_depth=args.depth, accel=args.accel,
     )
-    ds = upload_scene(scene, options.accel, device)
+    ds = upload_scene(scene, options.accel, device, max_leaf=options.max_leaf)
+    # Size the binary-BVH stack from the build: a deep tree would overflow
+    # a fixed one.
+    options = options._replace(max_stack=required_stack(ds))
     w, h = options.width, options.height
     spp = args.spp or options.max_samples
     t0 = time.perf_counter()
@@ -80,7 +83,7 @@ def main(argv=None) -> int:
     r.add_argument("--depth", type=int, default=None)
     r.add_argument("--accel", default="auto",
                    help="auto (default): brute up to 2048 triangles, wide above; "
-                   "brute and wide are ported")
+                   "or brute, bvh2, sbvh, wide, cwbvh")
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--device", default="cuda", help="torch device (default cuda)")
     r.add_argument("--resume", default=None, help="not ported yet")

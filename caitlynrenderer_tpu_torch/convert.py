@@ -12,35 +12,58 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from caitlynrenderer_tpu.accel.bvh import FlatBVH
 from caitlynrenderer_tpu.core.types import SceneArrays
 from caitlynrenderer_tpu_torch.render.progressive import RenderState
 from caitlynrenderer_tpu_torch.scene import (
+    BVH_FIELDS,
+    CW_FIELDS,
     WIDE_FIELDS,
     DeviceScene,
+    empty_cw_arrays,
     empty_wide_arrays,
+    one_leaf_bvh,
     scene_to_device,
     validate_scene,
 )
 
 
-def device_scene_from_numpy(scene: SceneArrays, device, wide=None) -> DeviceScene:
+def _fields(name, arrays, fields):
+    missing = set(fields) - set(arrays)
+    if missing:
+        raise ValueError(f"{name} arrays missing: {sorted(missing)}")
+    return {k: arrays[k] for k in fields}
+
+
+def device_scene_from_numpy(scene: SceneArrays, device, wide=None, cw=None,
+                            bvh=None) -> DeviceScene:
     """The port's DeviceScene from the reference DeviceScene's `scene`
     field with every array as numpy (e.g.
-    `jax.tree_util.tree_map(np.asarray, ds.scene)`), and, for the wide
-    accelerator, its wide arrays: `wide` maps each name of
-    `scene.WIDE_FIELDS` ("wb_group_bounds", "wb_mega", "wb_oct_bounds",
-    "wb_oct_gid", "wb_oct_start", "wb_oct_blk") to a numpy array, e.g.
-    `{k: np.asarray(getattr(ds, k)) for k in WIDE_FIELDS}`.  Nothing is
-    rebuilt: the port then sees the reference's triangle ids and groups.
-    Without `wide` the scene serves the brute-force sweep, in whatever
+    `jax.tree_util.tree_map(np.asarray, ds.scene)`), and the arrays of at
+    most one accelerator, each a dict of numpy arrays under the reference
+    DeviceScene's names, e.g. `{k: np.asarray(getattr(ds, k)) for k in
+    WIDE_FIELDS}`:
+      wide: scene.WIDE_FIELDS ("wb_group_bounds", "wb_mega",
+            "wb_oct_bounds", "wb_oct_gid", "wb_oct_start", "wb_oct_blk");
+      cw:   scene.CW_FIELDS ("cw_nodes" (N8, 20) uint32, "cw_planes",
+            "cw_bounds"), the bits of the node words unchanged;
+      bvh:  scene.BVH_FIELDS ("node_bounds", "node_meta"), for "bvh2" and
+            "sbvh".
+    Nothing is rebuilt: the port then sees the reference's triangle ids.
+    Without any the scene serves the brute-force sweep, in whatever
     triangle order it has."""
     validate_scene(scene)
-    if wide is None:
-        wide = empty_wide_arrays()
-    missing = set(WIDE_FIELDS) - set(wide)
-    if missing:
-        raise ValueError(f"wide arrays missing: {sorted(missing)}")
-    return scene_to_device(scene, wide, device)
+    given = [k for k, v in (("wide", wide), ("cwbvh", cw), ("bvh2", bvh)) if v is not None]
+    if len(given) > 1:
+        raise ValueError(f"give the arrays of one accelerator, got {given}")
+    accel = given[0] if given else "brute"
+    tree = one_leaf_bvh(scene.num_triangles)
+    if bvh is not None:
+        b = _fields("bvh", bvh, BVH_FIELDS)
+        tree = FlatBVH(b["node_bounds"], b["node_meta"], tree.tri_order)
+    wide = empty_wide_arrays() if wide is None else _fields("wide", wide, WIDE_FIELDS)
+    cw = empty_cw_arrays() if cw is None else _fields("cw", cw, CW_FIELDS)
+    return scene_to_device(scene, accel, device, bvh=tree, wide=wide, cw=cw)
 
 
 def state_from_numpy(accum, frame_count, base_key, device) -> RenderState:

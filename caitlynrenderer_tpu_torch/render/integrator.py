@@ -5,15 +5,19 @@ The whole ray batch advances bounce by bounce as dense (N, ...) tensors:
 raygen → closest hit → shade (emission, NEE with a shadow any-hit, MIS) →
 scatter, with masked lanes for dead paths.  Both ray queries go through
 the scene's accelerator: ops/mt_brute under "brute", ops/traverse_mega
-under "wide", each of which launches its CUDA kernel for CUDA tensors.
-The estimator, the uniform layout and the order of the arithmetic are the
-reference's, so the tests can hold the two against each other per pixel.
+under "wide" and ops/traverse_cw8 under "cwbvh", each of which launches
+its CUDA kernel for CUDA tensors, and ops/traverse_bvh (plain torch ops,
+as the reference's XLA walk) under "bvh2" and "sbvh".  The estimator, the
+uniform layout and the order of the arithmetic are the reference's, so the
+tests can hold the two against each other per pixel.
 
 Ported: the "lambert" family, NEE + MIS power heuristic,
 `exact_reference_nee`, Russian roulette (`rr_start`) and the ray-count
 stats.  Disney/mirror/glass, textures, the env map and AOVs raise
-NotImplementedError (ROADMAP.md queue A).  The wide path threads the
-reference's origin-group hint (`og`); its `preorder` has no counterpart.
+NotImplementedError (ROADMAP.md queue A).  The wide and cwbvh paths
+thread the reference's origin-group (window) hint `og`; its `preorder` has
+no counterpart, and `options.traversal` is not read (each accelerator has
+one path per device).
 """
 
 from __future__ import annotations
@@ -27,8 +31,10 @@ from caitlynrenderer_tpu_torch.core import math as cm
 from caitlynrenderer_tpu_torch.core.camera import generate_rays
 from caitlynrenderer_tpu_torch.ops.intersect import refine_hit_tri
 from caitlynrenderer_tpu_torch.ops.mt_brute import brute_anyhit, brute_closest
+from caitlynrenderer_tpu_torch.ops.traverse_bvh import traverse_anyhit, traverse_closest
+from caitlynrenderer_tpu_torch.ops.traverse_cw8 import cw8_anyhit, cw8_closest
 from caitlynrenderer_tpu_torch.ops.traverse_mega import mega_anyhit, mega_closest
-from caitlynrenderer_tpu_torch.scene import DeviceScene
+from caitlynrenderer_tpu_torch.scene import ACCELS, DeviceScene
 
 EPS = cm.EPS
 RAY_OFFSET = cm.RAY_OFFSET
@@ -36,7 +42,8 @@ RAY_OFFSET = cm.RAY_OFFSET
 
 def check_supported(ds: DeviceScene, options: RenderOptions) -> None:
     """Raise NotImplementedError for any option the port does not cover yet,
-    naming the ROADMAP item that will."""
+    naming the ROADMAP item that will, and ValueError for an accelerator
+    the scene was not uploaded for ("brute" runs on every upload)."""
     extra = [f for f in options.families if f != "lambert"]
     if extra:
         raise NotImplementedError(
@@ -50,13 +57,28 @@ def check_supported(ds: DeviceScene, options: RenderOptions) -> None:
         raise NotImplementedError("textured albedo is not ported yet (ROADMAP A2)")
     if options.aov != "beauty":
         raise NotImplementedError(f"AOV {options.aov!r} is not ported yet (ROADMAP A3)")
-    if options.accel not in ("brute", "wide"):
-        raise NotImplementedError(
-            f"accel {options.accel!r} is not ported yet; 'brute' and 'wide' are (ROADMAP A7, A8)"
+    if options.accel not in ACCELS:
+        raise ValueError(f"unknown accel {options.accel!r} (expected one of {'/'.join(ACCELS)})")
+    # bvh2 and sbvh differ only in how the binary tree was built.
+    binary = {"sbvh": "bvh2"}
+    same = binary.get(options.accel, options.accel) == binary.get(ds.accel, ds.accel)
+    if options.accel != "brute" and not same and ds.tris9.shape[0] > 0:
+        raise ValueError(f"options.accel is {options.accel!r} but the scene was uploaded "
+                         f"without it (for {ds.accel!r}): "
+                         f"upload_scene(scene, {options.accel!r}, device)")
+
+
+def _check_stack(ds: DeviceScene, options: RenderOptions) -> None:
+    """Stack guard of the binary-BVH walk: a stack the build can overflow
+    raises here instead of being clamped.  Size options with
+    `options._replace(max_stack=scene.required_stack(ds))`."""
+    if ds.tree_depth + 1 > options.max_stack:
+        raise ValueError(
+            f"BVH tree depth {ds.tree_depth} needs a traversal stack of "
+            f"{ds.tree_depth + 1} slots but options.max_stack={options.max_stack}; "
+            "set options = options._replace(max_stack="
+            "caitlynrenderer_tpu_torch.scene.required_stack(ds))"
         )
-    if options.accel == "wide" and ds.wb_mega.shape[0] == 0 and ds.tris9.shape[0] > 0:
-        raise ValueError("options.accel is 'wide' but the scene was uploaded without it: "
-                         "upload_scene(scene, 'wide', device)")
 
 
 def _wide(ds: DeviceScene):
@@ -64,14 +86,29 @@ def _wide(ds: DeviceScene):
             ds.wb_oct_start, ds.wb_oct_blk)
 
 
+def _cw(ds: DeviceScene):
+    return ds.cw_nodes, ds.cw_planes, ds.cw_bounds, ds.cw_depth
+
+
+def _bvh(ds: DeviceScene):
+    return ds.node_bounds, ds.node_meta, ds.scene.vertices, ds.scene.tri_v
+
+
 def _closest_hit_raw(ds: DeviceScene, o, d, active, options: RenderOptions, og):
     """Closest-hit dispatch on options.accel.  Returns (t, tri, u, v, group):
-    group is the wide BVH's winning group (None under "brute"), and the
-    wide path's u = v = 0 (the caller refines them from the triangle)."""
-    if options.accel == "wide":
-        t, tri, grp = mega_closest(o, d, active, *_wide(ds), og=og)
+    group is the wide BVH's winning group or the CWBVH's winning window
+    (None under the others), and the wide and cwbvh paths' u = v = 0 (the
+    caller refines them from the triangle)."""
+    if options.accel in ("wide", "cwbvh"):
+        query = mega_closest if options.accel == "wide" else cw8_closest
+        args = _wide(ds) if options.accel == "wide" else _cw(ds)
+        t, tri, grp = query(o, d, active, *args, og=og)
         zero = torch.zeros_like(t)
         return t, tri, zero, zero, grp
+    if options.accel in ("bvh2", "sbvh"):
+        _check_stack(ds, options)
+        return (*traverse_closest(o, d, active, *_bvh(ds), max_leaf=options.max_leaf,
+                                  max_stack=options.max_stack), None)
     return (*brute_closest(o, d, active, ds.tris9), None)
 
 
@@ -79,6 +116,12 @@ def _occluded(ds: DeviceScene, o, d, t_max, active, options: RenderOptions, og):
     """Any-hit visibility dispatch on options.accel."""
     if options.accel == "wide":
         return mega_anyhit(o, d, t_max, active, *_wide(ds), og=og)
+    if options.accel == "cwbvh":
+        return cw8_anyhit(o, d, t_max, active, *_cw(ds), og=og)
+    if options.accel in ("bvh2", "sbvh"):
+        _check_stack(ds, options)
+        return traverse_anyhit(o, d, t_max, active, *_bvh(ds), max_leaf=options.max_leaf,
+                               max_stack=options.max_stack)
     return brute_anyhit(o, d, t_max, active, ds.tris9)
 
 
@@ -115,8 +158,8 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
     prev_pdf = torch.ones(n, dtype=torch.float32, device=dev)
     is_specular = torch.ones(n, dtype=torch.bool, device=dev)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
-    # The wide BVH's origin-group hint: the group that produced each ray's
-    # origin (0 for primary rays).
+    # The origin-group hint of the wide BVH (the CWBVH's: origin window):
+    # the group that produced each ray's origin (0 for primary rays).
     og = torch.zeros(n, dtype=torch.int32, device=dev)
     alive_per_bounce, anyhit_per_bounce = [], []
 

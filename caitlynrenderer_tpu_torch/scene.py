@@ -1,15 +1,21 @@
 """Device scene: host SceneArrays uploaded to a torch device (counterpart of
 caitlynrenderer_tpu/scene.py).
 
-Two accelerators are ported.  "brute" keeps the scene in its own triangle
-order and every query sweeps all triangles through the mt_brute kernel.
-"wide" builds the binary SAH BVH (accel/bvh.py), reorders the scene into
-its leaf order, cuts it into groups (accel/wide.py) and packs the groups'
-Baldwin–Weber planes and per-octant worklists for the traverse_mega
-kernel.  `scene_families`, `validate_scene`, `auto_accel`,
-`BRUTE_MAX_TRIS` and the wide group-size policy are JAX-free copies of
-the reference's (whose module imports jax); tests/test_torch_scene.py and
-tests/test_torch_mega.py hold each copy against the original.
+Every accelerator of the reference is ported.  "brute" keeps the scene in
+its own triangle order and every query sweeps all triangles through the
+mt_brute kernel.  The others build the binary SAH BVH (accel/bvh.py), or
+the spatial-split SBVH (accel/sbvh.py) for "sbvh", and reorder the scene
+into its leaf order: "bvh2" and "sbvh" walk that tree
+(ops/traverse_bvh.py); "wide" cuts it into groups (accel/wide.py) and
+packs the groups' Baldwin–Weber planes and per-octant worklists for the
+traverse_mega kernel; "cwbvh" collapses it into the 8-wide node8 tree
+(accel/cwbvh.py), reorders the triangles once more into the tree's leaf
+order and packs their planes for the traverse_cw8 kernel.
+`scene_families`, `validate_scene`, `auto_accel`, `BRUTE_MAX_TRIS`,
+`required_stack` and the wide group-size policy are JAX-free copies of the
+reference's (whose module imports jax); tests/test_torch_scene.py,
+test_torch_mega.py and test_torch_bvh.py hold each copy against the
+original.
 """
 
 from __future__ import annotations
@@ -19,7 +25,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from caitlynrenderer_tpu.accel.bvh import build_bvh, reorder_scene
+from caitlynrenderer_tpu.accel.bvh import FlatBVH, build_bvh, reorder_scene, tree_depth
+from caitlynrenderer_tpu.accel.cwbvh import build_cwbvh
+from caitlynrenderer_tpu.accel.sbvh import build_sbvh
 from caitlynrenderer_tpu.accel.wide import build_wide
 from caitlynrenderer_tpu.core.types import (
     LAMBERT_TYPES,
@@ -29,51 +37,71 @@ from caitlynrenderer_tpu.core.types import (
     SceneArrays,
 )
 from caitlynrenderer_tpu_torch.ops.intersect import pack_tris
+from caitlynrenderer_tpu_torch.ops.traverse_cw8 import check_depth, node8_depth, pack_windows
 from caitlynrenderer_tpu_torch.ops.traverse_mega import pack_mega, pack_octants
 
 ACCELS = ("brute", "bvh2", "sbvh", "wide", "cwbvh")
-# Where each accelerator that is not ported yet stands in ROADMAP.md.
-_UNPORTED = {
-    "bvh2": "ROADMAP A7 (bvh2/sbvh traversal)",
-    "sbvh": "ROADMAP A7 (bvh2/sbvh traversal)",
-    "cwbvh": "ROADMAP A8 (CWBVH, kernel B3)",
-}
 
 
-# The wide accelerator's arrays, by their names in both packages'
-# DeviceScene (convert.device_scene_from_numpy carries them across).
+# Each accelerator's arrays, by their names in both packages' DeviceScene
+# (convert.device_scene_from_numpy carries them across).
+BVH_FIELDS = ("node_bounds", "node_meta")
 WIDE_FIELDS = (
     "wb_group_bounds", "wb_mega", "wb_oct_bounds", "wb_oct_gid", "wb_oct_start", "wb_oct_blk",
 )
+CW_FIELDS = ("cw_nodes", "cw_planes", "cw_bounds")
 
 
 class DeviceScene(NamedTuple):
     """Scene tensors on one device.
 
-    scene:     SceneArrays whose array fields are tensors (textures and
-               env_map stay as given: None or numpy); under "wide" in the
-               BVH's leaf order, so triangle ids are the reference's
-    tris9:     (T, 9) f32 — packed v0 | e1 | e2, the brute kernel's slab
-    shade_tab: (T, 50) f32 — fused per-triangle shading rows (column map
-               at `build_shade_table`)
-    light_tab: (L, 17) f32 — p | u | v | n | e | area | selection pdf
-    wb_*:      the wide accelerator (empty placeholders under "brute"):
-               group_bounds (G, 6) f32, mega (G, 8, 3·Kp) f32 plane blocks,
-               oct_bounds (8, gpad, 16) f32, oct_gid and oct_start
-               (8, gpad) i32, oct_blk (8, nblk, 16) f32 — layouts at
-               ops/traverse_mega.pack_mega and pack_octants
+    accel:      the accelerator the scene was built for (rendering with
+                another one than this or "brute" raises)
+    scene:      SceneArrays whose array fields are tensors (textures and
+                env_map stay as given: None or numpy); under every
+                accelerator but "brute" in its tree's leaf order, so
+                triangle ids are the reference's
+    tris9:      (T, 9) f32 — packed v0 | e1 | e2, the brute kernel's slab
+    shade_tab:  (T, 50) f32 — fused per-triangle shading rows (column map
+                at `build_shade_table`)
+    light_tab:  (L, 17) f32 — p | u | v | n | e | area | selection pdf
+    node_bounds, node_meta: the binary BVH, (Nn, 6) f32 and (Nn, 2) i32
+                (accel/bvh.FlatBVH; one leaf of every triangle under
+                "brute" and for an empty scene)
+    tree_depth: levels of that binary tree (sizes the bvh2/sbvh stack)
+    wb_*:       the wide accelerator (empty placeholders under the others):
+                group_bounds (G, 6) f32, mega (G, 8, 3·Kp) f32 plane blocks,
+                oct_bounds (8, gpad, 16) f32, oct_gid and oct_start
+                (8, gpad) i32, oct_blk (8, nblk, 16) f32 — layouts at
+                ops/traverse_mega.pack_mega and pack_octants
+    cw_*:       the CWBVH (empty placeholders under the others): cw_nodes
+                (N8, 20) i32 — build_cwbvh's uint32 node8 words, the same
+                bits viewed as int32 (torch's uint32 supports few
+                operations; the kernel reads them as uint32), one node per
+                row; cw_planes (W, 4, 128) f32 Baldwin–Weber windows of 32
+                triangles and cw_bounds (1, 6) f32 scene box — layouts at
+                ops/traverse_cw8.pack_windows
+    cw_depth:   levels of the node8 tree (sizes the kernel's stack)
     """
 
+    accel: str
     scene: SceneArrays
     tris9: torch.Tensor
     shade_tab: torch.Tensor
     light_tab: torch.Tensor
+    node_bounds: torch.Tensor
+    node_meta: torch.Tensor
+    tree_depth: int
     wb_group_bounds: torch.Tensor
     wb_mega: torch.Tensor
     wb_oct_bounds: torch.Tensor
     wb_oct_gid: torch.Tensor
     wb_oct_start: torch.Tensor
     wb_oct_blk: torch.Tensor
+    cw_nodes: torch.Tensor
+    cw_planes: torch.Tensor
+    cw_bounds: torch.Tensor
+    cw_depth: int
 
     @property
     def device(self) -> torch.device:
@@ -149,7 +177,8 @@ BRUTE_MAX_TRIS = 2048  # at most this many triangles: brute force, else wide
 
 def auto_accel(scene_np: SceneArrays) -> str:
     """Production accelerator policy: brute force for small scenes, the wide
-    BVH above BRUTE_MAX_TRIS triangles."""
+    BVH above BRUTE_MAX_TRIS triangles; never the CWBVH (the reference's
+    TPU measurement; PERF.md records the card's)."""
     return "brute" if scene_np.num_triangles <= BRUTE_MAX_TRIS else "wide"
 
 
@@ -192,6 +221,17 @@ def build_light_table(lights: Lights) -> torch.Tensor:
     return torch.cat([lights.p, lights.u, lights.v, lights.n, lights.e, lights.area_pdf], dim=1)
 
 
+def required_stack(ds_or_meta) -> int:
+    """Traversal stack size that provably cannot overflow for this build:
+    the actual tree depth + 1 (floored at the historical default 32).  Size
+    the bvh2/sbvh options with ``options._replace(max_stack=
+    required_stack(ds))``.  Accepts a DeviceScene or a raw (Nn, 2)
+    node_meta array."""
+    if hasattr(ds_or_meta, "tree_depth"):
+        return max(32, ds_or_meta.tree_depth + 1)
+    return max(32, tree_depth(np.asarray(ds_or_meta)) + 1)
+
+
 def wide_group_size(num_triangles: int, group_tris=None) -> int:
     """Triangles per wide-BVH group: an explicit `group_tris` as given
     (at least 1); by default 256, doubled while the scene would have more
@@ -204,18 +244,13 @@ def wide_group_size(num_triangles: int, group_tris=None) -> int:
     return gt
 
 
-def _build_wide_arrays(scene_np: SceneArrays, max_leaf: int = 4, group_tris=None):
-    """Host build of the wide accelerator.  Returns (scene in the BVH's leaf
-    order, {WIDE_FIELDS name: numpy array})."""
-    bvh = build_bvh(scene_np.vertices, scene_np.tri_v, max_leaf=max_leaf)
-    ordered = reorder_scene(scene_np, bvh)
-    wb = build_wide(
-        np.asarray(ordered.vertices), np.asarray(ordered.tri_v), bvh,
-        group_tris=wide_group_size(scene_np.num_triangles, group_tris),
-    )
+def _wide_arrays(ordered: SceneArrays, bvh: FlatBVH, group_tris: int) -> dict:
+    """The wide accelerator of a scene in `bvh`'s leaf order."""
+    wb = build_wide(np.asarray(ordered.vertices), np.asarray(ordered.tri_v), bvh,
+                    group_tris=group_tris)
     octs = pack_octants(wb.group_bounds, wb.tri_index[:, 0])
     arrays = (wb.group_bounds, pack_mega(wb.packed_tris, wb.tri_index)) + octs
-    return ordered, dict(zip(WIDE_FIELDS, arrays))
+    return dict(zip(WIDE_FIELDS, arrays))
 
 
 def empty_wide_arrays() -> dict:
@@ -225,28 +260,75 @@ def empty_wide_arrays() -> dict:
     return dict(zip(WIDE_FIELDS, arrays))
 
 
+def _cw_arrays(ordered: SceneArrays, bvh: FlatBVH):
+    """The CWBVH of a scene in `bvh`'s leaf order.  Returns (the scene in
+    the node8 tree's leaf order, {CW_FIELDS name: array})."""
+    cw = build_cwbvh(bvh, ordered.vertices, ordered.tri_v)
+    ordered = ordered._replace(
+        tri_v=ordered.tri_v[cw.tri_order],
+        tri_vn=ordered.tri_vn[cw.tri_order],
+        tri_vt=ordered.tri_vt[cw.tri_order],
+    )
+    tv = ordered.tri_v
+    p0 = ordered.vertices[tv[:, 0]]
+    cw_tris = np.concatenate(
+        [p0, ordered.vertices[tv[:, 1]] - p0, ordered.vertices[tv[:, 2]] - p0], axis=1
+    ).astype(np.float32)
+    return ordered, dict(zip(CW_FIELDS, (cw.nodes, *pack_windows(cw_tris))))
+
+
+def empty_cw_arrays() -> dict:
+    """The CWBVH fields of a scene without nodes: every query misses."""
+    return dict(zip(CW_FIELDS, (np.zeros((0, 20), np.uint32), np.zeros((0, 4, 128), np.float32),
+                                np.array([[0, 0, 0, 1, 1, 1]], np.float32))))
+
+
+def one_leaf_bvh(num_triangles: int) -> FlatBVH:
+    """The reference's binary "tree" of a scene without a BVH: one leaf of
+    every triangle."""
+    return FlatBVH(
+        node_bounds=np.zeros((1, 6), np.float32),
+        node_meta=np.array([[0, max(num_triangles, 1)]], np.int32),
+        tri_order=np.arange(num_triangles, dtype=np.int32),
+    )
+
+
 def upload_scene(scene_np: SceneArrays, accel: str, device, max_leaf: int = 4,
                  wide_group_tris=None) -> DeviceScene:
     """Validate the scene, build `accel` and move everything to `device` (a
     torch.device or name) with the tables the integrator reads every
-    bounce.  `accel` is "brute" or "wide" (max_leaf and wide_group_tris
-    shape the wide build, as in the reference); the other reference
-    accelerators raise NotImplementedError."""
+    bounce.  `accel` is one of ACCELS, as in the reference: max_leaf is the
+    binary BVH's leaf width (at most 3 under "cwbvh", whose leaves hold at
+    most 3 triangles) and wide_group_tris the wide group size."""
     if accel not in ACCELS:
         raise ValueError(f"unknown accel {accel!r} (expected one of {'/'.join(ACCELS)})")
-    if accel in _UNPORTED:
-        raise NotImplementedError(f"accel {accel!r} is not ported yet: {_UNPORTED[accel]}")
     validate_scene(scene_np)
-    if accel == "wide" and scene_np.num_triangles > 0:
-        scene_np, wide = _build_wide_arrays(scene_np, max_leaf, wide_group_tris)
+    wide, cw = empty_wide_arrays(), empty_cw_arrays()
+    if accel == "brute" or scene_np.num_triangles == 0:
+        bvh, ordered = one_leaf_bvh(scene_np.num_triangles), scene_np
     else:
-        wide = empty_wide_arrays()
-    return scene_to_device(scene_np, wide, device)
+        if accel == "cwbvh":
+            max_leaf = min(max_leaf, 3)
+        build = build_sbvh if accel == "sbvh" else build_bvh
+        bvh = build(scene_np.vertices, scene_np.tri_v, max_leaf=max_leaf)
+        ordered = reorder_scene(scene_np, bvh)
+        if accel == "wide":
+            wide = _wide_arrays(ordered, bvh,
+                                wide_group_size(scene_np.num_triangles, wide_group_tris))
+        elif accel == "cwbvh":
+            ordered, cw = _cw_arrays(ordered, bvh)
+    return scene_to_device(ordered, accel, device, bvh=bvh, wide=wide, cw=cw)
 
 
-def scene_to_device(scene_np: SceneArrays, wide: dict, device) -> DeviceScene:
-    """DeviceScene of an already validated (and, for "wide", already
-    reordered) scene and its wide arrays ({WIDE_FIELDS name: array})."""
+def scene_to_device(scene_np: SceneArrays, accel: str, device, bvh: FlatBVH, wide: dict,
+                    cw: dict) -> DeviceScene:
+    """DeviceScene of an already validated (and, but for "brute", already
+    reordered) scene and its accelerator arrays: the binary `bvh`, `wide`
+    ({WIDE_FIELDS name: array}) and `cw` ({CW_FIELDS name: array}, node
+    words uint32 or int32).  Raises ValueError for a node8 tree deeper than
+    the kernel's stack."""
+    cw_depth = node8_depth(cw["cw_nodes"])
+    check_depth(cw_depth)
 
     def put(x, dtype):  # copies: the caller's arrays stay the caller's
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
@@ -266,9 +348,17 @@ def scene_to_device(scene_np: SceneArrays, wide: dict, device) -> DeviceScene:
     )
     int_fields = ("wb_oct_gid", "wb_oct_start")
     return DeviceScene(
+        accel=accel,
         scene=sc,
         tris9=pack_tris(sc.vertices, sc.tri_v).contiguous(),
         shade_tab=build_shade_table(sc),
         light_tab=build_light_table(sc.lights),
+        node_bounds=put(bvh.node_bounds, f32),
+        node_meta=put(bvh.node_meta, i32),
+        tree_depth=int(tree_depth(np.asarray(bvh.node_meta))),
         **{k: put(wide[k], i32 if k in int_fields else f32) for k in WIDE_FIELDS},
+        cw_nodes=put(np.ascontiguousarray(cw["cw_nodes"]).view(np.int32), i32),
+        cw_planes=put(cw["cw_planes"], f32),
+        cw_bounds=put(cw["cw_bounds"], f32),
+        cw_depth=cw_depth,
     )

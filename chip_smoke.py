@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero; no phase's exception is caught):
   1. require CUDA; print the card's name and power limit (nvidia-smi)
-  2. build csrc/mt_brute.cu (B1) and csrc/traverse_mega.cu (B2) from this
-     checkout, one nvcc each, started together; print ptxas's lines
+  2. build csrc/mt_brute.cu (B1), csrc/traverse_mega.cu (B2) and
+     csrc/traverse_cw8.cu (B3) from this checkout, one nvcc each, started
+     together; print ptxas's lines
   3. kernel vs plain PyTorch twin on the card: cornell primary + bounce
      rays at 700x700, 65536 rays x the 2048-triangle soup, and an edge-case
      set (ragged N, inactive lanes, det = 0 padding rows, rays along edges).
@@ -39,7 +40,23 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      integrator, with B2's share from a torch.profiler trace
  11. B2 vs twin times at grid100k (65536 rays) and B2 vs B1 at grid1m
      (16384 rays)
-About 5 minutes on one H100, builds included.  The line before the last is
+ 12. B3 vs its plain twin, closest and any-hit: cornell "cwbvh" primary and
+     bounce rays at 700x700, 65536 rays into the 20,000-triangle soup,
+     grid100k primary and bounce rays at 256x256 (the bench camera), and
+     the edge set (ragged N, ~10 % inactive lanes, rays at vertices and
+     along edges, axis-aligned directions, random og, an all-dead batch,
+     an empty scene).  tri, window and occlusion equal on every ray, t
+     within 1e-6 relative.
+ 13. B3 vs B1 at grid1m: 16384 rays, half aimed at triangle centroids; hit
+     or miss equal, the same triangle or t within rtol 5e-4, occlusion equal
+ 14. golden through B3 ("cwbvh"), and through "bvh2" and "sbvh" (plain
+     torch walk, no kernel): cornell 64x64, 48 spp, within the golden's
+     bounds; for "cwbvh" B3 launched, B1, B2 and the twins not
+ 15. the cwbvh main path on grid100k and grid1m, as phase 10, B3's share
+     from the profiler
+ 16. B3 vs twin times at grid100k (65536 primary and bounce rays) and B3 vs
+     B2 vs B1 at grid1m (16384 rays)
+About 3 minutes on one H100, builds included.  The line before the last is
 the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -140,10 +157,60 @@ def compare_mega(label, mega, o, d, active, wide, t_max, og=None):
     return worst_abs, float(occ_diff > 0)
 
 
+def compare_cw8(label, cw8, o, d, active, cw, t_max, og=None):
+    """B3 vs its twin on one input: tri, window and occlusion equal on every
+    ray, t within TOL_REL relative.  Returns the largest |dt| and the
+    occlusion mismatch (0 or 1)."""
+    tk, trk, wk = cw8.cw8_closest(o, d, active, *cw, og=og)
+    tt, trt, wt = cw8.cw8_closest_plain(o, d, active, *cw)
+    occ_k = cw8.cw8_anyhit(o, d, t_max, active, *cw, og=og)
+    occ_t = cw8.cw8_anyhit_plain(o, d, t_max, active, *cw)
+    torch.cuda.synchronize()
+    tri_diff = int((trk != trt).sum())
+    win_diff = int((wk != wt).sum())
+    occ_diff = int((occ_k != occ_t).sum())
+    dt = (tk - tt).abs()
+    worst_abs = float(dt.max()) if o.shape[0] else 0.0
+    worst_rel = float((dt / tt.abs().clamp(min=1e-30)).max()) if o.shape[0] else 0.0
+    print(f"  {label}: rays {o.shape[0]} node8s {cw[0].shape[0]} (depth {cw[3]}) hits "
+          f"{int((trt >= 0).sum())} occluded {int(occ_t.sum())} | tri mismatches {tri_diff}, "
+          f"window mismatches {win_diff}, occluded mismatches {occ_diff}, max |dt| "
+          f"{worst_abs:.3e}, max rel {worst_rel:.3e}", flush=True)
+    check(tri_diff == 0, f"{label}: B3 and twin disagree on tri for {tri_diff} rays")
+    check(win_diff == 0, f"{label}: B3 and twin disagree on window for {win_diff} rays")
+    check(occ_diff == 0, f"{label}: B3 and twin disagree on occlusion for {occ_diff} rays")
+    check(bool((dt <= TOL_REL * tt.abs()).all()), f"{label}: t differs beyond {TOL_REL} relative")
+    return worst_abs, float(occ_diff > 0)
+
+
 def wide_args(ds):
     from caitlynrenderer_tpu_torch.scene import WIDE_FIELDS
 
     return [getattr(ds, k) for k in WIDE_FIELDS]
+
+
+def cw_args(ds):
+    return [ds.cw_nodes, ds.cw_planes, ds.cw_bounds, ds.cw_depth]
+
+
+def edge_rays(ds, camera, rng, ne):
+    """Rays at vertices and edge midpoints of the scene's triangles from
+    around the camera, 20 % along an edge from its vertex, 10 %
+    axis-aligned."""
+    tris = ds.tris9.cpu().numpy()
+    bary = np.array([[0, 0], [1, 0], [0, 1], [0.5, 0], [0, 0.5], [0.5, 0.5]], np.float32)
+    k = rng.integers(0, tris.shape[0], ne)
+    b = bary[rng.integers(0, len(bary), ne)]
+    target = tris[k, 0:3] + b[:, :1] * tris[k, 3:6] + b[:, 1:] * tris[k, 6:9]
+    origin = camera.position[None, :] + rng.uniform(-1, 1, (ne, 3)).astype(np.float32)
+    along = rng.random(ne) < 0.2
+    origin[along] = tris[k, 0:3][along]
+    direction = np.where(along[:, None], tris[k, 3:6], target - origin)
+    axis = rng.random(ne) < 0.1
+    sign = rng.choice([-1, 1], (axis.sum(), 1))
+    direction[axis] = np.eye(3)[rng.integers(0, 3, axis.sum())] * sign
+    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    return origin, direction
 
 
 def bounce_rays(ds, o, d, t, tri, rng, cuda):
@@ -162,26 +229,37 @@ def bounce_rays(ds, o, d, t, tri, rng, cuda):
     return hit_o, bd, hit
 
 
+# The kernel module and kernel name each large-scene path runs.
+PATH_KERNEL = {"wide": ("traverse_mega", "mega_kernel", "B2"),
+               "cwbvh": ("traverse_cw8", "cw8_kernel", "B3")}
+
+
 def main_path(label, scene, camera, options, dev, spp):
     """upload_scene -> render_steps -> resolve, timed after a warm-up
-    sample.  Returns the launch counts of the timed run's kernels."""
+    sample, through the "wide" or "cwbvh" kernel.  Returns the launch
+    counts of the timed run's kernels, by module."""
     from caitlynrenderer_tpu.accel.native import native_available
     from caitlynrenderer_tpu_torch.core.camera import generate_rays
-    from caitlynrenderer_tpu_torch.ops import mt_brute as mt
-    from caitlynrenderer_tpu_torch.ops import traverse_mega as mega
+    from caitlynrenderer_tpu_torch.ops import mt_brute, traverse_cw8, traverse_mega
     from caitlynrenderer_tpu_torch.render import progressive, sampling
     from caitlynrenderer_tpu_torch.render.integrator import trace_paths
     from caitlynrenderer_tpu_torch.scene import upload_scene
 
+    modules = {"mt_brute": mt_brute, "traverse_mega": traverse_mega,
+               "traverse_cw8": traverse_cw8}
+    name, kernel, tag = PATH_KERNEL[options.accel]
     w, h, depth = options.width, options.height, options.max_depth
     n = w * h
     t0 = time.perf_counter()
     ds = upload_scene(scene, options.accel, dev)
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
-    print(f"  {label}: {scene.num_triangles} triangles, {ds.wb_mega.shape[0]} groups of "
-          f"{ds.wb_mega.shape[2] // 3} columns; upload + build {upload_s:.3f} s "
-          f"(native BVH builder: {native_available()})", flush=True)
+    layout = (f"{ds.wb_mega.shape[0]} groups of {ds.wb_mega.shape[2] // 3} columns"
+              if options.accel == "wide" else
+              f"{ds.cw_nodes.shape[0]} node8s of depth {ds.cw_depth}, "
+              f"{ds.cw_planes.shape[0]} windows")
+    print(f"  {label}: {scene.num_triangles} triangles, {layout}; upload + build "
+          f"{upload_s:.3f} s (native BVH build: {native_available()})", flush=True)
 
     uni = sampling.draw_uniforms(sampling.prng_key(0), n, depth, dev)
     o, d = generate_rays(camera, w, h, uni)
@@ -189,8 +267,8 @@ def main_path(label, scene, camera, options, dev, spp):
     rays_per_sample = int(stats["rays_closest"]) + int(stats["rays_anyhit"])
     alive_per_bounce = [int(x) for x in stats["alive_per_bounce"]]
 
-    mt.reset_launches()
-    mega.reset_launches()
+    for m in modules.values():
+        m.reset_launches()
     state = progressive.init_state(w, h, 0, dev)
     state = progressive.render_steps(ds, camera, state, w, h, options, 1)
     torch.cuda.synchronize()
@@ -200,13 +278,15 @@ def main_path(label, scene, camera, options, dev, spp):
     elapsed = time.perf_counter() - t0
     img = progressive.resolve(state, w, h, options)
     torch.cuda.synchronize()
-    launches = {"mt_brute": dict(mt.launches), "traverse_mega": dict(mega.launches)}
+    launches = {k: dict(m.launches) for k, m in modules.items()}
+    run = launches[name]
     expect = depth * (spp + 1)
-    check(mega.launches["closest"] == expect and mega.launches["anyhit"] == expect,
+    check(run["closest"] == expect and run["anyhit"] == expect,
           f"{label}: unexpected launch counts {launches}")
-    check(all(v == 0 for v in mt.launches.values()), f"{label}: B1 or its twin ran")
-    check(mega.launches["closest_twin"] == 0 and mega.launches["anyhit_twin"] == 0,
+    check(run["closest_twin"] == 0 and run["anyhit_twin"] == 0,
           f"{label}: the twin ran on the card's path")
+    check(all(v == 0 for k, m in launches.items() if k != name for v in m.values()),
+          f"{label}: another kernel or twin ran: {launches}")
     check(bool(torch.isfinite(state.accum).all()), f"{label}: non-finite radiance")
     check(tuple(img.shape) == (h, w, 3), f"{label}: image shape {tuple(img.shape)}")
     check(float(img.mean()) > 0.05, f"{label}: image is black")
@@ -215,8 +295,8 @@ def main_path(label, scene, camera, options, dev, spp):
           f"alive_per_bounce {alive_per_bounce} mean pixel {float(img.mean()):.4f} "
           f"launches {launches}", flush=True)
 
-    # Where a sample's time goes: CUDA events around each stage, then B2's
-    # device time from a profiler trace of two samples.
+    # Where a sample's time goes: CUDA events around each stage, then the
+    # kernel's device time from a profiler trace of two samples.
     key = sampling.sample_key(sampling.prng_key(0), 0)
     ids = torch.arange(n, dtype=torch.int32, device=dev)
     stages = {
@@ -232,15 +312,15 @@ def main_path(label, scene, camera, options, dev, spp):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         progressive.render_steps(ds, camera, state, w, h, options, 2)
         torch.cuda.synchronize()
-    b2_us = {}
+    k_us = {}
     for evt in prof.key_averages():
-        if "mega_kernel" in evt.key:
+        if kernel in evt.key:
             us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
-            b2_us[evt.key] = (us, evt.count)
+            k_us[evt.key] = (us, evt.count)
     print(f"  {label} ms per sample: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()),
           flush=True)
-    print(f"  {label} B2 device time over 2 samples (profiler): " + ", ".join(
-        f"{k} {us:.1f} us / {c} launches" for k, (us, c) in b2_us.items()), flush=True)
+    print(f"  {label} {tag} device time over 2 samples (profiler): " + ", ".join(
+        f"{k} {us:.1f} us / {c} launches" for k, (us, c) in k_us.items()), flush=True)
     return launches, ds
 
 
@@ -264,18 +344,19 @@ def main():
     from caitlynrenderer_tpu_torch.device import get_device
     from caitlynrenderer_tpu_torch.ops import _build
     from caitlynrenderer_tpu_torch.ops import mt_brute as mt
+    from caitlynrenderer_tpu_torch.ops import traverse_cw8 as cw8
     from caitlynrenderer_tpu_torch.ops import traverse_mega as mega
     from caitlynrenderer_tpu_torch.bench import bench_scene
     from caitlynrenderer_tpu.core.types import RenderOptions
     from caitlynrenderer_tpu_torch.render import progressive, sampling
     from caitlynrenderer_tpu_torch.render.integrator import trace_paths
-    from caitlynrenderer_tpu_torch.scene import scene_families, upload_scene
+    from caitlynrenderer_tpu_torch.scene import required_stack, scene_families, upload_scene
 
     dev = get_device("cuda")
 
     # -------------------------------------------------------------- phase 2
     phase("2 build")
-    names = ("mt_brute", "traverse_mega")
+    names = ("mt_brute", "traverse_mega", "traverse_cw8")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc each, all at once
         infos = list(pool.map(lambda name: _build.build(name, force=True), names))
     for info in infos:
@@ -461,18 +542,7 @@ def main():
     # ~10 % inactive lanes, rays at vertices and edge midpoints, rays along
     # edges, axis-aligned directions (1/0 = inf in the exit clamp), random
     # og; then an all-dead batch.
-    ctris = fds.tris9.cpu().numpy()
-    k = rng.integers(0, ctris.shape[0], ne)
-    b = bary[rng.integers(0, len(bary), ne)]
-    target = ctris[k, 0:3] + b[:, :1] * ctris[k, 3:6] + b[:, 1:] * ctris[k, 6:9]
-    origin = camera.position[None, :] + rng.uniform(-1, 1, (ne, 3)).astype(np.float32)
-    along = rng.random(ne) < 0.2
-    origin[along] = ctris[k, 0:3][along]
-    direction = np.where(along[:, None], ctris[k, 3:6], target - origin)
-    axis = rng.random(ne) < 0.1
-    sign = rng.choice([-1, 1], (axis.sum(), 1))
-    direction[axis] = np.eye(3)[rng.integers(0, 3, axis.sum())] * sign
-    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    origin, direction = edge_rays(fds, camera, rng, ne)
     og = cuda(rng.integers(0, fds.wb_mega.shape[0], ne), torch.int32)
     mega_results.append(compare_mega(
         "edge cases", mega, cuda(origin), cuda(direction), cuda(rng.random(ne) < 0.9, torch.bool),
@@ -570,6 +640,125 @@ def main():
     }
     print(f"  grid1m, {nm} rays: " + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()))
 
+    # ------------------------------------------------------------- phase 12
+    phase("12 B3 vs twin")
+    cwds = upload_scene(scene, "cwbvh", dev)
+    cc = cw_args(cwds)
+    cw_results = [compare_cw8("cornell cwbvh primary", cw8, o, d, act, cc,
+                              cuda(rng.uniform(0, 20, n)))]
+    t, tri, _ = cw8.cw8_closest_plain(o, d, act, *cc)
+    co, cd, cact = bounce_rays(cwds, o, d, t, tri, rng, cuda)
+    cw_results.append(compare_cw8("cornell cwbvh bounce", cw8, co, cd, cact, cc,
+                                  cuda(rng.uniform(0, 8, n))))
+    s20 = upload_scene(soup20k, "cwbvh", dev)
+    cw_results.append(compare_cw8(
+        "soup 20000", cw8, so, sd, cuda(rng.random(ns) < 0.9, torch.bool), cw_args(s20),
+        cuda(rng.uniform(0, 12, ns))))
+    del s20
+    g3 = upload_scene(grid, "cwbvh", dev)
+    gc = cw_args(g3)
+    cw_results.append(compare_cw8("grid100k primary", cw8, go, gd, gact, gc,
+                                  cuda(rng.uniform(0, 20, nb))))
+    t, tri, _ = cw8.cw8_closest_plain(go, gd, gact, *gc)
+    b3o, b3d, b3act = bounce_rays(g3, go, gd, t, tri, rng, cuda)
+    cw_results.append(compare_cw8("grid100k bounce", cw8, b3o, b3d, b3act, gc,
+                                  cuda(rng.uniform(0, 8, nb))))
+    # Edge set on cornell: ragged N, ~10 % inactive lanes, rays at vertices
+    # and along edges, axis-aligned directions, random og; an all-dead
+    # batch; an empty scene.
+    origin, direction = edge_rays(cwds, camera, rng, ne)
+    og = cuda(rng.integers(0, cwds.cw_planes.shape[0], ne), torch.int32)
+    cw_results.append(compare_cw8(
+        "edge cases", cw8, cuda(origin), cuda(direction), cuda(rng.random(ne) < 0.9, torch.bool),
+        cc, cuda(rng.uniform(0, 30, ne)), og=og))
+    cw_results.append(compare_cw8("all dead", cw8, cuda(origin), cuda(direction), dead, cc,
+                                  cuda(rng.uniform(0, 30, ne)), og=og))
+    empty = upload_scene(scene._replace(tri_v=scene.tri_v[:0], tri_vn=scene.tri_vn[:0],
+                                        tri_vt=scene.tri_vt[:0]), "cwbvh", dev)
+    cw_results.append(compare_cw8("empty scene", cw8, cuda(origin), cuda(direction),
+                                  cuda(rng.random(ne) < 0.9, torch.bool), cw_args(empty),
+                                  cuda(rng.uniform(0, 30, ne))))
+    err_b3 = {"closest": max(r[0] for r in cw_results),
+              "anyhit": max(r[1] for r in cw_results)}
+
+    # ------------------------------------------------------------- phase 13
+    phase("13 B3 vs B1 at grid1m")
+    m3 = upload_scene(grid1m, "cwbvh", dev)
+    mc = cw_args(m3)
+    t3, tri3, _ = cw8.cw8_closest(mo, md, mact, *mc)
+    t1, tri1, _, _ = mt.brute_closest(mo, md, mact, m3.tris9)  # the same triangle order
+    occ3 = cw8.cw8_anyhit(mo, md, mtmax, mact, *mc)
+    occ1 = mt.brute_anyhit(mo, md, mtmax, mact, m3.tris9)
+    torch.cuda.synchronize()
+    hit1, hit3 = tri1 >= 0, tri3 >= 0
+    same = tri1 == tri3
+    rel = ((t3 - t1).abs() / t1.abs())[hit1]
+    print(f"  {nm} rays x {grid1m.num_triangles} tris ({m3.cw_nodes.shape[0]} node8s, depth "
+          f"{m3.cw_depth}): hits B1 {int(hit1.sum())} B3 {int(hit3.sum())}, hit/miss mismatches "
+          f"{int((hit1 != hit3).sum())}, same tri {int(same.sum())}, max rel dt "
+          f"{float(rel.max()):.3e}; occluded B1 {int(occ1.sum())} B3 {int(occ3.sum())}",
+          flush=True)
+    check(bool((hit1 == hit3).all()), "B3 and B1 disagree on hit or miss at grid1m")
+    check(float(rel.max()) <= 5e-4, "B3 and B1 t differ beyond rtol 5e-4 at grid1m")
+    near = hit1 & ((t1 - mtmax).abs() <= 5e-4 * t1)
+    check(not bool(((occ1 != occ3) & ~near).any()), "B3 and B1 disagree on occlusion at grid1m")
+
+    # ------------------------------------------------------------- phase 14
+    phase("14 golden through B3, bvh2 and sbvh")
+    for accel in ("cwbvh", "bvh2", "sbvh"):
+        _, _, options = setup(64, 64)
+        ads = upload_scene(scene, accel, dev)
+        options = options._replace(accel=accel, max_stack=required_stack(ads))
+        mt.reset_launches()
+        mega.reset_launches()
+        cw8.reset_launches()
+        img, _ = progressive.render_image(ads, camera, options, spp=48, seed=0)
+        img = img.cpu().numpy()
+        gerr = np.abs(img - golden)
+        print(f"  {accel} vs golden: mean {gerr.mean():.3e} max {gerr.max():.3e}; B3 launches "
+              f"{cw8.launches}, B2 {mega.launches}, B1 {mt.launches}", flush=True)
+        check(gerr.mean() < 2e-3 and gerr.max() < 0.06, f"golden through {accel} out of bounds")
+        check(img[32, 4, 0] > img[32, 4, 1] and img[32, 60, 1] > img[32, 60, 0],
+              f"{accel}: walls are not red / green dominant")
+        want = 48 * 3 if accel == "cwbvh" else 0
+        check(cw8.launches["closest"] == want and cw8.launches["anyhit"] == want,
+              f"{accel}: B3 launches {cw8.launches}")
+        check(cw8.launches["closest_twin"] == 0 and cw8.launches["anyhit_twin"] == 0,
+              f"{accel}: the B3 twin ran on the card's path")
+        check(all(v == 0 for m in (mt, mega) for v in m.launches.values()),
+              f"{accel}: B1, B2 or their twins ran")
+
+    # ------------------------------------------------------------- phase 15
+    phase("15 cwbvh main path on the large scenes")
+    cw_launches = {"closest": 0, "anyhit": 0}
+    for label, sc in (("grid100k", grid), ("grid1m", grid1m)):
+        opts = RenderOptions(width=BENCH, height=BENCH, max_depth=BENCH_DEPTH, accel="cwbvh",
+                             families=scene_families(sc))
+        runs, _ = main_path(f"{label} cwbvh", sc, grid_cam, opts, dev, MAIN_SPP)
+        for q in cw_launches:
+            cw_launches[q] += runs["traverse_cw8"][q]
+
+    # ------------------------------------------------------------- phase 16
+    phase("16 B3 times")
+    b3_times = {
+        "closest": event_ms(lambda: cw8.cw8_closest(go, gd, gact, *gc), 20),
+        "closest_plain": event_ms(lambda: cw8.cw8_closest_plain(go, gd, gact, *gc), 2),
+        "anyhit": event_ms(lambda: cw8.cw8_anyhit(go, gd, tmax, gact, *gc), 20),
+        "anyhit_plain": event_ms(lambda: cw8.cw8_anyhit_plain(go, gd, tmax, gact, *gc), 2),
+        "closest_bounce": event_ms(lambda: cw8.cw8_closest(b3o, b3d, b3act, *gc), 20),
+        "anyhit_bounce": event_ms(lambda: cw8.cw8_anyhit(b3o, b3d, tmax, b3act, *gc), 20),
+    }
+    print(f"  grid100k, {nb} rays: " + ", ".join(f"{k} {v:.4f} ms" for k, v in b3_times.items()))
+    row = {
+        "B3 closest": event_ms(lambda: cw8.cw8_closest(mo, md, mact, *mc), 20),
+        "B2 closest": event_ms(lambda: mega.mega_closest(mo, md, mact, *mw), 20),
+        "B1 closest": event_ms(lambda: mt.brute_closest(mo, md, mact, mds.tris9), 3),
+        "B3 anyhit": event_ms(lambda: cw8.cw8_anyhit(mo, md, mtmax, mact, *mc), 20),
+        "B2 anyhit": event_ms(lambda: mega.mega_anyhit(mo, md, mtmax, mact, *mw), 20),
+        "B1 anyhit": event_ms(lambda: mt.brute_anyhit(mo, md, mtmax, mact, mds.tris9), 3),
+    }
+    print(f"  grid1m, {nm} rays: " + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()))
+
     record = {"kernels": [
         {"name": f"mt_brute_{q}", "route": "cuda", "source": mt.SOURCE,
          "replaces": mt.REPLACES, "launches": launches[q],
@@ -581,6 +770,12 @@ def main():
          "replaces": mega.REPLACES, "launches": mega_launches[q],
          "max_abs_err": err_b2[q],
          "ms": b2_times[q], "plain_ms": b2_times[f"{q}_plain"]}
+        for q in ("closest", "anyhit")
+    ] + [
+        {"name": f"cw8_{q}", "route": "cuda", "source": cw8.SOURCE,
+         "replaces": cw8.REPLACES, "launches": cw_launches[q],
+         "max_abs_err": err_b3[q],
+         "ms": b3_times[q], "plain_ms": b3_times[f"{q}_plain"]}
         for q in ("closest", "anyhit")
     ]}
     check("jax" not in sys.modules, "jax was imported")

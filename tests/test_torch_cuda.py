@@ -1,12 +1,14 @@
-"""CUDA tier: the hand-written kernels (mt_brute, traverse_mega) against
-their plain PyTorch twins on the card, and the golden render through each.
+"""CUDA tier: the hand-written kernels (mt_brute, traverse_mega,
+traverse_cw8) against their plain PyTorch twins on the card, and the
+golden render through each.
 
 Marked `cuda`; every test skips (inside the fixture, never at import)
 when torch sees no CUDA device.  Run on an NVIDIA card with
 `python -m pytest tests/ -m cuda -q`.  The first test of each kernel
 builds its csrc/*.cu with nvcc (a few seconds).  Tolerance: tri, group and
 occlusion equal on every ray, t/u/v within 1e-6 relative (kernel and twin
-evaluate the same float32 expressions, neither contracts into FMAs).
+evaluate the same float32 expressions, neither contracts into FMAs); B3's
+window equal on every ray too.
 """
 
 import os
@@ -19,7 +21,7 @@ from caitlynrenderer_tpu.core.types import RenderOptions
 from caitlynrenderer_tpu.io.builtin_scenes import displaced_grid, random_triangle_soup
 from caitlynrenderer_tpu.utils import config
 from caitlynrenderer_tpu_torch.core import math as cm
-from caitlynrenderer_tpu_torch.ops import mt_brute, traverse_mega
+from caitlynrenderer_tpu_torch.ops import mt_brute, traverse_cw8, traverse_mega
 from caitlynrenderer_tpu_torch.ops.intersect import pack_tris
 from caitlynrenderer_tpu_torch.render import progressive
 from caitlynrenderer_tpu_torch.scene import WIDE_FIELDS, scene_families, upload_scene
@@ -177,6 +179,84 @@ def test_golden_render_through_wide_on_cuda(dev, cornell):
     assert traverse_mega.launches == {"closest": 48 * 3, "anyhit": 48 * 3,
                                       "closest_twin": 0, "anyhit_twin": 0}
     assert all(v == 0 for v in mt_brute.launches.values())
+    err = np.abs(img - np.load(GOLDEN)["img"])
+    assert err.mean() < 2e-3, err.mean()
+    assert err.max() < 0.06, err.max()
+    assert img[32, 4, 0] > img[32, 4, 1] and img[32, 60, 1] > img[32, 60, 0]
+
+
+def _cw(ds):
+    return ds.cw_nodes, ds.cw_planes, ds.cw_bounds, ds.cw_depth
+
+
+def _cw_case(case, dev, cornell):
+    """(cwbvh DeviceScene, o, d, active, t_max) for a B3 case."""
+    if case == "soup":
+        ds = upload_scene(random_triangle_soup(2000, seed=1)[0], "cwbvh", dev)
+        return (ds, *_rays(dev, 20_000, 0.0, 10.0, 9))
+    if case == "grid":
+        ds = upload_scene(displaced_grid(resolution=60)[0], "cwbvh", dev)
+        o, d, active, t_max = _rays(dev, 20_000, 0.0, 10.0, 10)
+        d = cm.normalize(torch.where((d[:, 1] > 0)[:, None], d * torch.tensor(
+            [1.0, -1.0, 1.0], device=dev), d))  # mostly downwards, onto the terrain
+        return ds, o + torch.tensor([0.0, 3.0, 0.0], device=dev), d.contiguous(), active, t_max
+    ds = upload_scene(cornell[0], "cwbvh", dev)  # flat wall boxes
+    return (ds, *_rays(dev, 20_000, 0.1, 5.4, 11))
+
+
+@pytest.mark.parametrize("case", ["soup", "grid", "cornell"])
+def test_cw8_kernel_matches_twin(case, dev, cornell):
+    ds, o, d, active, t_max = _cw_case(case, dev, cornell)
+    og = torch.randint(0, ds.cw_planes.shape[0], (o.shape[0],), dtype=torch.int32, device=dev)
+    tk, trk, wk = traverse_cw8.cw8_closest(o, d, active, *_cw(ds), og=og)
+    tt, trt, wt = traverse_cw8.cw8_closest_plain(o, d, active, *_cw(ds))
+    occ_k = traverse_cw8.cw8_anyhit(o, d, t_max, active, *_cw(ds), og=og)
+    occ_t = traverse_cw8.cw8_anyhit_plain(o, d, t_max, active, *_cw(ds))
+    torch.cuda.synchronize()
+    assert torch.equal(trk, trt) and torch.equal(wk, wt)
+    assert torch.equal(occ_k, occ_t)
+    assert int((trt >= 0).sum()) > 0 and int(occ_t.sum()) > 0
+    assert bool(((tk - tt).abs() <= 1e-6 * tt.abs()).all())
+
+
+def test_cw8_kernel_rejects_bad_inputs(dev, cornell):
+    ds = upload_scene(cornell[0], "cwbvh", dev)
+    nodes, planes, bounds, depth = _cw(ds)
+    o, d, active, t_max = _rays(dev, 64, 0.1, 5.4, 12)
+    with pytest.raises(TypeError):
+        traverse_cw8.cw8_closest(o.double(), d, active, nodes, planes, bounds, depth)
+    with pytest.raises(ValueError):
+        traverse_cw8.cw8_closest(o.t().contiguous().t(), d, active, nodes, planes, bounds, depth)
+    with pytest.raises(ValueError):
+        traverse_cw8.cw8_anyhit(o, d, t_max[:10], active, nodes, planes, bounds, depth)
+    with pytest.raises(TypeError):
+        traverse_cw8.cw8_closest(o, d, active, nodes.view(torch.float32), planes, bounds, depth)
+    with pytest.raises(TypeError):
+        traverse_cw8.cw8_closest(o, d, active, nodes, planes, bounds, depth,
+                                 og=torch.zeros(64, device=dev))
+    with pytest.raises(ValueError):
+        traverse_cw8.cw8_closest(o, d, active, nodes, planes[:, :, :96], bounds, depth)
+    with pytest.raises(ValueError, match="depth"):
+        traverse_cw8.cw8_closest(o, d, active, nodes, planes, bounds, traverse_cw8.MAX_DEPTH + 1)
+    with pytest.raises(ValueError):
+        traverse_cw8.cw8_closest(o.cpu(), d, active, nodes, planes, bounds, depth)
+
+
+@pytest.mark.parametrize("accel", ["cwbvh", "bvh2", "sbvh"])
+def test_golden_render_through_tree_accels_on_cuda(accel, dev, cornell):
+    scene, camera = cornell
+    options = RenderOptions(width=64, height=64, max_depth=3, accel=accel,
+                            families=scene_families(scene))
+    mt_brute.reset_launches()
+    traverse_mega.reset_launches()
+    traverse_cw8.reset_launches()
+    img, _ = progressive.render_image(upload_scene(scene, accel, dev), camera, options,
+                                      spp=48, seed=0)
+    img = img.cpu().numpy()
+    expect = {"closest": 48 * 3, "anyhit": 48 * 3} if accel == "cwbvh" else {}
+    assert {k: v for k, v in traverse_cw8.launches.items() if v} == expect
+    assert all(v == 0 for v in mt_brute.launches.values())
+    assert all(v == 0 for v in traverse_mega.launches.values())
     err = np.abs(img - np.load(GOLDEN)["img"])
     assert err.mean() < 2e-3, err.mean()
     assert err.max() < 0.06, err.max()

@@ -38,6 +38,7 @@ from caitlynrenderer_tpu_torch.scene import upload_scene as t_upload
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOML = os.path.join(ROOT, "scenes", "cornell.toml")
+DISNEY_TOML = os.path.join(ROOT, "scenes", "cornell_disney.toml")
 GOLDEN = os.path.join(ROOT, "scenes", "golden", "cornell_64_cpu.npz")
 
 
@@ -131,15 +132,19 @@ def test_cli_render_writes_png(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "auto"], ["--turntable", "4"], ["--resume", "c.npz"],
-                                  ["--accel", "cwbvh"]])
+                                  [DISNEY_TOML]])
 def test_cli_unported_options_raise(flag, tmp_path):
+    """Unported flags, and a scene whose Disney floor is not ported yet."""
+    config, flag = (flag[0], []) if flag == [DISNEY_TOML] else (TOML, flag)
     with pytest.raises(NotImplementedError):
-        cli.main(["render", TOML, "--device", "cpu", "--spp", "1", "--width", "8",
+        cli.main(["render", config, "--device", "cpu", "--spp", "1", "--width", "8",
                   "--height", "8", "-o", str(tmp_path / "x.png"), *flag])
 
 
 @pytest.mark.parametrize("change", ["families", "env_map", "textures", "aov", "accel"])
 def test_unported_render_options_raise(change):
+    """Unported options raise NotImplementedError naming their ROADMAP item;
+    an accelerator the scene was not uploaded for raises ValueError."""
     scene, camera, options = _setup(8, 8)
     if change == "families":
         options = options._replace(families=("lambert", "disney"))
@@ -154,5 +159,7 @@ def test_unported_render_options_raise(change):
     else:
         options = options._replace(accel="cwbvh")
     ds = t_upload(scene, "brute", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error, match = (ValueError, "uploaded without") if change == "accel" else (
+        NotImplementedError, "ROADMAP")
+    with pytest.raises(error, match=match):
         t_progressive.render_image(ds, camera, options, spp=1)

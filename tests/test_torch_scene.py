@@ -91,12 +91,18 @@ def test_validate_scene_copy_raises_like_reference(kind):
 
 
 def test_unported_and_unknown_accels_raise():
+    """Every accelerator of the reference uploads (none is left unported);
+    an unknown one raises as in the reference."""
     sc, _ = cornell_box()
-    for accel in ("bvh2", "sbvh", "cwbvh"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_scene.upload_scene(sc, accel, "cpu")
-    with pytest.raises(ValueError):
+    for accel in ("brute", "bvh2", "sbvh", "wide", "cwbvh"):
+        ds = t_scene.upload_scene(sc, accel, "cpu")
+        assert ds.accel == accel and ds.shade_tab.shape == (sc.num_triangles, 50)
+    assert t_scene.ACCELS == ("brute", "bvh2", "sbvh", "wide", "cwbvh")
+    with pytest.raises(ValueError) as got:
         t_scene.upload_scene(sc, "octree", "cpu")
+    with pytest.raises(ValueError):
+        j_scene.upload_scene(sc, accel="octree")
+    assert "octree" in str(got.value)
 
 
 def test_cuda_device_without_a_card_raises():
@@ -113,7 +119,8 @@ def test_port_never_imports_jax():
         "import sys\n"
         "import caitlynrenderer_tpu_torch.cli, caitlynrenderer_tpu_torch.bench\n"
         "import caitlynrenderer_tpu_torch.convert, caitlynrenderer_tpu_torch.render.progressive\n"
-        "import caitlynrenderer_tpu_torch.ops.traverse_mega\n"
+        "import caitlynrenderer_tpu_torch.ops.traverse_mega, caitlynrenderer_tpu_torch.ops.traverse_cw8\n"
+        "import caitlynrenderer_tpu_torch.ops.traverse_bvh\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
