@@ -30,8 +30,8 @@ REFERENCE_RAYS_PER_SEC = 1.0e8
 
 def bench_scene(name: str):
     """(scene, camera) of the root bench.py's scene `name`."""
-    from caitlynrenderer_tpu.core.types import make_camera
-    from caitlynrenderer_tpu.io import builtin_scenes
+    from caitlynrenderer_tpu_torch.core.types import make_camera
+    from caitlynrenderer_tpu_torch.io import builtin_scenes
 
     if name == "cornell":
         pos = np.array([2.78, 2.73, 7.5], np.float32)
@@ -67,7 +67,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from caitlynrenderer_tpu.core.types import RenderOptions
+    from caitlynrenderer_tpu_torch.core.types import RenderOptions
     from caitlynrenderer_tpu_torch.core.camera import generate_rays
     from caitlynrenderer_tpu_torch.device import get_device
     from caitlynrenderer_tpu_torch.render import progressive, sampling

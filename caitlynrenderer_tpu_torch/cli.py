@@ -20,7 +20,7 @@ def render_setup(cfg: dict, base_dir: str, **overrides):
     camera it names, RenderOptions with `overrides` (None values ignored),
     accel "auto" resolved by triangle count and the shading families the
     scene's materials use (unless the config names them)."""
-    from caitlynrenderer_tpu.utils import config
+    from caitlynrenderer_tpu_torch.utils import config
     from caitlynrenderer_tpu_torch.scene import auto_accel, scene_families
 
     scene, translation = config.scene_from_config(cfg, base_dir)
@@ -41,8 +41,8 @@ def cmd_render(args) -> int:
     if args.resume is not None:
         raise NotImplementedError("--resume (checkpointing) is not ported yet (ROADMAP A6)")
 
-    from caitlynrenderer_tpu.io.image import save_png
-    from caitlynrenderer_tpu.utils import config
+    from caitlynrenderer_tpu_torch.io.image import save_png
+    from caitlynrenderer_tpu_torch.utils import config
     from caitlynrenderer_tpu_torch.device import get_device
     from caitlynrenderer_tpu_torch.render import progressive
     from caitlynrenderer_tpu_torch.scene import required_stack, upload_scene

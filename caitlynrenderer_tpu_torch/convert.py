@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from caitlynrenderer_tpu.accel.bvh import FlatBVH
-from caitlynrenderer_tpu.core.types import SceneArrays
+from caitlynrenderer_tpu_torch.accel.bvh import FlatBVH
+from caitlynrenderer_tpu_torch.core.types import SceneArrays
 from caitlynrenderer_tpu_torch.render.progressive import RenderState
 from caitlynrenderer_tpu_torch.scene import (
     BVH_FIELDS,

@@ -8,7 +8,7 @@ import math
 
 import torch
 
-from caitlynrenderer_tpu.core.types import Camera
+from caitlynrenderer_tpu_torch.core.types import Camera
 from caitlynrenderer_tpu_torch.core import math as cm
 
 

@@ -15,13 +15,17 @@ card.
 `pack_mega`, `pack_octants` and `_scene_exit_bound` are JAX-free copies of
 the reference's (whose module imports jax); tests/test_torch_mega.py holds
 each against the original.  The reference's coherence sort (`_sort_order`,
-`_octants`) is not ported: the kernel walks one ray per thread, computes
-its ray's octant itself, and its results do not depend on the ray order.
-`og` (the origin-group sort hint) is accepted and checked, and changes
-nothing.
+`_octants`) is not ported: the kernel gives each ray a warp of its own,
+computes its ray's octant itself, and its results do not depend on the ray
+order.  `og` (the origin-group sort hint) is accepted and checked, and
+changes nothing.
+
+`stats=True` (never passed by the render path) launches the kernel's stats
+variant: the same walk, which also returns what it touched (see
+`mega_closest`).  It needs CUDA tensors.
 
 `launches` counts kernel launches and twin calls, so a run can show which
-path it took.
+path it took; `stats_launches` counts launches of the stats variant.
 """
 
 from __future__ import annotations
@@ -39,6 +43,10 @@ REPLACES = "caitlynrenderer_tpu/ops/traverse_mega.py:205"
 INF = 1e9
 
 launches = {"closest": 0, "anyhit": 0, "closest_twin": 0, "anyhit_twin": 0}
+stats_launches = {"closest": 0, "anyhit": 0}
+
+# Columns of the stats variant's per-ray counts.
+STATS = ("block_tests", "entry_tests", "groups", "columns", "uv_columns")
 
 # The twins materialize (rays, groups, Kp) temporaries; the sweep is chunked
 # over rays and groups to about this many pairs per chunk.
@@ -52,13 +60,18 @@ _SIGNATURES = {
     # o, d, t_max, active, box, planes, oct_bounds, oct_gid, oct_start,
     # oct_blk, n, g, kp, gpad, nblk, out_occ, device, stream
     "mega_anyhit": (_INT, [_PTR] * 10 + [_INT] * 5 + [_PTR, _INT, _PTR]),
+    # as mega_closest, then stats, grp_seen, ent_seen, blk_seen before device
+    "mega_closest_stats": (_INT, [_PTR] * 9 + [_INT] * 5 + [_PTR] * 7 + [_INT, _PTR]),
+    # as mega_anyhit, then stats, grp_seen, ent_seen, blk_seen before device
+    "mega_anyhit_stats": (_INT, [_PTR] * 10 + [_INT] * 5 + [_PTR] * 5 + [_INT, _PTR]),
     "mega_error_string": (ctypes.c_char_p, [_INT]),
 }
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, stats_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 # --------------------------------------------------------------------------
@@ -285,6 +298,9 @@ def _check_query(o, d, active, group_bounds, mega_blocks, oct_bounds, oct_gid,
     _build.check_tensor("oct_gid", oct_gid, i32, (8, gpad), dev)
     _build.check_tensor("oct_start", oct_start, i32, (8, gpad), dev)
     _build.check_tensor("oct_blk", oct_blk, f32, (8, nblk, 16), dev)
+    if oct_bounds.data_ptr() % 16 or oct_blk.data_ptr() % 16:
+        raise ValueError("oct_bounds and oct_blk must be 16-byte aligned (the kernel reads "
+                         "16-byte words)")
     if n >= 2**31 or mega_blocks.numel() >= 2**40:
         raise ValueError(f"too many rays ({n}) or plane columns for the kernel's indexing")
     return n, g, kp, gpad, nblk, dev
@@ -295,59 +311,92 @@ def _scene_box(group_bounds):
     return torch.cat([group_bounds[:, :3].amin(dim=0), group_bounds[:, 3:].amax(dim=0)])
 
 
+def _stats_buffers(n, g, gpad, nblk, dev):
+    """Zeroed outputs of the stats variant (see `mega_closest`)."""
+    i32 = torch.int32
+    return {"counts": torch.zeros((n, len(STATS)), dtype=i32, device=dev),
+            "grp_seen": torch.zeros((g,), dtype=i32, device=dev),
+            "ent_seen": torch.zeros((8, gpad), dtype=i32, device=dev),
+            "blk_seen": torch.zeros((8, nblk), dtype=i32, device=dev)}
+
+
+def _stats_ptrs(st):
+    return [st[k].data_ptr() for k in ("counts", "grp_seen", "ent_seen", "blk_seen")]
+
+
 def mega_closest(o, d, active, group_bounds, mega_blocks, oct_bounds, oct_gid,
-                 oct_start, oct_blk, og=None):
+                 oct_start, oct_blk, og=None, stats=False):
     """Closest hit of every active ray over the wide BVH.  Returns
     (t, tri, group), see `mega_closest_plain`.  mega_blocks from
     `pack_mega`, oct_* from `pack_octants`; og = per-ray origin group
     (the reference's sort hint), changes nothing.  CUDA tensors launch
-    the kernel."""
+    the kernel.
+
+    stats=True (CUDA only) launches the stats variant, the same walk, and
+    returns (t, tri, group, st): st["counts"] (N, 5) i32 per ray, columns
+    STATS (block-box tests, entry-box tests, groups visited, plane columns
+    evaluated, columns that reached u/v); st["grp_seen"] (G,),
+    st["ent_seen"] (8, gpad) and st["blk_seen"] (8, nblk) i32, 1 where
+    some ray visited the group or tested the entry's or block's box."""
     args = (group_bounds, mega_blocks, oct_bounds, oct_gid, oct_start, oct_blk)
     if _build.is_cpu(o, d, active, *args, og):
+        if stats:
+            raise ValueError("stats=True counts the CUDA kernel's walk: give CUDA tensors")
         return mega_closest_plain(o, d, active, *args, og=og)
     n, g, kp, gpad, nblk, dev = _check_query(o, d, active, *args, og)
     t = torch.full((n,), INF, dtype=torch.float32, device=dev)
     tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
     grp = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    st = _stats_buffers(n, g, gpad, nblk, dev) if stats else None
     if n == 0 or g == 0:
-        return t, tri, grp
+        return (t, tri, grp, st) if stats else (t, tri, grp)
     box = _scene_box(group_bounds)
     lib = _build.load("traverse_mega", _SIGNATURES)
+    ins = [o.data_ptr(), d.data_ptr(), active.data_ptr(), box.data_ptr(),
+           mega_blocks.data_ptr(), oct_bounds.data_ptr(), oct_gid.data_ptr(),
+           oct_start.data_ptr(), oct_blk.data_ptr(), n, g, kp, gpad, nblk,
+           t.data_ptr(), tri.data_ptr(), grp.data_ptr()]
+    fn = "mega_closest_stats" if stats else "mega_closest"
     with torch.cuda.device(dev):
-        rc = lib.mega_closest(
-            o.data_ptr(), d.data_ptr(), active.data_ptr(), box.data_ptr(),
-            mega_blocks.data_ptr(), oct_bounds.data_ptr(), oct_gid.data_ptr(),
-            oct_start.data_ptr(), oct_blk.data_ptr(), n, g, kp, gpad, nblk,
-            t.data_ptr(), tri.data_ptr(), grp.data_ptr(), dev.index,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.raise_on(rc, lib.mega_error_string, "mega_closest")
+        rc = getattr(lib, fn)(*ins, *(_stats_ptrs(st) if stats else ()), dev.index,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on(rc, lib.mega_error_string, fn)
+    if stats:
+        stats_launches["closest"] += 1
+        return t, tri, grp, st
     launches["closest"] += 1
     return t, tri, grp
 
 
 def mega_anyhit(o, d, t_max, active, group_bounds, mega_blocks, oct_bounds,
-                oct_gid, oct_start, oct_blk, og=None):
+                oct_gid, oct_start, oct_blk, og=None, stats=False):
     """Occlusion of every active ray by any triangle at 0 <= t < t_max
     ((N,) f32) over the wide BVH.  Returns (N,) bool.  CUDA tensors launch
-    the kernel."""
+    the kernel.  stats=True (CUDA only): returns (occ, st), st as in
+    `mega_closest`."""
     args = (group_bounds, mega_blocks, oct_bounds, oct_gid, oct_start, oct_blk)
     if _build.is_cpu(o, d, t_max, active, *args, og):
+        if stats:
+            raise ValueError("stats=True counts the CUDA kernel's walk: give CUDA tensors")
         return mega_anyhit_plain(o, d, t_max, active, *args, og=og)
     n, g, kp, gpad, nblk, dev = _check_query(o, d, active, *args, og, t_max=t_max)
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    st = _stats_buffers(n, g, gpad, nblk, dev) if stats else None
     if n == 0 or g == 0:
-        return occ
+        return (occ, st) if stats else occ
     box = _scene_box(group_bounds)
     lib = _build.load("traverse_mega", _SIGNATURES)
+    ins = [o.data_ptr(), d.data_ptr(), t_max.data_ptr(), active.data_ptr(),
+           box.data_ptr(), mega_blocks.data_ptr(), oct_bounds.data_ptr(),
+           oct_gid.data_ptr(), oct_start.data_ptr(), oct_blk.data_ptr(), n, g, kp,
+           gpad, nblk, occ.data_ptr()]
+    fn = "mega_anyhit_stats" if stats else "mega_anyhit"
     with torch.cuda.device(dev):
-        rc = lib.mega_anyhit(
-            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), active.data_ptr(),
-            box.data_ptr(), mega_blocks.data_ptr(), oct_bounds.data_ptr(),
-            oct_gid.data_ptr(), oct_start.data_ptr(), oct_blk.data_ptr(), n, g, kp,
-            gpad, nblk, occ.data_ptr(), dev.index,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.raise_on(rc, lib.mega_error_string, "mega_anyhit")
+        rc = getattr(lib, fn)(*ins, *(_stats_ptrs(st) if stats else ()), dev.index,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on(rc, lib.mega_error_string, fn)
+    if stats:
+        stats_launches["anyhit"] += 1
+        return occ, st
     launches["anyhit"] += 1
     return occ

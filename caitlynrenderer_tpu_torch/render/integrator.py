@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from caitlynrenderer_tpu.core.types import Camera, RenderOptions
+from caitlynrenderer_tpu_torch.core.types import Camera, RenderOptions
 from caitlynrenderer_tpu_torch.core import math as cm
 from caitlynrenderer_tpu_torch.core.camera import generate_rays
 from caitlynrenderer_tpu_torch.ops.intersect import refine_hit_tri

@@ -14,7 +14,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from caitlynrenderer_tpu.core.types import Camera, RenderOptions
+from caitlynrenderer_tpu_torch.core.types import Camera, RenderOptions
 from caitlynrenderer_tpu_torch.render import sampling
 from caitlynrenderer_tpu_torch.render.integrator import render_sample
 from caitlynrenderer_tpu_torch.scene import DeviceScene

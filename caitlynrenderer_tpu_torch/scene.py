@@ -25,11 +25,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from caitlynrenderer_tpu.accel.bvh import FlatBVH, build_bvh, reorder_scene, tree_depth
-from caitlynrenderer_tpu.accel.cwbvh import build_cwbvh
-from caitlynrenderer_tpu.accel.sbvh import build_sbvh
-from caitlynrenderer_tpu.accel.wide import build_wide
-from caitlynrenderer_tpu.core.types import (
+from caitlynrenderer_tpu_torch.accel.bvh import FlatBVH, build_bvh, reorder_scene, tree_depth
+from caitlynrenderer_tpu_torch.accel.cwbvh import build_cwbvh
+from caitlynrenderer_tpu_torch.accel.sbvh import build_sbvh
+from caitlynrenderer_tpu_torch.accel.wide import build_wide
+from caitlynrenderer_tpu_torch.core.types import (
     LAMBERT_TYPES,
     Lights,
     Materials,

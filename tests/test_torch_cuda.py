@@ -20,10 +20,12 @@ import torch
 from caitlynrenderer_tpu.core.types import RenderOptions
 from caitlynrenderer_tpu.io.builtin_scenes import displaced_grid, random_triangle_soup
 from caitlynrenderer_tpu.utils import config
+from caitlynrenderer_tpu_torch.bench import bench_scene
 from caitlynrenderer_tpu_torch.core import math as cm
+from caitlynrenderer_tpu_torch.core.camera import generate_rays
 from caitlynrenderer_tpu_torch.ops import mt_brute, traverse_cw8, traverse_mega
 from caitlynrenderer_tpu_torch.ops.intersect import pack_tris
-from caitlynrenderer_tpu_torch.render import progressive
+from caitlynrenderer_tpu_torch.render import progressive, sampling
 from caitlynrenderer_tpu_torch.scene import WIDE_FIELDS, scene_families, upload_scene
 
 pytestmark = pytest.mark.cuda
@@ -165,6 +167,74 @@ def test_mega_kernel_rejects_bad_inputs(dev, cornell):
         traverse_mega.mega_closest(o, d, active, *wide[:5], wide[5][:, :0])
     with pytest.raises(ValueError):
         traverse_mega.mega_closest(o.cpu(), d, active, *wide)
+
+
+@pytest.fixture(scope="module")
+def grid1m_bench(dev):
+    """grid1m through "wide" and a 4,096-ray subset of the 256x256 bench
+    camera's primary rays (every 16th pixel), with t_max for any-hit."""
+    scene, camera = bench_scene("grid1m")
+    ds = upload_scene(scene, "wide", dev)
+    uni = sampling.pixel_uniforms(sampling.sample_key(sampling.prng_key(0), 0),
+                                  torch.arange(256 * 256, dtype=torch.int32, device=dev), 4)
+    o, d = generate_rays(camera, 256, 256, uni)
+    o, d = o[::16].contiguous(), d[::16].contiguous()
+    t_max = torch.tensor(np.random.default_rng(13).uniform(0, 20, o.shape[0]),
+                         dtype=torch.float32, device=dev)
+    return ds, o, d, torch.ones(o.shape[0], dtype=torch.bool, device=dev), t_max
+
+
+def test_mega_kernel_matches_twin_on_grid1m_bench_rays(dev, grid1m_bench):
+    ds, o, d, active, t_max = grid1m_bench
+    wide = [getattr(ds, k) for k in WIDE_FIELDS]
+    tk, trk, gk = traverse_mega.mega_closest(o, d, active, *wide)
+    tt, trt, gt = traverse_mega.mega_closest_plain(o, d, active, *wide)
+    occ_k = traverse_mega.mega_anyhit(o, d, t_max, active, *wide)
+    occ_t = traverse_mega.mega_anyhit_plain(o, d, t_max, active, *wide)
+    torch.cuda.synchronize()
+    assert torch.equal(trk, trt) and torch.equal(gk, gt) and torch.equal(tk, tt)
+    assert torch.equal(occ_k, occ_t)
+    assert int((trt >= 0).sum()) > o.shape[0] // 2 and int(occ_t.sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["grid1m_bench", "cornell_flat_groups"])
+def test_mega_stats_variant_is_the_timed_walk(case, dev, cornell, request):
+    """The stats variant returns what the plain launch returns, and its
+    counts hold together: a closest walk evaluates every column of each
+    group it visits, an any-hit walk at most that, u/v columns are at most
+    the columns, and what a ray counts, some flag shows as touched."""
+    if case == "grid1m_bench":
+        ds, o, d, active, t_max = request.getfixturevalue("grid1m_bench")
+    else:
+        ds, o, d, active, t_max = _wide_case("cornell_flat_groups", dev, cornell)
+    wide = [getattr(ds, k) for k in WIDE_FIELDS]
+    g, kp = ds.wb_mega.shape[0], ds.wb_mega.shape[2] // 3
+    nblk = ds.wb_oct_blk.shape[1]
+    traverse_mega.reset_launches()
+    t, tri, grp = traverse_mega.mega_closest(o, d, active, *wide)
+    ts, tris, grps, st = traverse_mega.mega_closest(o, d, active, *wide, stats=True)
+    occ = traverse_mega.mega_anyhit(o, d, t_max, active, *wide)
+    occs, sta = traverse_mega.mega_anyhit(o, d, t_max, active, *wide, stats=True)
+    torch.cuda.synchronize()
+    assert traverse_mega.launches["closest"] == 1 and traverse_mega.launches["anyhit"] == 1
+    assert traverse_mega.stats_launches == {"closest": 1, "anyhit": 1}
+    assert torch.equal(t, ts) and torch.equal(tri, tris) and torch.equal(grp, grps)
+    assert torch.equal(occ, occs)
+    for s, closest in ((st, True), (sta, False)):
+        c = s["counts"].long()
+        blk, ent, groups, cols, uv = c.unbind(1)
+        assert c.shape == (o.shape[0], len(traverse_mega.STATS))
+        if closest:
+            assert torch.equal(cols, kp * groups)
+        else:
+            assert bool((cols <= kp * groups).all()) and bool((cols % 32 == 0).all())
+        assert bool((uv <= cols).all()) and bool((groups <= ent).all())
+        assert bool((ent <= 128 * blk).all()) and bool((blk <= nblk).all())
+        assert int(groups.max()) <= int(s["grp_seen"].sum()) <= g
+        assert int(s["blk_seen"].sum()) > 0 and int(s["ent_seen"].sum()) >= int(groups.max())
+    live = st["counts"][:, 0] > 0
+    assert bool((tri[~live] < 0).all())  # a ray that tested nothing hit nothing
+    assert int(st["counts"][:, 2].sum()) > 0
 
 
 def test_golden_render_through_wide_on_cuda(dev, cornell):
