@@ -20,8 +20,9 @@ raises ValueError (the reference's XLA walk overwrites its top stack slot),
 and closest-hit keeps the exact lexicographic minimum of (t, tri) (the TPU
 kernel keys its minimum on t with the low 8 bits replaced by the row).  The
 TPU kernel's coherence sort, 128-ray consensus walk and chunking are not
-carried over: the kernel walks one ray per thread.  `og` (the origin-window
-sort hint) is accepted and checked, and changes nothing.
+carried over: the kernel walks each ray with eight lanes, one per child
+slot of a node.  `og` (the origin-window sort hint) is accepted and
+checked, and changes nothing.
 
 `launches` counts kernel launches and twin calls, so a run can show which
 path it took.
@@ -48,6 +49,8 @@ MAX_DEPTH = STK - 2  # deepest node8 tree the packer accepts
 STACKS = (8, 16, 24)  # the kernel's stack sizes; a tree of depth D needs D - 1
 
 launches = {"closest": 0, "anyhit": 0, "closest_twin": 0, "anyhit_twin": 0}
+# Launches of the stats variant, apart from `launches`.
+stats_launches = {"closest": 0, "anyhit": 0}
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -57,13 +60,23 @@ _SIGNATURES = {
     # o, d, t_max, active, box, nodes, planes, n, n8, nwin, stack, out_occ,
     # device, stream
     "cw8_anyhit": (_INT, [_PTR] * 7 + [_INT] * 4 + [_PTR, _INT, _PTR]),
+    # cw8_closest's arguments up to out_win, then t_seed, counts, node_seen,
+    # col_seen, device, stream
+    "cw8_closest_stats": (_INT, [_PTR] * 6 + [_INT] * 4 + [_PTR] * 7 + [_INT, _PTR]),
+    # cw8_anyhit's arguments up to out_occ, then t_seed, counts, node_seen,
+    # col_seen, device, stream
+    "cw8_anyhit_stats": (_INT, [_PTR] * 7 + [_INT] * 4 + [_PTR] * 5 + [_INT, _PTR]),
     "cw8_error_string": (ctypes.c_char_p, [_INT]),
 }
 
+# Per-ray counts of the stats variant, in column order.
+STATS = ("nodes", "boxes", "tris", "stack")
+
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counter in (launches, stats_launches):
+        for k in counter:
+            counter[k] = 0
 
 
 # --------------------------------------------------------------------------
@@ -192,7 +205,8 @@ def cw8_anyhit_plain(o, d, t_max, active, cw_nodes, cw_planes, cw_bounds, depth,
 # --------------------------------------------------------------------------
 
 
-def _check_query(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, og, t_max=None):
+def _check_query(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, og, t_max=None,
+                 t_seed=None):
     """Validate a CUDA query; returns (n, n8, nwin, stack, device)."""
     n, dev = o.shape[0], o.device
     f32, i32 = torch.float32, torch.int32
@@ -203,6 +217,8 @@ def _check_query(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, og, t_max=
         _build.check_tensor("t_max", t_max, f32, (n,), dev)
     if og is not None:
         _build.check_tensor("og", og, i32, (n,), dev)
+    if t_seed is not None:
+        _build.check_tensor("t_seed", t_seed, f32, (n,), dev)
     n8 = cw_nodes.shape[0] if cw_nodes.dim() == 2 else -1
     nwin = cw_planes.shape[0] if cw_planes.dim() == 3 else -1
     _build.check_tensor("cw_nodes", cw_nodes, i32, (n8, 20), dev)
@@ -218,52 +234,97 @@ def _check_query(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, og, t_max=
     return n, n8, nwin, stack, dev
 
 
-def cw8_closest(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, og=None):
+def _stats_buffers(n, n8, nwin, dev, t_seed):
+    """Zeroed outputs of the stats variant and its argument pointers (see
+    `cw8_closest`)."""
+    i32 = torch.int32
+    st = {"counts": torch.zeros((n, len(STATS)), dtype=i32, device=dev),
+          "node_seen": torch.zeros((n8,), dtype=i32, device=dev),
+          "col_seen": torch.zeros((32 * nwin,), dtype=i32, device=dev)}
+    seed = 0 if t_seed is None else t_seed.data_ptr()
+    return st, [seed] + [st[k].data_ptr() for k in ("counts", "node_seen", "col_seen")]
+
+
+def _stats_on_cpu(stats, t_seed, cpu):
+    """Raise for what only the CUDA stats variant takes; returns cpu."""
+    if t_seed is not None and not stats:
+        raise ValueError("t_seed seeds the stats variant's walk: give stats=True")
+    if stats and cpu:
+        raise ValueError("stats=True counts the CUDA kernel's walk: give CUDA tensors")
+    return cpu
+
+
+def cw8_closest(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, og=None, stats=False,
+                t_seed=None):
     """Closest hit of every active ray over the CWBVH.  Returns
     (t, tri, window), see `cw8_closest_plain`.  cw_nodes (N8, 20) int32 node
     words, cw_planes and cw_bounds from `pack_windows`, depth = the tree's
     `node8_depth`; og = per-ray origin window (the reference's sort hint),
-    changes nothing.  CUDA tensors launch the kernel."""
+    changes nothing.  CUDA tensors launch the kernel.
+
+    stats=True (CUDA only) launches the stats variant, the same walk, and
+    returns (t, tri, window, st): st["counts"] (N, 4) i32 per ray, columns
+    STATS (nodes visited, child boxes tested, leaf triangles tested, the
+    stack's high-water mark); st["node_seen"] (N8,) i32, 1 where some ray
+    visited the node; st["col_seen"] (32 W,) i32, 1 where some ray
+    evaluated the triangle's t, 2 where also its u/v.  t_seed ((N,) f32,
+    stats only) culls the walk's boxes against min(best t, t_seed) with
+    acceptance unchanged: seeded with the closest t, the oracle walk, whose
+    counts are the work the query needs."""
     args = (cw_nodes, cw_planes, cw_bounds)
-    if _build.is_cpu(o, d, active, *args, og):
+    if _stats_on_cpu(stats, t_seed, _build.is_cpu(o, d, active, *args, og, t_seed)):
         return cw8_closest_plain(o, d, active, *args, depth, og=og)
-    n, n8, nwin, stack, dev = _check_query(o, d, active, *args, depth, og)
+    n, n8, nwin, stack, dev = _check_query(o, d, active, *args, depth, og, t_seed=t_seed)
     t = torch.full((n,), INF, dtype=torch.float32, device=dev)
     tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
     win = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    st, st_ptrs = _stats_buffers(n, n8, nwin, dev, t_seed) if stats else (None, [])
     if n == 0 or n8 == 0:
-        return t, tri, win
+        return (t, tri, win, st) if stats else (t, tri, win)
     lib = _build.load("traverse_cw8", _SIGNATURES)
+    fn = "cw8_closest_stats" if stats else "cw8_closest"
     with torch.cuda.device(dev):
-        rc = lib.cw8_closest(
+        rc = getattr(lib, fn)(
             o.data_ptr(), d.data_ptr(), active.data_ptr(), cw_bounds.data_ptr(),
             cw_nodes.data_ptr(), cw_planes.data_ptr(), n, n8, nwin, stack,
-            t.data_ptr(), tri.data_ptr(), win.data_ptr(), dev.index,
+            t.data_ptr(), tri.data_ptr(), win.data_ptr(), *st_ptrs, dev.index,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _build.raise_on(rc, lib.cw8_error_string, "cw8_closest")
+    _build.raise_on(rc, lib.cw8_error_string, fn)
+    if stats:
+        stats_launches["closest"] += 1
+        return t, tri, win, st
     launches["closest"] += 1
     return t, tri, win
 
 
-def cw8_anyhit(o, d, t_max, active, cw_nodes, cw_planes, cw_bounds, depth, og=None):
+def cw8_anyhit(o, d, t_max, active, cw_nodes, cw_planes, cw_bounds, depth, og=None, stats=False,
+               t_seed=None):
     """Occlusion of every active ray by any triangle at 0 <= t < t_max
     ((N,) f32) over the CWBVH.  Returns (N,) bool.  CUDA tensors launch the
-    kernel."""
+    kernel.  stats=True (CUDA only): returns (occ, st), st and t_seed as in
+    `cw8_closest`."""
     args = (cw_nodes, cw_planes, cw_bounds)
-    if _build.is_cpu(o, d, t_max, active, *args, og):
+    if _stats_on_cpu(stats, t_seed, _build.is_cpu(o, d, t_max, active, *args, og, t_seed)):
         return cw8_anyhit_plain(o, d, t_max, active, *args, depth, og=og)
-    n, n8, nwin, stack, dev = _check_query(o, d, active, *args, depth, og, t_max=t_max)
+    n, n8, nwin, stack, dev = _check_query(o, d, active, *args, depth, og, t_max=t_max,
+                                           t_seed=t_seed)
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    st, st_ptrs = _stats_buffers(n, n8, nwin, dev, t_seed) if stats else (None, [])
     if n == 0 or n8 == 0:
-        return occ
+        return (occ, st) if stats else occ
     lib = _build.load("traverse_cw8", _SIGNATURES)
+    fn = "cw8_anyhit_stats" if stats else "cw8_anyhit"
     with torch.cuda.device(dev):
-        rc = lib.cw8_anyhit(
+        rc = getattr(lib, fn)(
             o.data_ptr(), d.data_ptr(), t_max.data_ptr(), active.data_ptr(),
             cw_bounds.data_ptr(), cw_nodes.data_ptr(), cw_planes.data_ptr(), n, n8, nwin,
-            stack, occ.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+            stack, occ.data_ptr(), *st_ptrs, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
-    _build.raise_on(rc, lib.cw8_error_string, "cw8_anyhit")
+    _build.raise_on(rc, lib.cw8_error_string, fn)
+    if stats:
+        stats_launches["anyhit"] += 1
+        return occ, st
     launches["anyhit"] += 1
     return occ

@@ -9,7 +9,10 @@ under "wide" and ops/traverse_cw8 under "cwbvh", each of which launches
 its CUDA kernel for CUDA tensors, and ops/traverse_bvh (plain torch ops,
 as the reference's XLA walk) under "bvh2" and "sbvh".  The estimator, the
 uniform layout and the order of the arithmetic are the reference's, so the
-tests can hold the two against each other per pixel.
+tests can hold the two against each other per pixel.  A vertex's steps
+(`hit_frame`, `light_sample`, `continuation`) are functions of their own,
+so that chip_smoke.py builds the kernels' bounce and shadow ray sets with
+the integrator's code.
 
 Ported: the "lambert" family, NEE + MIS power heuristic,
 `exact_reference_nee`, Russian roulette (`rr_start`) and the ray-count
@@ -138,6 +141,64 @@ def _shading_normal_from_rows(rows, u, v):
     return torch.where((rows[:, 18] > 0.5)[:, None], interp, geo_n)
 
 
+def bounce_uniforms(uniforms, bounce: int):
+    """A bounce's seven uniforms, render/sampling.py's layout: (light_pick,
+    light_u1, light_u2, bsdf_u1, bsdf_u2, bsdf_lobe, rr)."""
+    base = 4 + 7 * bounce
+    return tuple(uniforms[:, base + k] for k in range(7))
+
+
+def hit_frame(ds: DeviceScene, o, d, raw_t, raw_tri, raw_u, raw_v):
+    """A closest-hit query's answer as the integrator shades it: the hit
+    triangle's shading rows, where it hit, the hit's t refined from its
+    triangle (the query's own where it missed), the shading normal flipped
+    against the incoming ray, and the next rays' origin, RAY_OFFSET off
+    the surface along that normal.  Returns (rows, keep, hit_t, n_flip,
+    hit_point)."""
+    rows = ds.shade_tab[torch.clamp(raw_tri, min=0).long()]
+    t_r, u_r, v_r = refine_hit_tri(o, d, rows[:, 0:3], rows[:, 3:6], rows[:, 6:9])
+    keep = raw_tri >= 0
+    hit_t = torch.where(keep, t_r, raw_t)
+    hit_u = torch.where(keep, u_r, raw_u)
+    hit_v = torch.where(keep, v_r, raw_v)
+    n_shade = _shading_normal_from_rows(rows, hit_u, hit_v)
+    cos_incident = cm.dot(d, n_shade)
+    n_flip = torch.where((cos_incident > 0)[:, None], -n_shade, n_shade)
+    hit_point = o + d * hit_t[:, None] + n_flip * RAY_OFFSET
+    return rows, keep, hit_t, n_flip, hit_point
+
+
+def light_sample(light_tab, hit_point, n_flip, u_lp, u_l1, u_l2, alive):
+    """NEE's light sample and shadow ray: a light picked by u_lp, a point on
+    it by u_l1, u_l2, the unit direction from hit_point towards it and its
+    distance.  The any-hit query is issued where `cand` (the path goes on,
+    the point lies above the surface and the light faces it), with t_max
+    the distance less EPS (0 elsewhere).  Returns (lrows, ldir, dist,
+    cos_mtl, cos_light, cand, t_max)."""
+    num_lights = light_tab.shape[0]
+    li = torch.clamp((u_lp * num_lights).to(torch.int64), max=num_lights - 1)
+    s = torch.sqrt(u_l1)
+    b0 = 1.0 - s
+    b1 = u_l2 * s
+    lrows = light_tab[li]
+    lpos = lrows[:, 0:3] + b0[:, None] * lrows[:, 3:6] + b1[:, None] * lrows[:, 6:9]
+    ldir = lpos - hit_point
+    dist = cm.norm(ldir)
+    ldir = ldir / torch.clamp(dist[:, None], min=1e-20)
+    cos_mtl = cm.dot(ldir, n_flip)
+    cos_light = cm.dot(ldir, lrows[:, 9:12])
+    cand = alive & (cos_mtl > 0) & (cos_light < 0)
+    return lrows, ldir, dist, cos_mtl, cos_light, cand, torch.where(cand, dist - EPS, 0.0)
+
+
+def continuation(u_b1, u_b2, n_flip):
+    """The continuation ray's cosine-weighted Lambert direction about
+    n_flip.  Returns (local, d): the local-frame sample and the unit
+    world-space direction."""
+    local = cm.cosine_hemisphere_dir(u_b1, u_b2)
+    return local, cm.normalize(cm.local_to_world(local, n_flip))
+
+
 def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_stats: bool = False):
     """Trace one path per input ray; returns radiance (N, 3), or
     (radiance, stats) when with_stats.  stats counts the ray queries
@@ -151,7 +212,7 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
     check_supported(ds, options)
     n, dev = o.shape[0], o.device
     num_lights = ds.light_tab.shape[0]
-    shade_tab, light_tab = ds.shade_tab, ds.light_tab
+    light_tab = ds.light_tab
 
     L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     T = torch.ones((n, 3), dtype=torch.float32, device=dev)
@@ -164,37 +225,28 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
     alive_per_bounce, anyhit_per_bounce = [], []
 
     for bounce in range(options.max_depth):
-        base = 4 + 7 * bounce
-        u_lp, u_l1, u_l2, u_b1, u_b2 = (uniforms[:, base + k] for k in range(5))
+        u_lp, u_l1, u_l2, u_b1, u_b2, _, u_rr = bounce_uniforms(uniforms, bounce)
 
         # Russian roulette from rr_start on: survive with p = max throughput
         # component (clamped to [0.05, 1]) and compensate T by 1/p.
         if 0 <= options.rr_start <= bounce:
             p_surv = torch.clamp(T.max(dim=1).values, 0.05, 1.0)
-            alive = alive & (uniforms[:, base + 6] < p_surv)
+            alive = alive & (u_rr < p_surv)
             T = T / p_surv[:, None]
 
         if with_stats:
             alive_per_bounce.append(alive.sum())
         raw_t, raw_tri, raw_u, raw_v, grp = _closest_hit_raw(ds, o, d, alive, options, og)
-        rows = shade_tab[torch.clamp(raw_tri, min=0).long()]
-        t_r, u_r, v_r = refine_hit_tri(o, d, rows[:, 0:3], rows[:, 3:6], rows[:, 6:9])
-        keep = raw_tri >= 0
-        hit_t = torch.where(keep, t_r, raw_t)
-        hit_u = torch.where(keep, u_r, raw_u)
-        hit_v = torch.where(keep, v_r, raw_v)
+        rows, keep, hit_t, n_flip, hit_point = hit_frame(ds, o, d, raw_t, raw_tri, raw_u, raw_v)
         got = alive & keep
         alive = got
         if grp is not None:
             og = torch.clamp(grp, min=0)
 
-        n_shade = _shading_normal_from_rows(rows, hit_u, hit_v)
         albedo = rows[:, 26:29]
         emission = rows[:, 30:33]
         emissive = rows[:, 33] != -1
         li_hit = torch.round(rows[:, 25]).long()
-        cos_incident = cm.dot(d, n_shade)
-        n_flip = torch.where((cos_incident > 0)[:, None], -n_shade, n_shade)
 
         # Emissive hit, weighted against the NEE that could have sampled it.
         hit_light = got & emissive
@@ -211,27 +263,13 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
             L = L + torch.where(hit_light[:, None], T * emission * w_mis[:, None], 0.0)
             alive = alive & ~hit_light
 
-        hit_point = o + d * hit_t[:, None] + n_flip * RAY_OFFSET
-
         # NEE with MIS: one light sample per vertex, visibility by any-hit.
         if num_lights > 0:
-            li = torch.clamp((u_lp * num_lights).to(torch.int64), max=num_lights - 1)
-            s = torch.sqrt(u_l1)
-            b0 = 1.0 - s
-            b1 = u_l2 * s
-            lrows = light_tab[li]
-            lpos = lrows[:, 0:3] + b0[:, None] * lrows[:, 3:6] + b1[:, None] * lrows[:, 6:9]
-            ldir = lpos - hit_point
-            dist = cm.norm(ldir)
-            ldir = ldir / torch.clamp(dist[:, None], min=1e-20)
-            cos_mtl = cm.dot(ldir, n_flip)
-            cos_light = cm.dot(ldir, lrows[:, 9:12])
-            cand = alive & (cos_mtl > 0) & (cos_light < 0)
+            lrows, ldir, dist, cos_mtl, cos_light, cand, shadow_t = light_sample(
+                light_tab, hit_point, n_flip, u_lp, u_l1, u_l2, alive)
             if with_stats:
                 anyhit_per_bounce.append(cand.sum())
-            shadowed = _occluded(
-                ds, hit_point, ldir, torch.where(cand, dist - EPS, 0.0), cand, options, og
-            )
+            shadowed = _occluded(ds, hit_point, ldir, shadow_t, cand, options, og)
             visible = cand & ~shadowed
             pdf_light = (
                 dist * dist
@@ -250,9 +288,8 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
             L = L + torch.where(visible[:, None], contrib, 0.0)
 
         # Continuation: cosine-weighted Lambert sample.
-        local = cm.cosine_hemisphere_dir(u_b1, u_b2)
+        local, d = continuation(u_b1, u_b2, n_flip)
         o = hit_point
-        d = cm.normalize(cm.local_to_world(local, n_flip))
         T = torch.where(alive[:, None], T * albedo, T)
         prev_pdf = torch.clamp(local[:, 2], min=1e-8) / math.pi
         is_specular = torch.zeros(n, dtype=torch.bool, device=dev)

@@ -8,10 +8,12 @@ Phases (any failure exits non-zero; no phase's exception is caught):
   2. build csrc/mt_brute.cu (B1), csrc/traverse_mega.cu (B2) and
      csrc/traverse_cw8.cu (B3) from this checkout, one nvcc each, started
      together; print ptxas's lines (registers, stack, spills)
-  3. kernel vs plain PyTorch twin on the card: cornell primary + bounce
-     rays at 700x700, 65536 rays x the 2048-triangle soup, and an edge-case
-     set (ragged N, inactive lanes, det = 0 padding rows, rays along edges).
-     tri and occlusion must be equal on every ray, t/u/v within 1e-6
+  3. kernel vs plain PyTorch twin on the card: cornell primary, bounce
+     and shadow rays at 700x700, 65536 rays x the 2048-triangle soup (4 lanes per
+     ray), an edge-case set (ragged N, inactive lanes, det = 0 padding rows,
+     rays along edges) and tie sets (the soup twice, stacked and
+     interleaved, at 65536, 16384 and 1001 rays: 4, 16 and 32 lanes per
+     ray).  tri and occlusion must be equal on every ray, t/u/v within 1e-6
      relative (atol 0).
   4. golden: cornell 64x64, 3 bounces, 48 spp, seed 0 through the port's
      render_image against scenes/golden/cornell_64_cpu.npz (mean < 2e-3,
@@ -19,7 +21,12 @@ Phases (any failure exits non-zero; no phase's exception is caught):
   5. the main path at the demo size: upload_scene -> render_steps ->
      resolve, 700x700, 3 bounces, 32 spp after one warm-up sample
   6. closest-hit (and any-hit) kernel vs twin times at the path's shapes:
-     490k rays x 36 triangles and 65k rays x 2048 triangles
+     490k primary, bounce and shadow rays x 36 triangles (the shadow rays
+     are the main path's any-hit, and the JSON record's) and 65k rays x
+     2048 triangles, each beside its bound (`mt_bound`: the operations up to the
+     test that rejects each pair); the kernel also per call as a caller
+     issues them, host included (`event_ms`: every other kernel time is
+     the device's, the host running ahead)
   7. B2 vs its plain twin, closest and any-hit: grid100k primary rays at
      256x256 (the root bench's camera), bounce rays from their hits (the
      integrator's continuation rays, here and in every phase), scattered
@@ -51,16 +58,18 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      (16384 rays); then B2 and B3, closest and any-hit, on four ray sets
      (grid100k and grid1m, primary and bounce, 65536 rays each) in one
      call, with each one's bound (B2's from the groups each ray must
-     visit, `mega_bound`) and the share of it reached, and B2's stats
-     variant: per-ray counts (mean, p50, p99, max) and the work its walk
-     did, at the bound's rates, over the bound
+     visit, `mega_bound`; B3's from its stats variant's oracle walk,
+     `cw8_bound`) and the share of it reached, and both stats variants:
+     per-ray counts (mean, p50, p99, max) and the work each walk did, at
+     the bound's rates, over the bound
  12. B3 vs its plain twin, closest and any-hit: cornell "cwbvh" primary and
      bounce rays at 700x700, 65536 rays into the 20,000-triangle soup,
      grid100k primary, bounce and scattered rays at 256x256 (the bench camera), and
      the edge set (ragged N, ~10 % inactive lanes, rays at vertices and
      along edges, axis-aligned directions, random og, an all-dead batch,
      an empty scene).  tri, window and occlusion equal on every ray, t
-     within 1e-6 relative.
+     within 1e-6 relative; on every set B3's stats variant, plain and
+     seeded with the closest t, returns the plain launch's answers.
  13. B3 vs B1 at grid1m: phase 8's rays and contract
  14. golden through B3 ("cwbvh"), and through "bvh2" and "sbvh" (plain
      torch walk, no kernel): cornell 64x64, 48 spp, within the golden's
@@ -69,7 +78,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      from the profiler
  16. B3 vs twin times at grid100k (65536 primary and bounce rays) and B3 vs
      B2 vs B1 at grid1m (16384 rays)
-About 3 minutes on one H100, builds included.  The line before the last is
+About 3 minutes on one H100, builds included.  B3's stats variant
+(`stats=True`) is checked and used for counts and bounds only; its launches
+are counted apart (`traverse_cw8.stats_launches`).  The line before the last is
 the kernels' JSON record, each kernel with its time, its plain twin's, and
 its bound (the larger of its bytes over 3.35 TB/s and its FP32 operations
 over 67 TFLOP/s, the H100 SXM's published peaks, counted from this run's
@@ -98,7 +109,17 @@ BENCH_DEPTH = 4
 MAIN_SPP = 16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_FP32 = 67e12  # H100 SXM FP32 outside the tensor cores, FLOP/s
-MT_OPS = 47  # FP32 operations of one Moller-Trumbore pair (csrc/mt_brute.cu)
+# FP32 operations of Moller-Trumbore in its cheapest per-pair form, the
+# Pluecker form of csrc/mt_brute.cu's pre-test.  Once per triangle
+# (MT_TRI_OPS): n = e2 x e1, p1 = v0 x e1, p2 = v0 x e2 (9 each), c2 =
+# e2 . p1 (5).  Once per live ray (MT_RAY_OPS): m = o x d.  Per pair, up to
+# the first of the tests that rejects it (MT_STAGE_OPS): det = d . n (5);
+# u's numerator e2 . m + d . p2 (11 more); v's, e1 . m + d . p1, and u + v
+# (12 more); t's numerator o . n + c2 (6 more), the division, u, v and t
+# scaled by it (4) and 1 - (u + v) (1): MT_OPS for a pair that reaches t.
+MT_TRI_OPS, MT_RAY_OPS = 32, 9
+MT_STAGE_OPS = (5, 16, 28, 39)
+MT_OPS = MT_STAGE_OPS[-1]
 COL_T_OPS, COL_UV_OPS, BOX_OPS = 11, 12, 20  # B2/B3: a plane column to t, to u/v; a box
 FORBIDDEN = ("jax", "caitlynrenderer_tpu")
 
@@ -112,12 +133,18 @@ def phase(name):
     print(f"== {name}", flush=True)
 
 
-def event_ms(fn, reps):
+def event_ms(fn, reps, host_ahead=True):
     """Mean milliseconds per call of fn() on the card (CUDA events), after
-    one warm-up call."""
+    one warm-up call.  With host_ahead a sleep kernel first holds the card
+    while the host enqueues the calls, so that a call whose host side (the
+    wrapper's checks and allocations) takes longer than its kernel is timed
+    by its device work; without it, back-to-back calls are timed as a
+    caller issues them, host included."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if host_ahead:
+        torch.cuda._sleep(2_000_000 * reps)  # about a millisecond a call
     start.record()
     for _ in range(reps):
         fn()
@@ -142,7 +169,8 @@ def compare(label, mt, o, d, active, tris9, t_max):
         worst_abs = max(worst_abs, float(diff.max()))
         worst_rel = max(worst_rel, float((diff / b.abs().clamp(min=1e-30)).max()))
     hits = int((trt >= 0).sum())
-    print(f"  {label}: rays {o.shape[0]} tris {tris9.shape[0]} hits {hits} "
+    print(f"  {label}: rays {o.shape[0]} tris {tris9.shape[0]} lanes per ray "
+          f"{mt._lanes(o.shape[0], tris9.shape[0], o.device)} hits {hits} "
           f"occluded {int(occ_t.sum())} | tri mismatches {tri_diff}, occluded "
           f"mismatches {occ_diff}, max |dt,du,dv| {worst_abs:.3e}, max rel {worst_rel:.3e}")
     check(tri_diff == 0, f"{label}: kernel and twin disagree on tri for {tri_diff} rays")
@@ -181,8 +209,9 @@ def compare_mega(label, mega, o, d, active, wide, t_max, og=None):
 
 def compare_cw8(label, cw8, o, d, active, cw, t_max, og=None):
     """B3 vs its twin on one input: tri, window and occlusion equal on every
-    ray, t within TOL_REL relative.  Returns the largest |dt| and the
-    occlusion mismatch (0 or 1)."""
+    ray, t within TOL_REL relative; B3's stats variant, as the timed walk
+    and as the oracle walk, equal to the plain launch.  Returns the largest
+    |dt| and the occlusion mismatch (0 or 1)."""
     tk, trk, wk = cw8.cw8_closest(o, d, active, *cw, og=og)
     tt, trt, wt = cw8.cw8_closest_plain(o, d, active, *cw)
     occ_k = cw8.cw8_anyhit(o, d, t_max, active, *cw, og=og)
@@ -202,6 +231,7 @@ def compare_cw8(label, cw8, o, d, active, cw, t_max, og=None):
     check(win_diff == 0, f"{label}: B3 and twin disagree on window for {win_diff} rays")
     check(occ_diff == 0, f"{label}: B3 and twin disagree on occlusion for {occ_diff} rays")
     check(bool((dt <= TOL_REL * tt.abs()).all()), f"{label}: t differs beyond {TOL_REL} relative")
+    cw8_stats(cw8, o, d, active, cw, t_max)  # the stats variant returns the same answers
     return worst_abs, float(occ_diff > 0)
 
 
@@ -212,20 +242,35 @@ def bound(nbytes, flops):
     return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
 
 
-def mt_bound(mt, o, d, active, tris9, t_max=None):
-    """B1's bound on these inputs: rays in and results out, the slab read
-    once; MT_OPS per ray x triangle pair the kernel must evaluate: every
-    triangle for a live closest ray, up to the first accepted one for an
-    occluded any-hit ray."""
+def mt_bound(o, d, active, tris9, t_max=None):
+    """B1's bound from the work the query needs: rays in and results out,
+    the slab read once; per ray x triangle pair, MT_STAGE_OPS up to the
+    first of Moller-Trumbore's tests (det, u, v, t) that rejects it, for
+    every triangle of a live closest ray and up to the first accepted one
+    of an occluded any-hit ray; MT_TRI_OPS per triangle and MT_RAY_OPS per
+    live ray."""
+    from caitlynrenderer_tpu_torch.ops.intersect import mt_uvt
+
     n, s = o.shape[0], tris9.shape[0]
-    if t_max is None:
-        return bound(n * (24 + 1 + 16) + s * 36, int(active.sum()) * s * MT_OPS)
-    pairs = 0
-    t_in = torch.where(active, t_max, -1e9)
-    for r0, ok, _, _, _ in mt._accepted(o, d, t_in, tris9):
-        first = torch.where(ok.any(dim=1), ok.int().argmax(dim=1) + 1, s)
-        pairs += int(torch.where(active[r0 : r0 + ok.shape[0]], first, 0).sum())
-    return bound(n * (24 + 1 + 4 + 1) + s * 36, pairs * MT_OPS)
+    stage_ops = torch.tensor(MT_STAGE_OPS, dtype=torch.float64, device=o.device)
+    v0, e1, e2 = tris9[None, :, 0:3], tris9[None, :, 3:6], tris9[None, :, 6:9]
+    col = torch.arange(s, device=o.device)
+    ops = 0.0
+    step = max(1, (1 << 24) // max(s, 1))
+    for r0 in range(0, n, step):
+        sl = slice(r0, r0 + step)
+        det, t, u, v = mt_uvt(o[sl, None], d[sl, None], v0, e1, e2)
+        stage = torch.where(~(det.abs() > 0), 0, torch.where(~(u >= 0), 1, torch.where(
+            ~((v >= 0) & (1.0 - u - v >= 0)), 2, 3)))
+        need = active[sl, None].expand(-1, s)
+        if t_max is not None:  # up to the first accepted triangle
+            ok = (stage == 3) & (t >= 0) & (t < t_max[sl, None])
+            first = torch.where(ok.any(dim=1), ok.int().argmax(dim=1), s - 1)
+            need = need & (col[None, :] <= first[:, None])
+        ops += float((stage_ops[stage] * need).sum())
+    ops += MT_TRI_OPS * s + MT_RAY_OPS * int(active.sum())
+    nbytes = n * (24 + 1 + (4 + 1 if t_max is not None else 16)) + s * 36
+    return bound(nbytes, ops)
 
 
 def mega_walk(st, n, kp, anyhit):
@@ -290,30 +335,53 @@ def mega_bound(wide, o, d, active, t_max=None, t_hit=None, occluded=None):
     return bound(nbytes, boxes * BOX_OPS + cols * COL_T_OPS + nf * COL_UV_OPS)
 
 
-def cw8_bound(active, found, win=None):
-    """A lower bound on B3's work from its outputs (the kernel counts no
-    walk of its own): rays in and results out and the node8 root, once;
-    BOX_OPS for each of the root's 8 children per live ray, and one
-    32-triangle window (32 columns to t, the winner's u/v) per ray that
-    found a hit (`found`: closest hit or occlusion).  Closest (win given):
-    also each distinct window holding a hit, read once (4 x 128 f32)."""
-    n = active.shape[0]
-    nbytes = n * (24 + 1 + (12 if win is not None else 4 + 1)) + 80 + 24
-    if win is not None:
-        nbytes += int(torch.unique(win[win >= 0]).numel()) * 4 * 128 * 4
-    flops = int(active.sum()) * 8 * BOX_OPS + int(found.sum()) * (32 * COL_T_OPS + COL_UV_OPS)
-    return bound(nbytes, flops)
+def cw8_bound(st, anyhit, hits):
+    """B3's work at the bound's rates from its stats variant's counts `st`.
+    Given the oracle walk's counts (boxes culled against the known closest
+    t, acceptance unchanged) it is B3's bound, the work the query needs;
+    given the timed walk's own, the work that walk did.  Operations:
+    BOX_OPS per child box tested, COL_T_OPS per leaf triangle tested,
+    COL_UV_OPS per hit (`hits`: closest hits or occluded rays).  Bytes: rays
+    in and results out, the scene box, and each distinct node (80 B) and
+    plane column (16 B for n, 48 B where u/v were evaluated) touched, once."""
+    boxes, tris = (float(x) for x in st["counts"][:, 1:3].double().sum(dim=0))
+    cols = st["col_seen"]
+    n = st["counts"].shape[0]
+    nbytes = (n * (24 + 1 + (4 + 1 if anyhit else 12)) + 24 + 80 * int(st["node_seen"].sum())
+              + 16 * int((cols > 0).sum()) + 32 * int((cols == 2).sum()))
+    return bound(nbytes, boxes * BOX_OPS + tris * COL_T_OPS + hits * COL_UV_OPS)
 
 
-def stats_line(st):
-    """mean / p50 / p99 / max of each per-ray count of B2's stats variant."""
-    from caitlynrenderer_tpu_torch.ops.traverse_mega import STATS
+def cw8_stats(cw8, qo, qd, qa, qc, t_max):
+    """B3's stats variant on one ray set, closest and any-hit, each as the
+    timed walk and as the oracle walk seeded with the closest t.  Checks
+    that all four return the plain launch's answer; returns {"closest",
+    "anyhit", "closest_oracle", "anyhit_oracle": st} and the hits of each
+    query."""
+    t, tri, win = cw8.cw8_closest(qo, qd, qa, *qc)
+    occ = cw8.cw8_anyhit(qo, qd, t_max, qa, *qc)
+    out = {}
+    for tag, seed in (("", None), ("_oracle", t)):
+        ts, tris, wins, out["closest" + tag] = cw8.cw8_closest(qo, qd, qa, *qc, stats=True,
+                                                               t_seed=seed)
+        occs, out["anyhit" + tag] = cw8.cw8_anyhit(qo, qd, t_max, qa, *qc, stats=True,
+                                                   t_seed=seed)
+        torch.cuda.synchronize()
+        check(torch.equal(ts, t) and torch.equal(tris, tri) and torch.equal(wins, win)
+              and torch.equal(occs, occ),
+              f"B3's stats variant{' (oracle walk)' if seed is not None else ''} differs from "
+              "the plain launch")
+    return out, {"closest": int((tri >= 0).sum()), "anyhit": int(occ.sum())}
 
+
+def stats_line(st, names):
+    """mean / p50 / p99 / max of each per-ray count of a stats variant
+    (columns `names`)."""
     c = st["counts"].float()
     q = torch.quantile(c, torch.tensor([0.5, 0.99], device=c.device), dim=0)
     return "; ".join(f"{k} {float(c[:, j].mean()):.1f}/{float(q[0, j]):.0f}/"
                      f"{float(q[1, j]):.0f}/{float(c[:, j].max()):.0f}"
-                     for j, k in enumerate(STATS))
+                     for j, k in enumerate(names))
 
 
 def edge_distance(o, d, tris9, tri):
@@ -433,25 +501,41 @@ def edge_rays(ds, camera, rng, ne):
     return origin, direction
 
 
-def bounce_rays(ds, o, d, tri, uni):
-    """The integrator's first continuation rays (render/integrator.py,
-    "Continuation"): from each hit at the refined t, offset by RAY_OFFSET
-    along the shading normal flipped against the incoming ray, in the
-    cosine-weighted direction about it that bounce 0's uniforms draw.
-    Lanes that missed or hit an emitter are inactive, as their paths end."""
-    from caitlynrenderer_tpu_torch.core import math as cm
-    from caitlynrenderer_tpu_torch.ops.intersect import refine_hit_tri
-    from caitlynrenderer_tpu_torch.render.integrator import _shading_normal_from_rows
+def hit_points(ds, o, d, tri):
+    """The integrator's hit points from bounce 0's closest hits `tri`, as
+    render/integrator.py's `hit_frame` makes them: the next rays' origins,
+    the flipped shading normal, and where the path goes on (a hit, not on
+    an emitter)."""
+    from caitlynrenderer_tpu_torch.render.integrator import hit_frame
 
-    rows = ds.shade_tab[tri.clamp(min=0).long()]
-    t, u, v = refine_hit_tri(o, d, rows[:, 0:3], rows[:, 3:6], rows[:, 6:9])
-    hit = tri >= 0
-    n_shade = _shading_normal_from_rows(rows, u, v)
-    n_flip = torch.where((cm.dot(d, n_shade) > 0)[:, None], -n_shade, n_shade)
-    origin = o + d * torch.where(hit, t, 0.0)[:, None] + n_flip * cm.RAY_OFFSET
-    local = cm.cosine_hemisphere_dir(uni[:, 7], uni[:, 8])
-    direction = cm.normalize(cm.local_to_world(local, n_flip))
-    return origin.contiguous(), direction.contiguous(), hit & (rows[:, 33] == -1)
+    zero = torch.zeros_like(o[:, 0])
+    rows, hit, _, n_flip, origin = hit_frame(ds, o, d, zero, tri, zero, zero)
+    return origin, n_flip, hit & (rows[:, 33] == -1)
+
+
+def bounce_rays(ds, o, d, tri, uni):
+    """The integrator's first continuation rays (its `continuation`) from
+    `hit_points`, with bounce 0's uniforms.  Lanes that missed or hit an
+    emitter are inactive, as their paths end."""
+    from caitlynrenderer_tpu_torch.render.integrator import bounce_uniforms, continuation
+
+    origin, n_flip, live = hit_points(ds, o, d, tri)
+    _, _, _, u_b1, u_b2, _, _ = bounce_uniforms(uni, 0)
+    _, direction = continuation(u_b1, u_b2, n_flip)
+    return origin.contiguous(), direction.contiguous(), live
+
+
+def shadow_rays(ds, o, d, tri, uni):
+    """The integrator's first NEE shadow rays (its `light_sample`) from
+    `hit_points`, with bounce 0's uniforms: active where the integrator
+    issues the query.  Returns (o, d, active, t_max)."""
+    from caitlynrenderer_tpu_torch.render.integrator import bounce_uniforms, light_sample
+
+    origin, n_flip, live = hit_points(ds, o, d, tri)
+    u_lp, u_l1, u_l2 = bounce_uniforms(uni, 0)[:3]
+    _, ldir, _, _, _, cand, t_max = light_sample(ds.light_tab, origin, n_flip, u_lp, u_l1,
+                                                 u_l2, live)
+    return origin.contiguous(), ldir.contiguous(), cand, t_max.contiguous()
 
 
 def scattered_rays(ds, o, d, tri, rng, cuda):
@@ -461,8 +545,8 @@ def scattered_rays(ds, o, d, tri, rng, cuda):
     equality."""
     from caitlynrenderer_tpu_torch.core import math as cm
 
-    origin, _, act = bounce_rays(ds, o, d, tri, torch.zeros((o.shape[0], 9), device=o.device))
-    return origin, cm.normalize(cuda(rng.standard_normal((o.shape[0], 3)))), act
+    origin, _, act = hit_points(ds, o, d, tri)
+    return origin.contiguous(), cm.normalize(cuda(rng.standard_normal((o.shape[0], 3)))), act
 
 
 # The kernel module and kernel name each large-scene path runs.
@@ -542,7 +626,7 @@ def main_path(label, scene, camera, options, dev, spp):
         "progressive.render_step": lambda: progressive.render_step(
             ds, camera, state, w, h, options),
     }
-    split = {k: event_ms(f, 5) for k, f in stages.items()}
+    split = {k: event_ms(f, 5, host_ahead=False) for k, f in stages.items()}  # host included
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -637,6 +721,8 @@ def main():
     results.append(compare("cornell bounce", mt, *bounce_rays(ds, o, d, tri, uni), ds.tris9,
                            btmax))
     results.append(compare("cornell scattered", mt, *scattered, ds.tris9, btmax))
+    shadow = shadow_rays(ds, o, d, tri, uni)
+    results.append(compare("cornell shadow", mt, *shadow[:3], ds.tris9, shadow[3]))
 
     soup, _, _ = render_setup({"scene": {"builtin": "soup", "triangles": 2048}}, ROOT)
     soup_tris = upload_scene(soup, "brute", dev).tris9[-2048:].contiguous()
@@ -664,6 +750,21 @@ def main():
     results.append(compare("edge cases", mt, cuda(origin), cm.normalize(cuda(direction)),
                            cuda(rng.random(ne) < 0.9, torch.bool), edge_tris,
                            cuda(rng.uniform(0, 30, ne))))
+    # Ties: the 2048-triangle soup twice, stacked (a triangle and its copy in
+    # one lane's share) and interleaved (in two lanes' shares), rays aimed at
+    # centroids, at ray counts that take 4, 16 and 32 lanes per ray.
+    rng3 = np.random.default_rng(3)  # later phases keep earlier runs' inputs
+    stacked = torch.cat([soup_tris, soup_tris]).contiguous()
+    interleaved = torch.stack([soup_tris, soup_tris], dim=1).reshape(-1, 9).contiguous()
+    cen = (soup_tris[:, 0:3] + (soup_tris[:, 3:6] + soup_tris[:, 6:9]) / 3.0).cpu().numpy()
+    for nt in (ns, 16384, 1001):
+        to = rng3.uniform(0, 10, (nt, 3)).astype(np.float32)
+        td = cen[rng3.integers(0, 2048, nt)] - to
+        td[nt // 2:] = rng3.standard_normal((nt - nt // 2, 3))
+        for name, tt in (("stacked", stacked), ("interleaved", interleaved)):
+            results.append(compare(f"ties, {name}", mt, cuda(to), cm.normalize(cuda(td)),
+                                   torch.ones(nt, dtype=torch.bool, device=dev), tt,
+                                   cuda(rng3.uniform(0, 12, nt))))
     err = {"closest": max(r[0] for r in results), "anyhit": max(r[1] for r in results)}
 
     # -------------------------------------------------------------- phase 4
@@ -720,20 +821,32 @@ def main():
 
     # -------------------------------------------------------------- phase 6
     phase("6 kernel and twin times")
-    times = {}
-    shapes = {"36": (o, d, act, ds.tris9),
-              "2048": (so, sd, torch.ones(ns, dtype=torch.bool, device=dev), soup_tris)}
-    for tag, (qo, qd, qa, qt) in shapes.items():
-        tm = torch.full((qo.shape[0],), 20.0, device=dev)
+    # Each shape's time beside its bound (`mt_bound`); any-hit with t_max 20,
+    # or, on the shadow rays (the main path's any-hit), the light's distance.
+    times, b1_bounds = {}, {}
+    shapes = {"36": (o, d, act, ds.tris9, None),
+              "36 bounce": (*bounce_rays(ds, o, d, tri, uni), ds.tris9, None),
+              "36 shadow": (*shadow[:3], ds.tris9, shadow[3]),
+              "2048": (so, sd, torch.ones(ns, dtype=torch.bool, device=dev), soup_tris, None)}
+    for tag, (qo, qd, qa, qt, tm) in shapes.items():
+        if tm is None:
+            tm = torch.full((qo.shape[0],), 20.0, device=dev)
         row = {
             "closest_plain": event_ms(lambda: mt.brute_closest_plain(qo, qd, qa, qt), 3),
             "closest": event_ms(lambda: mt.brute_closest(qo, qd, qa, qt), 20),
             "anyhit": event_ms(lambda: mt.brute_anyhit(qo, qd, tm, qa, qt), 20),
             "anyhit_plain": event_ms(lambda: mt.brute_anyhit_plain(qo, qd, tm, qa, qt), 3),
+            "closest_per_call": event_ms(lambda: mt.brute_closest(qo, qd, qa, qt), 20, False),
+            "anyhit_per_call": event_ms(lambda: mt.brute_anyhit(qo, qd, tm, qa, qt), 20, False),
         }
         times[tag] = row
-        print(f"  {qo.shape[0]} rays x {qt.shape[0]} tris: " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in row.items()))
+        b1_bounds[tag] = {"closest": mt_bound(qo, qd, qa, qt),
+                          "anyhit": mt_bound(qo, qd, qa, qt, tm)}
+        print(f"  {tag}: {qo.shape[0]} rays ({int(qa.sum())} live) x {qt.shape[0]} tris, "
+              f"{mt._lanes(qo.shape[0], qt.shape[0], dev)} lanes per ray: " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in row.items()) + "; bound " + ", ".join(
+                  f"{q} {b[0]:.4f} ms by {b[1]} ({b[0] / row[q]:.1%})"
+                  for q, b in b1_bounds[tag].items()), flush=True)
 
     # -------------------------------------------------------------- phase 7
     phase("7 B2 vs twin")
@@ -933,27 +1046,33 @@ def main():
         }
         t2, _, _, st = mega.mega_closest(qo, qd, qa, *qw, stats=True)
         occ2, sta = mega.mega_anyhit(qo, qd, tmax, qa, *qw, stats=True)
-        _, tri3, win3 = cw8.cw8_closest(qo, qd, qa, *qc)
-        occ3 = cw8.cw8_anyhit(qo, qd, tmax, qa, *qc)
+        st3, hits3 = cw8_stats(cw8, qo, qd, qa, qc, tmax)
         bounds = {"B2 closest": mega_bound(qw, qo, qd, qa, t_hit=t2),
                   "B2 anyhit": mega_bound(qw, qo, qd, qa, t_max=tmax, occluded=occ2),
-                  "B3 closest": cw8_bound(qa, tri3 >= 0, win3),
-                  "B3 anyhit": cw8_bound(qa, occ3)}
+                  "B3 closest": cw8_bound(st3["closest_oracle"], False, hits3["closest"]),
+                  "B3 anyhit": cw8_bound(st3["anyhit_oracle"], True, hits3["anyhit"])}
         walk = {"B2 closest": mega_walk(st, nb, kp, False),
-                "B2 anyhit": mega_walk(sta, nb, kp, True)}
+                "B2 anyhit": mega_walk(sta, nb, kp, True),
+                "B3 closest": cw8_bound(st3["closest"], False, hits3["closest"]),
+                "B3 anyhit": cw8_bound(st3["anyhit"], True, hits3["anyhit"])}
         b2_sets[(scene_name, label)] = {"ms": r, "bound": bounds}
         print(f"  {scene_name} {label}, {nb} rays ({int(qa.sum())} live), "
               f"{qds.wb_mega.shape[0]} groups of {kp} columns: " + ", ".join(
                   f"{k} {v:.4f} ms (bound {bounds[k][0]:.4f} ms by {bounds[k][1]}, "
                   f"{bounds[k][0] / v:.1%})" for k, v in r.items()), flush=True)
-        print("    B2's walk, the same rates over its own work: " + ", ".join(
+        print("    each walk, the same rates over its own work: " + ", ".join(
             f"{k} {w[0]:.4f} ms by {w[1]} ({w[0] / bounds[k][0]:.1f}x the bound)"
             for k, w in walk.items()), flush=True)
-        print(f"    B2 stats, mean/p50/p99/max per ray: closest {stats_line(st)} | touched "
+        print(f"    B2 stats, mean/p50/p99/max per ray: closest {stats_line(st, mega.STATS)} | touched "
               f"{int(st['grp_seen'].sum())} groups, {int(st['ent_seen'].sum())} entries, "
               f"{int(st['blk_seen'].sum())} blocks", flush=True)
-        print(f"    B2 stats, any-hit {stats_line(sta)} | touched {int(sta['grp_seen'].sum())} "
+        print(f"    B2 stats, any-hit {stats_line(sta, mega.STATS)} | touched {int(sta['grp_seen'].sum())} "
               f"groups", flush=True)
+        for q in ("closest", "anyhit"):
+            print(f"    B3 stats, {q}: walk {stats_line(st3[q], cw8.STATS)} | oracle walk "
+                  f"{stats_line(st3[q + '_oracle'], cw8.STATS)} | touched "
+                  f"{int(st3[q]['node_seen'].sum())} / {int(st3[q + '_oracle']['node_seen'].sum())}"
+                  f" nodes of {qc[0].shape[0]}", flush=True)
 
     # ------------------------------------------------------------- phase 12
     phase("12 B3 vs twin")
@@ -1064,10 +1183,8 @@ def main():
     print(f"  grid1m, {nm} rays: " + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()))
 
     # Bounds at the shapes each row's time was taken at: B1 on the 700x700
-    # cornell primary rays, B2 and B3 on grid100k's 65536 primary rays.
-    tm36 = torch.full((n,), 20.0, device=dev)
-    b1_bounds = {"closest": mt_bound(mt, o, d, act, ds.tris9),
-                 "anyhit": mt_bound(mt, o, d, act, ds.tris9, tm36)}
+    # cornell primary rays (closest) and their shadow rays (any-hit), B2 and
+    # B3 on grid100k's 65536 primary rays.
     b23_bounds = b2_sets[("grid100k", "primary")]["bound"]
 
     def kernel_row(name, mod, q, n_launch, err_q, ms, plain_ms, bnd):
@@ -1076,9 +1193,11 @@ def main():
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": None}  # no single PyTorch call computes a closest hit
 
+    b1_shape = {"closest": "36", "anyhit": "36 shadow"}
     record = {"kernels": [
-        kernel_row("mt_brute", mt, q, launches[q], err[q], times["36"][q],
-                   times["36"][f"{q}_plain"], b1_bounds[q]) for q in ("closest", "anyhit")
+        kernel_row("mt_brute", mt, q, launches[q], err[q], times[b1_shape[q]][q],
+                   times[b1_shape[q]][f"{q}_plain"], b1_bounds[b1_shape[q]][q])
+        for q in ("closest", "anyhit")
     ] + [
         kernel_row("mega", mega, q, mega_launches[q], err_b2[q], b2_times[q],
                    b2_times[f"{q}_plain"], b23_bounds[f"B2 {q}"]) for q in ("closest", "anyhit")

@@ -1,6 +1,6 @@
 """CUDA tier: the hand-written kernels (mt_brute, traverse_mega,
-traverse_cw8) against their plain PyTorch twins on the card, and the
-golden render through each.
+traverse_cw8) against their plain PyTorch twins on the card, their stats
+variants against the plain launches, and the golden render through each.
 
 Marked `cuda`; every test skips (inside the fixture, never at import)
 when torch sees no CUDA device.  Run on an NVIDIA card with
@@ -27,6 +27,7 @@ from caitlynrenderer_tpu_torch.ops import mt_brute, traverse_cw8, traverse_mega
 from caitlynrenderer_tpu_torch.ops.intersect import pack_tris
 from caitlynrenderer_tpu_torch.render import progressive, sampling
 from caitlynrenderer_tpu_torch.scene import WIDE_FIELDS, scene_families, upload_scene
+from test_torch_mt_cull import CASES as CULL_CASES, _case as cull_case
 
 pytestmark = pytest.mark.cuda
 
@@ -88,6 +89,62 @@ def test_kernel_matches_twin(case, dev, cornell):
     assert int((trt >= 0).sum()) > 0 and int(occ_t.sum()) > 0
     for a, b in ((tk, tt), (uk, ut), (vk, vt)):
         assert bool(((a - b).abs() <= 1e-6 * b.abs()).all())
+
+
+@pytest.mark.parametrize("case", ["few_rays_2048", "ties_stacked", "ties_interleaved",
+                                  "rays_16384_2048"])
+def test_kernel_matches_twin_with_lanes_per_ray(case, dev):
+    """Few rays take several lanes each (32 for 1,001 rays x 2048 rows, 16
+    for 16,384 rays, the lane count of grid1m's oracle batches); duplicated
+    triangles tie, and the lower copy wins in the kernel as in the twin,
+    whether the copies fall in one lane's rows or in two."""
+    soup = _soup_tris(dev)
+    if case in ("few_rays_2048", "rays_16384_2048"):
+        tris9 = soup
+    elif case == "ties_stacked":
+        tris9 = torch.cat([soup, soup]).contiguous()
+    else:
+        tris9 = torch.stack([soup, soup], dim=1).reshape(-1, 9).contiguous()
+    n, lanes = (16_384, 16) if case == "rays_16384_2048" else (1001, 32)
+    o, d, active, t_max = _rays(dev, n, 0.0, 10.0, 14)
+    cen = soup[:, 0:3] + (soup[:, 3:6] + soup[:, 6:9]) / 3.0
+    half = n // 2
+    aim = cen[(torch.arange(half, device=dev) * 4) % soup.shape[0]] - o[:half]
+    d = torch.cat([cm.normalize(aim), d[half:]]).contiguous()
+    assert mt_brute._lanes(n, tris9.shape[0], dev) == lanes
+    tk, trk, uk, vk = mt_brute.brute_closest(o, d, active, tris9)
+    tt, trt, ut, vt = mt_brute.brute_closest_plain(o, d, active, tris9)
+    occ_k = mt_brute.brute_anyhit(o, d, t_max, active, tris9)
+    occ_t = mt_brute.brute_anyhit_plain(o, d, t_max, active, tris9)
+    torch.cuda.synchronize()
+    assert torch.equal(trk, trt) and torch.equal(occ_k, occ_t)
+    assert int((trt >= 0).sum()) > 300 and int(occ_t.sum()) > 0
+    for a, b in ((tk, tt), (uk, ut), (vk, vt)):
+        assert bool(((a - b).abs() <= 1e-6 * b.abs()).all())
+
+
+@pytest.mark.parametrize("name", CULL_CASES)
+def test_kernel_matches_twin_on_pre_test_traps(name, dev):
+    """The inputs on which the kernel's pre-test could go wrong
+    (tests/test_torch_mt_cull.py's cases: |det| < 1e-20 of both signs,
+    det = 0 rows, numerators whose product with 1 / det underflows to
+    -0.0, u + v = 1 edges, t = 0, NaN, inf and zero directions, scenes far
+    from the origin, 256-row chunks of different offsets and scales), on
+    the card: the kernel equals the twins bit for bit, ~10 % of the rays
+    inactive."""
+    o, d, tris9 = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in cull_case(name))
+    rng = np.random.default_rng(16)
+    n = o.shape[0]
+    active = torch.tensor(rng.random(n) < 0.9, device=dev)
+    t_max = torch.tensor(rng.uniform(0, 20, n), dtype=torch.float32, device=dev)
+    tk, trk, uk, vk = mt_brute.brute_closest(o, d, active, tris9)
+    tt, trt, ut, vt = mt_brute.brute_closest_plain(o, d, active, tris9)
+    occ_k = mt_brute.brute_anyhit(o, d, t_max, active, tris9)
+    occ_t = mt_brute.brute_anyhit_plain(o, d, t_max, active, tris9)
+    torch.cuda.synchronize()
+    for a, b in ((trk, trt), (tk, tt), (uk, ut), (vk, vt), (occ_k, occ_t)):
+        assert torch.equal(a, b)
+    assert int((trt >= 0).sum()) > 0
 
 
 def test_kernel_rejects_bad_inputs(dev, cornell):
@@ -287,6 +344,38 @@ def test_cw8_kernel_matches_twin(case, dev, cornell):
     assert torch.equal(occ_k, occ_t)
     assert int((trt >= 0).sum()) > 0 and int(occ_t.sum()) > 0
     assert bool(((tk - tt).abs() <= 1e-6 * tt.abs()).all())
+
+
+@pytest.mark.parametrize("case", ["soup", "grid", "cornell"])
+def test_cw8_stats_variant_is_the_timed_walk(case, dev, cornell):
+    """The stats variant returns what the plain launch returns, as the
+    timed walk and as the oracle walk seeded with the closest t; the oracle
+    walk does no more than the timed one, and the counts hold together."""
+    ds, o, d, active, t_max = _cw_case(case, dev, cornell)
+    traverse_cw8.reset_launches()
+    t, tri, win = traverse_cw8.cw8_closest(o, d, active, *_cw(ds))
+    occ = traverse_cw8.cw8_anyhit(o, d, t_max, active, *_cw(ds))
+    n8, ncols = ds.cw_nodes.shape[0], 32 * ds.cw_planes.shape[0]
+    walks = {}
+    for seed in (None, t):
+        ts, tris, wins, st = traverse_cw8.cw8_closest(o, d, active, *_cw(ds), stats=True,
+                                                      t_seed=seed)
+        occs, sta = traverse_cw8.cw8_anyhit(o, d, t_max, active, *_cw(ds), stats=True,
+                                            t_seed=seed)
+        torch.cuda.synchronize()
+        assert torch.equal(t, ts) and torch.equal(tri, tris) and torch.equal(win, wins)
+        assert torch.equal(occ, occs)
+        for s in (st, sta):
+            nodes, boxes, tested, stack = s["counts"].long().unbind(1)
+            assert s["counts"].shape == (o.shape[0], len(traverse_cw8.STATS))
+            assert bool((boxes <= 8 * nodes).all()) and bool((tested <= 3 * boxes).all())
+            assert int(stack.max()) <= ds.cw_depth and int(s["node_seen"].sum()) <= n8
+            assert s["col_seen"].shape == (ncols,) and int(s["col_seen"].max()) <= 2
+        assert bool((st["counts"][tri >= 0, 2] > 0).all())  # a hit was tested
+        walks[seed is None] = (st["counts"].long().sum(0), sta["counts"].long().sum(0))
+    assert bool((walks[False][0][:3] <= walks[True][0][:3]).all())
+    assert traverse_cw8.launches["closest"] == 1 and traverse_cw8.launches["anyhit"] == 1
+    assert traverse_cw8.stats_launches == {"closest": 2, "anyhit": 2}
 
 
 def test_cw8_kernel_rejects_bad_inputs(dev, cornell):

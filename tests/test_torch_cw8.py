@@ -317,6 +317,28 @@ def test_cpu_tensors_run_the_twin_and_mixed_devices_raise():
         t_cw8.cw8_closest(o, d.to("meta"), act, *_cw(tds))
 
 
+@pytest.mark.parametrize("query", ["closest", "anyhit"])
+@pytest.mark.parametrize("kwargs", ["stats", "stats_seeded", "seed_alone"])
+def test_stats_variant_needs_cuda_tensors(query, kwargs):
+    """The stats variant counts the CUDA kernel's walk: on CPU tensors it
+    raises ValueError, as B2's does, and so does a t_seed without
+    stats=True; nothing is launched."""
+    sc, _, tds = _uploads("cornell")
+    o, d = (torch.from_numpy(x) for x in _mixed_rays(sc, 64, seed=2))
+    act = torch.ones(64, dtype=torch.bool)
+    extra = {"stats": {"stats": True},
+             "stats_seeded": {"stats": True, "t_seed": torch.full((64,), 2.0)},
+             "seed_alone": {"t_seed": torch.full((64,), 2.0)}}[kwargs]
+    t_cw8.reset_launches()
+    with pytest.raises(ValueError, match="stats"):
+        if query == "closest":
+            t_cw8.cw8_closest(o, d, act, *_cw(tds), **extra)
+        else:
+            t_cw8.cw8_anyhit(o, d, torch.full((64,), 3.0), act, *_cw(tds), **extra)
+    assert all(v == 0 for v in t_cw8.launches.values())
+    assert t_cw8.stats_launches == {"closest": 0, "anyhit": 0}
+
+
 # --------------------------------------------------------------------------
 # The slice as a whole
 # --------------------------------------------------------------------------

@@ -11,6 +11,7 @@ reason:
   * the committed golden: tests/test_golden.py's bounds.
 """
 
+import importlib.util
 import os
 
 import numpy as np
@@ -66,6 +67,40 @@ def test_trace_paths_matches_reference_per_pixel(rr_start, exact_nee):
     assert float(lt.sum()) > 0.0
     for key in ("rays_closest", "rays_anyhit", "alive_per_bounce"):
         np.testing.assert_array_equal(st[key].numpy(), np.asarray(sj[key]))
+
+
+def test_chip_smoke_rays_are_the_integrators(monkeypatch):
+    """chip_smoke.py times and checks B1 on "the main path's" bounce and
+    shadow rays: they are the rays trace_paths hands its second closest-hit
+    query and its first any-hit query, on every lane it issues them for."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    scene, camera, options = _setup(32, 32)
+    uni = torch.from_numpy(np.random.default_rng(7).random((32 * 32, 25), dtype=np.float32))
+    ds = t_upload(scene, "brute", "cpu")
+    o, d = t_generate_rays(camera, 32, 32, uni)
+    calls = {"closest": [], "anyhit": []}
+
+    def closest(qo, qd, active, tris9):
+        calls["closest"].append((qo, qd, active))
+        return mt_brute.brute_closest(qo, qd, active, tris9)
+
+    def anyhit(qo, qd, t_max, active, tris9):
+        calls["anyhit"].append((qo, qd, active, t_max))
+        return mt_brute.brute_anyhit(qo, qd, t_max, active, tris9)
+
+    monkeypatch.setattr(t_integrator, "brute_closest", closest)
+    monkeypatch.setattr(t_integrator, "brute_anyhit", anyhit)
+    t_integrator.trace_paths(ds, o, d, uni, options)
+    _, tri, _, _ = mt_brute.brute_closest_plain(o, d, torch.ones(o.shape[0], dtype=torch.bool),
+                                                ds.tris9)
+    for got, want in ((smoke.bounce_rays(ds, o, d, tri, uni), calls["closest"][1]),
+                      (smoke.shadow_rays(ds, o, d, tri, uni), calls["anyhit"][0])):
+        live = want[2]
+        assert torch.equal(got[2], live) and int(live.sum()) > 100
+        for a, b in zip(got[:2] + got[3:], want[:2] + want[3:]):
+            assert torch.equal(a[live], b[live])
 
 
 def test_render_image_matches_reference_render():
