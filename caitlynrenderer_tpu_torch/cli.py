@@ -17,9 +17,10 @@ import time
 
 def render_setup(cfg: dict, base_dir: str, **overrides):
     """(scene, camera, options) for a parsed TOML config: the scene and
-    camera it names, RenderOptions with `overrides` (None values ignored),
-    accel "auto" resolved by triangle count and the shading families the
-    scene's materials use (unless the config names them)."""
+    camera it names, RenderOptions from its [render] table with `overrides`
+    (None values ignored), then accel "auto" resolved by triangle count and
+    the shading families the scene's materials use (unless the config
+    names them)."""
     from caitlynrenderer_tpu_torch.utils import config
     from caitlynrenderer_tpu_torch.scene import auto_accel, scene_families
 
@@ -51,6 +52,7 @@ def cmd_render(args) -> int:
     scene, camera, options = render_setup(
         config.load_config(args.config), os.path.dirname(args.config),
         width=args.width, height=args.height, max_depth=args.depth, accel=args.accel,
+        aov=args.aov,
     )
     ds = upload_scene(scene, options.accel, device, max_leaf=options.max_leaf)
     # Size the binary-BVH stack from the build: a deep tree would overflow
@@ -58,6 +60,16 @@ def cmd_render(args) -> int:
     options = options._replace(max_stack=required_stack(ds))
     w, h = options.width, options.height
     spp = args.spp or options.max_samples
+    if args.debug_checks:
+        # One sample checked for NaN/inf radiance before the accumulation.
+        from caitlynrenderer_tpu_torch.render import sampling
+        from caitlynrenderer_tpu_torch.utils.debug import checked_render_sample
+
+        checked_render_sample(
+            ds, camera, sampling.draw_uniforms(sampling.prng_key(args.seed), w * h,
+                                               options.max_depth, device),
+            w, h, options)
+        print("debug checks: the first sample's radiance is finite")
     t0 = time.perf_counter()
     state = progressive.render_steps(
         ds, camera, progressive.init_state(w, h, args.seed, device), w, h, options, spp
@@ -81,10 +93,14 @@ def main(argv=None) -> int:
     r.add_argument("--width", type=int, default=None)
     r.add_argument("--height", type=int, default=None)
     r.add_argument("--depth", type=int, default=None)
-    r.add_argument("--accel", default="auto",
-                   help="auto (default): brute up to 2048 triangles, wide above; "
-                   "or brute, bvh2, sbvh, wide, cwbvh")
+    r.add_argument("--accel", default=None,
+                   help="brute, bvh2, sbvh, wide, cwbvh, or auto (brute up to 2048 "
+                   "triangles, wide above); default: the config's [render] accel")
     r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--aov", default=None, choices=["beauty", "albedo", "normal", "depth"],
+                   help="first-hit AOV instead of the beauty pass")
+    r.add_argument("--debug-checks", action="store_true",
+                   help="check one sample for NaN/inf radiance before rendering")
     r.add_argument("--device", default="cuda", help="torch device (default cuda)")
     r.add_argument("--resume", default=None, help="not ported yet")
     r.add_argument("--mesh", default=None, help="not ported yet")

@@ -39,7 +39,8 @@ def device_scene_from_numpy(scene: SceneArrays, device, wide=None, cw=None,
                             bvh=None) -> DeviceScene:
     """The port's DeviceScene from the reference DeviceScene's `scene`
     field with every array as numpy (e.g.
-    `jax.tree_util.tree_map(np.asarray, ds.scene)`), and the arrays of at
+    `jax.tree_util.tree_map(np.asarray, ds.scene)`; the texture atlas and
+    the env map, where present, become f32 tensors too), and the arrays of at
     most one accelerator, each a dict of numpy arrays under the reference
     DeviceScene's names, e.g. `{k: np.asarray(getattr(ds, k)) for k in
     WIDE_FIELDS}`:

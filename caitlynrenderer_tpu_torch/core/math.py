@@ -84,6 +84,11 @@ def reflect(d, n):
     return d - 2.0 * dot(d, n, True) * n
 
 
+def luminance(rgb):
+    """Rec. 709 luminance of (..., 3) linear RGB."""
+    return 0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1] + 0.0722 * rgb[..., 2]
+
+
 def interpolate(a, b, c, u, v):
     """Barycentric interpolation a*(1-u-v) + b*u + c*v."""
     w = 1.0 - u - v

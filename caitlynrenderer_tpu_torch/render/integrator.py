@@ -1,39 +1,52 @@
 """Wavefront path-tracing integrator on tensors (counterpart of
-caitlynrenderer_tpu/render/integrator.py:376-694).
+caitlynrenderer_tpu/render/integrator.py:336-694).
 
 The whole ray batch advances bounce by bounce as dense (N, ...) tensors:
-raygen → closest hit → shade (emission, NEE with a shadow any-hit, MIS) →
-scatter, with masked lanes for dead paths.  Both ray queries go through
-the scene's accelerator: ops/mt_brute under "brute", ops/traverse_mega
-under "wide" and ops/traverse_cw8 under "cwbvh", each of which launches
-its CUDA kernel for CUDA tensors, and ops/traverse_bvh (plain torch ops,
-as the reference's XLA walk) under "bvh2" and "sbvh".  The estimator, the
-uniform layout and the order of the arithmetic are the reference's, so the
-tests can hold the two against each other per pixel.  A vertex's steps
-(`hit_frame`, `light_sample`, `continuation`) are functions of their own,
-so that chip_smoke.py builds the kernels' bounce and shadow ray sets with
-the integrator's code.
+raygen → closest hit → shade (environment on a miss, emission, NEE with a
+shadow any-hit, MIS) → scatter, with masked lanes for dead paths.  Both
+ray queries go through the scene's accelerator: ops/mt_brute under
+"brute", ops/traverse_mega under "wide" and ops/traverse_cw8 under
+"cwbvh", each of which launches its CUDA kernel for CUDA tensors, and
+ops/traverse_bvh (plain torch ops, as the reference's XLA walk) under
+"bvh2" and "sbvh".  The estimator, the uniform layout and the order of the
+arithmetic are the reference's, so the tests can hold the two against
+each other per pixel.  A vertex's steps (`hit_frame`, `surface`,
+`light_sample`, `continuation`) are functions of their own, so that
+chip_smoke.py builds the kernels' bounce and shadow ray sets with the
+integrator's code.
 
-Ported: the "lambert" family, NEE + MIS power heuristic,
-`exact_reference_nee`, Russian roulette (`rr_start`) and the ray-count
-stats.  Disney/mirror/glass, textures, the env map and AOVs raise
-NotImplementedError (ROADMAP.md queue A).  The wide and cwbvh paths
-thread the reference's origin-group (window) hint `og`; its `preorder` has
-no counterpart, and `options.traversal` is not read (each accelerator has
-one path per device).
+Shading: the four families of the reference (Lambert, the Disney BRDF
+of ops/bsdf.py for every microfacet type, mirror, glass), textured albedo
+(ops/texture.py), the environment map on a miss, NEE + MIS power
+heuristic, `exact_reference_nee`, Russian roulette (`rr_start`), the
+ray-count stats and the first-hit AOVs (`trace_aov`).  As in the
+reference, CONDUCTOR is specular (no NEE) but not MIRROR (no reflection)
+and not Disney, so it scatters as a Lambert bounce.  The wide and cwbvh
+paths thread the reference's origin-group (window) hint `og`; its
+`preorder` has no counterpart, and `options.traversal` is not read (each
+accelerator has one path per device).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
-from caitlynrenderer_tpu_torch.core.types import Camera, RenderOptions
+from caitlynrenderer_tpu_torch.core.types import (
+    LAMBERT_TYPES,
+    SPECULAR_TYPES,
+    Camera,
+    MaterialType,
+    RenderOptions,
+)
 from caitlynrenderer_tpu_torch.core import math as cm
 from caitlynrenderer_tpu_torch.core.camera import generate_rays
+from caitlynrenderer_tpu_torch.ops import bsdf
 from caitlynrenderer_tpu_torch.ops.intersect import refine_hit_tri
 from caitlynrenderer_tpu_torch.ops.mt_brute import brute_anyhit, brute_closest
+from caitlynrenderer_tpu_torch.ops.texture import sample_bilinear, sample_env
 from caitlynrenderer_tpu_torch.ops.traverse_bvh import traverse_anyhit, traverse_closest
 from caitlynrenderer_tpu_torch.ops.traverse_cw8 import cw8_anyhit, cw8_closest
 from caitlynrenderer_tpu_torch.ops.traverse_mega import mega_anyhit, mega_closest
@@ -42,24 +55,29 @@ from caitlynrenderer_tpu_torch.scene import ACCELS, DeviceScene
 EPS = cm.EPS
 RAY_OFFSET = cm.RAY_OFFSET
 
+_GLASS_IDS = (
+    int(MaterialType.GLASS),
+    int(MaterialType.GLASS_COLOR),
+    int(MaterialType.GLASS_NO_REFRACT),
+    int(MaterialType.ROUGH_DIELECTRIC),
+    int(MaterialType.THIN_DIELECTRIC),
+    int(MaterialType.THIN_SHEET),
+)
+_SPECULAR_IDS = tuple(int(t) for t in SPECULAR_TYPES)
+_LAMBERT_IDS = tuple(int(t) for t in LAMBERT_TYPES)
+
+
+def _type_is(mat_type, ids):
+    """mat_type (int64 MaterialType values, all below 63) in `ids`: a bit
+    test against a mask of the ids, which needs no id tensor on the device
+    (`torch.isin` would copy one there, a copy that waits for the stream)."""
+    mask = sum(1 << i for i in ids)
+    return torch.bitwise_left_shift(torch.ones_like(mat_type), mat_type) & mask != 0
+
 
 def check_supported(ds: DeviceScene, options: RenderOptions) -> None:
-    """Raise NotImplementedError for any option the port does not cover yet,
-    naming the ROADMAP item that will, and ValueError for an accelerator
-    the scene was not uploaded for ("brute" runs on every upload)."""
-    extra = [f for f in options.families if f != "lambert"]
-    if extra:
-        raise NotImplementedError(
-            f"shading families {extra} are not ported yet (ROADMAP A1); "
-            "set options.families = scene.scene_families(scene)"
-        )
-    sc = ds.scene
-    if options.use_env_map and sc.env_map is not None:
-        raise NotImplementedError("environment maps are not ported yet (ROADMAP A2)")
-    if sc.textures is not None and sc.texcoords.shape[0] > 0:
-        raise NotImplementedError("textured albedo is not ported yet (ROADMAP A2)")
-    if options.aov != "beauty":
-        raise NotImplementedError(f"AOV {options.aov!r} is not ported yet (ROADMAP A3)")
+    """Raise ValueError for an unknown accelerator or one the scene was not
+    uploaded for ("brute" runs on every upload)."""
     if options.accel not in ACCELS:
         raise ValueError(f"unknown accel {options.accel!r} (expected one of {'/'.join(ACCELS)})")
     # bvh2 and sbvh differ only in how the binary tree was built.
@@ -141,6 +159,18 @@ def _shading_normal_from_rows(rows, u, v):
     return torch.where((rows[:, 18] > 0.5)[:, None], interp, geo_n)
 
 
+def _albedo_from_rows(sc, rows, u, v):
+    """The material's albedo, sampled from the texture atlas where the
+    material carries a layer (column 46)."""
+    base = rows[:, 26:29]
+    if sc.textures is None or sc.texcoords.shape[0] == 0:
+        return base
+    layer_f = rows[:, 46]
+    uv = cm.interpolate(rows[:, 19:21], rows[:, 21:23], rows[:, 23:25], u, v)
+    sampled = sample_bilinear(sc.textures, torch.round(layer_f), uv)
+    return torch.where((layer_f >= 0)[:, None], sampled, base)
+
+
 def bounce_uniforms(uniforms, bounce: int):
     """A bounce's seven uniforms, render/sampling.py's layout: (light_pick,
     light_u1, light_u2, bsdf_u1, bsdf_u2, bsdf_lobe, rr)."""
@@ -148,13 +178,31 @@ def bounce_uniforms(uniforms, bounce: int):
     return tuple(uniforms[:, base + k] for k in range(7))
 
 
-def hit_frame(ds: DeviceScene, o, d, raw_t, raw_tri, raw_u, raw_v):
-    """A closest-hit query's answer as the integrator shades it: the hit
-    triangle's shading rows, where it hit, the hit's t refined from its
-    triangle (the query's own where it missed), the shading normal flipped
-    against the incoming ray, and the next rays' origin, RAY_OFFSET off
-    the surface along that normal.  Returns (rows, keep, hit_t, n_flip,
-    hit_point)."""
+class HitFrame(NamedTuple):
+    """A closest-hit query's answer as the integrator shades it.
+
+    rows:     (N, 50) the hit triangle's shading-table rows (triangle 0's
+              where it missed)
+    keep:     (N,) bool, where it hit
+    t, u, v:  the hit refined from its triangle (the query's own where it
+              missed)
+    cos_incident: dot(ray direction, shading normal)
+    n_flip:   the shading normal flipped against the incoming ray
+    point:    the next rays' origin, RAY_OFFSET off the surface along n_flip
+    """
+
+    rows: torch.Tensor
+    keep: torch.Tensor
+    t: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    cos_incident: torch.Tensor
+    n_flip: torch.Tensor
+    point: torch.Tensor
+
+
+def hit_frame(ds: DeviceScene, o, d, raw_t, raw_tri, raw_u, raw_v) -> HitFrame:
+    """The HitFrame of a closest-hit query's raw answer on rays (o, d)."""
     rows = ds.shade_tab[torch.clamp(raw_tri, min=0).long()]
     t_r, u_r, v_r = refine_hit_tri(o, d, rows[:, 0:3], rows[:, 3:6], rows[:, 6:9])
     keep = raw_tri >= 0
@@ -165,16 +213,64 @@ def hit_frame(ds: DeviceScene, o, d, raw_t, raw_tri, raw_u, raw_v):
     cos_incident = cm.dot(d, n_shade)
     n_flip = torch.where((cos_incident > 0)[:, None], -n_shade, n_shade)
     hit_point = o + d * hit_t[:, None] + n_flip * RAY_OFFSET
-    return rows, keep, hit_t, n_flip, hit_point
+    return HitFrame(rows, keep, hit_t, hit_u, hit_v, cos_incident, n_flip, hit_point)
 
 
-def light_sample(light_tab, hit_point, n_flip, u_lp, u_l1, u_l2, alive):
+class Surface(NamedTuple):
+    """The hit's material as the shading families see it.
+
+    albedo:   (N, 3), texture-modulated where the material has a layer
+    ior:      (N,) the specular row's ior (glass reads it unfloored)
+    specular: (N,) bool, the reference's specular types (no NEE); all
+              False unless the mirror or glass family is traced
+    disney, mirror, glass: (N,) bool masks of the families, None where
+              options.families leaves the family out
+    dis_p:    bsdf.DisneyParams of every lane, None without "disney"
+    """
+
+    albedo: torch.Tensor
+    ior: torch.Tensor
+    specular: torch.Tensor
+    disney: Optional[torch.Tensor]
+    mirror: Optional[torch.Tensor]
+    glass: Optional[torch.Tensor]
+    dis_p: Optional[bsdf.DisneyParams]
+
+
+def surface(ds: DeviceScene, hf: HitFrame, families) -> Surface:
+    """The Surface of a HitFrame's rows.  Only the families named in
+    `families` are traced (the reference's static specialization); every
+    type that is neither Lambert nor specular takes the Disney BRDF."""
+    rows = hf.rows
+    mat_type = torch.round(rows[:, 29]).to(torch.int64)
+    albedo = _albedo_from_rows(ds.scene, rows, hf.u, hf.v)
+    has_mirror, has_glass = "mirror" in families, "glass" in families
+    if has_mirror or has_glass:
+        specular = _type_is(mat_type, _SPECULAR_IDS)
+    else:
+        specular = torch.zeros_like(hf.keep)
+    disney = dis_p = None
+    if "disney" in families:
+        disney = ~specular & ~_type_is(mat_type, _LAMBERT_IDS)
+        dis_p = bsdf.params_from_rows(rows, albedo)
+    return Surface(
+        albedo=albedo,
+        ior=rows[:, 37],
+        specular=specular,
+        disney=disney,
+        mirror=(mat_type == int(MaterialType.MIRROR)) if has_mirror else None,
+        glass=_type_is(mat_type, _GLASS_IDS) if has_glass else None,
+        dis_p=dis_p,
+    )
+
+
+def light_sample(light_tab, hit_point, n_flip, u_lp, u_l1, u_l2, alive, specular):
     """NEE's light sample and shadow ray: a light picked by u_lp, a point on
     it by u_l1, u_l2, the unit direction from hit_point towards it and its
     distance.  The any-hit query is issued where `cand` (the path goes on,
-    the point lies above the surface and the light faces it), with t_max
-    the distance less EPS (0 elsewhere).  Returns (lrows, ldir, dist,
-    cos_mtl, cos_light, cand, t_max)."""
+    its material is not specular, the point lies above the surface and the
+    light faces it), with t_max the distance less EPS (0 elsewhere).
+    Returns (lrows, ldir, dist, cos_mtl, cos_light, cand, t_max)."""
     num_lights = light_tab.shape[0]
     li = torch.clamp((u_lp * num_lights).to(torch.int64), max=num_lights - 1)
     s = torch.sqrt(u_l1)
@@ -187,16 +283,74 @@ def light_sample(light_tab, hit_point, n_flip, u_lp, u_l1, u_l2, alive):
     ldir = ldir / torch.clamp(dist[:, None], min=1e-20)
     cos_mtl = cm.dot(ldir, n_flip)
     cos_light = cm.dot(ldir, lrows[:, 9:12])
-    cand = alive & (cos_mtl > 0) & (cos_light < 0)
+    cand = alive & ~specular & (cos_mtl > 0) & (cos_light < 0)
     return lrows, ldir, dist, cos_mtl, cos_light, cand, torch.where(cand, dist - EPS, 0.0)
 
 
-def continuation(u_b1, u_b2, n_flip):
-    """The continuation ray's cosine-weighted Lambert direction about
-    n_flip.  Returns (local, d): the local-frame sample and the unit
-    world-space direction."""
+def continuation(hf: HitFrame, surf: Surface, d, T, u_b1, u_b2, u_lobe):
+    """The continuation ray of every lane by its family: a cosine-weighted
+    Lambert sample about n_flip, a Disney BRDF sample, a mirror
+    reflection, or a glass reflection or refraction chosen by u_lobe
+    against Fresnel.  Returns (d, T, pdf, is_specular, ok, origin): the unit
+    direction, the throughput the path carries on with, the direction's
+    pdf (1 for a delta lobe), whether it was a delta lobe, where the path
+    survives (False where a Disney sample has no pdf), and the origin,
+    moved through the surface for a refracted ray."""
+    n_flip = hf.n_flip
+    n = d.shape[0]
     local = cm.cosine_hemisphere_dir(u_b1, u_b2)
-    return local, cm.normalize(cm.local_to_world(local, n_flip))
+    diff_dir = cm.local_to_world(local, n_flip)
+    diff_pdf = torch.clamp(local[:, 2], min=1e-8) / math.pi
+    ok = torch.ones(n, dtype=torch.bool, device=d.device)
+
+    if surf.disney is not None:
+        disney = surf.disney
+        dis_dir, dis_f, dis_pdf = bsdf.sample(surf.dis_p, n_flip, -d, u_lobe, u_b1, u_b2)
+        dis_ok = dis_pdf > 1e-9
+        dis_T = T * torch.where(dis_ok[:, None],
+                                dis_f / torch.clamp(dis_pdf, min=1e-9)[:, None], 0.0)
+        new_d = torch.where(disney[:, None], dis_dir, diff_dir)
+        new_T = torch.where(disney[:, None], dis_T, T * surf.albedo)
+        new_pdf = torch.where(disney, torch.clamp(dis_pdf, min=1e-9), diff_pdf)
+        ok = ~disney | dis_ok
+    else:
+        new_d = diff_dir
+        new_T = T * surf.albedo
+        new_pdf = diff_pdf
+    new_spec = torch.zeros(n, dtype=torch.bool, device=d.device)
+    origin = hf.point
+
+    if surf.mirror is not None:
+        mirror = surf.mirror
+        new_d = torch.where(mirror[:, None], cm.reflect(d, n_flip), new_d)
+        new_pdf = torch.where(mirror, 1.0, new_pdf)
+        new_spec = new_spec | mirror
+
+    if surf.glass is not None:
+        glass, ior = surf.glass, surf.ior
+        refl_dir = cm.reflect(d, n_flip)
+        entering = hf.cos_incident <= 0
+        eta = torch.where(entering, 1.0 / torch.clamp(ior, min=1e-6), ior)
+        ci = torch.abs(cm.dot(d, n_flip))
+        sin2_t = eta * eta * torch.clamp(1.0 - ci * ci, min=0.0)
+        # Floored strictly above 0 (sqrt'(0) = inf): at total internal
+        # reflection the select below masks only the value.
+        cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=1e-12))
+        r_par = (ci - eta * cos_t) / torch.clamp(ci + eta * cos_t, min=1e-12)
+        r_perp = (eta * ci - cos_t) / torch.clamp(eta * ci + cos_t, min=1e-12)
+        tir = sin2_t >= 1.0
+        fres = torch.where(tir, 1.0, 0.5 * (r_par * r_par + r_perp * r_perp))
+        refr_dir = cm.normalize(eta[:, None] * d + (eta * ci - cos_t)[:, None] * n_flip)
+        choose_refl = (u_lobe < fres) | tir
+        new_d = torch.where(glass[:, None],
+                            torch.where(choose_refl[:, None], refl_dir, refr_dir), new_d)
+        new_pdf = torch.where(glass, 1.0, new_pdf)
+        new_spec = new_spec | glass
+        # A refracted ray leaves from the other side of the surface.
+        origin = origin + torch.where((glass & ~choose_refl)[:, None],
+                                      -2.0 * RAY_OFFSET * n_flip, 0.0)
+
+    return cm.normalize(new_d), new_T, new_pdf, new_spec, ok, origin
 
 
 def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_stats: bool = False):
@@ -213,6 +367,7 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
     n, dev = o.shape[0], o.device
     num_lights = ds.light_tab.shape[0]
     light_tab = ds.light_tab
+    env_map = ds.scene.env_map if options.use_env_map else None
 
     L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     T = torch.ones((n, 3), dtype=torch.float32, device=dev)
@@ -225,7 +380,7 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
     alive_per_bounce, anyhit_per_bounce = [], []
 
     for bounce in range(options.max_depth):
-        u_lp, u_l1, u_l2, u_b1, u_b2, _, u_rr = bounce_uniforms(uniforms, bounce)
+        u_lp, u_l1, u_l2, u_b1, u_b2, u_lobe, u_rr = bounce_uniforms(uniforms, bounce)
 
         # Russian roulette from rr_start on: survive with p = max throughput
         # component (clamped to [0.05, 1]) and compensate T by 1/p.
@@ -237,13 +392,18 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
         if with_stats:
             alive_per_bounce.append(alive.sum())
         raw_t, raw_tri, raw_u, raw_v, grp = _closest_hit_raw(ds, o, d, alive, options, og)
-        rows, keep, hit_t, n_flip, hit_point = hit_frame(ds, o, d, raw_t, raw_tri, raw_u, raw_v)
-        got = alive & keep
+        hf = hit_frame(ds, o, d, raw_t, raw_tri, raw_u, raw_v)
+        got = alive & hf.keep
+        if env_map is not None:
+            # A miss sees the environment.  The env is lit only through
+            # BSDF samples (no NEE toward it), so its MIS weight is 1.
+            L = L + torch.where((alive & ~got)[:, None], T * sample_env(env_map, d), 0.0)
         alive = got
         if grp is not None:
             og = torch.clamp(grp, min=0)
 
-        albedo = rows[:, 26:29]
+        rows = hf.rows
+        surf = surface(ds, hf, options.families)
         emission = rows[:, 30:33]
         emissive = rows[:, 33] != -1
         li_hit = torch.round(rows[:, 25]).long()
@@ -252,10 +412,10 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
         hit_light = got & emissive
         if num_lights > 0:
             area = light_tab[torch.clamp(li_hit, 0, num_lights - 1), 15]
-            cos_light = -cm.dot(d, n_flip)
+            cos_light = -cm.dot(d, hf.n_flip)
             pdf_select = 1.0 / num_lights
             pdf_light = (
-                hit_t * hit_t
+                hf.t * hf.t
                 / torch.clamp(area * torch.clamp(cos_light, min=1e-8), min=1e-20)
                 * pdf_select
             )
@@ -266,33 +426,38 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
         # NEE with MIS: one light sample per vertex, visibility by any-hit.
         if num_lights > 0:
             lrows, ldir, dist, cos_mtl, cos_light, cand, shadow_t = light_sample(
-                light_tab, hit_point, n_flip, u_lp, u_l1, u_l2, alive)
+                light_tab, hf.point, hf.n_flip, u_lp, u_l1, u_l2, alive, surf.specular)
             if with_stats:
                 anyhit_per_bounce.append(cand.sum())
-            shadowed = _occluded(ds, hit_point, ldir, shadow_t, cand, options, og)
+            shadowed = _occluded(ds, hf.point, ldir, shadow_t, cand, options, og)
             visible = cand & ~shadowed
             pdf_light = (
                 dist * dist
                 / torch.clamp(lrows[:, 15] * torch.clamp(-cos_light, min=1e-8), min=1e-20)
                 * pdf_select
             )
+            # The BSDF's value toward the light (cos-premultiplied) and its
+            # pdf, by family.
             cos_pos = torch.clamp(cos_mtl, min=0.0)
             if options.exact_reference_nee:
-                f_lam = albedo  # the reference shader's estimator (no cos/pi)
+                f_nee = surf.albedo  # the reference shader's estimator (no cos/pi)
             else:
-                f_lam = albedo * (cos_pos / math.pi)[:, None]
-            w_mis = _power_heuristic(pdf_light, cos_pos / math.pi)
-            contrib = T * lrows[:, 12:15] * f_lam * (
+                f_nee = surf.albedo * (cos_pos / math.pi)[:, None]
+            bsdf_pdf = cos_pos / math.pi
+            if surf.disney is not None:
+                f_dis, pdf_dis = bsdf.eval_pdf(surf.dis_p, hf.n_flip, -d, ldir)
+                f_nee = torch.where(surf.disney[:, None], f_dis, f_nee)
+                bsdf_pdf = torch.where(surf.disney, pdf_dis, bsdf_pdf)
+            w_mis = _power_heuristic(pdf_light, bsdf_pdf)
+            contrib = T * lrows[:, 12:15] * f_nee * (
                 w_mis / torch.clamp(pdf_light, min=1e-20)
             )[:, None]
             L = L + torch.where(visible[:, None], contrib, 0.0)
 
-        # Continuation: cosine-weighted Lambert sample.
-        local, d = continuation(u_b1, u_b2, n_flip)
-        o = hit_point
-        T = torch.where(alive[:, None], T * albedo, T)
-        prev_pdf = torch.clamp(local[:, 2], min=1e-8) / math.pi
-        is_specular = torch.zeros(n, dtype=torch.bool, device=dev)
+        d, new_T, prev_pdf, is_specular, ok, o = continuation(hf, surf, d, T, u_b1, u_b2,
+                                                               u_lobe)
+        alive = alive & ok
+        T = torch.where(alive[:, None], new_T, T)
 
     if not with_stats:
         return L
@@ -304,9 +469,34 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
     }
 
 
+def trace_aov(ds: DeviceScene, o, d, options: RenderOptions):
+    """The first-hit AOV of options.aov, from one closest-hit query and no
+    sampling: "depth" (the hit's t, in every channel), "normal" (the
+    shading normal mapped to [0, 1]) or "albedo" (emissive surfaces show
+    their emission); 0 where the ray missed.  Returns (N, 3)."""
+    check_supported(ds, options)
+    n = o.shape[0]
+    active = torch.ones(n, dtype=torch.bool, device=o.device)
+    og = torch.zeros(n, dtype=torch.int32, device=o.device)
+    raw_t, raw_tri, raw_u, raw_v, _ = _closest_hit_raw(ds, o, d, active, options, og)
+    hf = hit_frame(ds, o, d, raw_t, raw_tri, raw_u, raw_v)
+    got = hf.keep[:, None]
+    if options.aov == "depth":
+        return torch.where(got, hf.t[:, None], 0.0).expand(n, 3)
+    if options.aov == "normal":
+        n_shade = _shading_normal_from_rows(hf.rows, hf.u, hf.v)
+        return torch.where(got, 0.5 * (n_shade + 1.0), 0.0)
+    albedo = _albedo_from_rows(ds.scene, hf.rows, hf.u, hf.v)
+    emissive = (hf.rows[:, 33] != -1)[:, None]
+    return torch.where(got, torch.where(emissive, hf.rows[:, 30:33], albedo), 0.0)
+
+
 def render_sample(ds: DeviceScene, camera: Camera, uniforms, width: int, height: int,
                   options: RenderOptions):
-    """One full sample of every pixel: raygen + path trace.  Returns
-    (H*W, 3) radiance on the uniforms' device."""
+    """One full sample of every pixel: raygen, then the path trace (or the
+    first-hit AOV unless options.aov is "beauty").  Returns (H*W, 3)
+    radiance on the uniforms' device."""
     o, d = generate_rays(camera, width, height, uniforms)
+    if options.aov != "beauty":
+        return trace_aov(ds, o, d, options)
     return trace_paths(ds, o, d, uniforms, options)

@@ -71,12 +71,19 @@ def tonemap(rgb, limit: float = 2.0):
 
 
 def resolve(state: RenderState, width: int, height: int, options: RenderOptions):
-    """Accumulation → display image (H, W, 3) in [0, 1], row 0 at the top."""
-    if options.aov != "beauty":
-        raise NotImplementedError(f"AOV {options.aov!r} is not ported yet (ROADMAP A3)")
+    """Accumulation → display image (H, W, 3) in [0, 1], row 0 at the top.
+    The beauty pass is tonemapped; an AOV is a data view and resolves
+    linearly, clipped to [0, 1], "depth" first normalized by the frame's
+    largest value."""
     inv = 1.0 / max(float(state.frame_count), 1.0)
     hdr = state.accum * inv * options.hdr_multiplier
-    return tonemap(hdr, options.tonemap_limit).reshape(height, width, 3).flip(0)
+    if options.aov == "depth":
+        img = torch.clamp(hdr / torch.clamp(hdr.max(), min=1e-8), 0.0, 1.0)
+    elif options.aov != "beauty":
+        img = torch.clamp(hdr, 0.0, 1.0)
+    else:
+        img = tonemap(hdr, options.tonemap_limit)
+    return img.reshape(height, width, 3).flip(0)
 
 
 def render_image(ds: DeviceScene, camera: Camera, options: RenderOptions, spp: int = 16,

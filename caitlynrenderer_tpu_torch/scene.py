@@ -57,8 +57,9 @@ class DeviceScene(NamedTuple):
 
     accel:      the accelerator the scene was built for (rendering with
                 another one than this or "brute" raises)
-    scene:      SceneArrays whose array fields are tensors (textures and
-                env_map stay as given: None or numpy); under every
+    scene:      SceneArrays whose array fields are tensors (textures, the
+                (K, H, W, 3) albedo atlas, and env_map, the (H, W, 3)
+                equirect radiance map, are f32 tensors or None); under every
                 accelerator but "brute" in its tree's leaf order, so
                 triangle ids are the reference's
     tris9:      (T, 9) f32 — packed v0 | e1 | e2, the brute kernel's slab
@@ -331,7 +332,7 @@ def scene_to_device(scene_np: SceneArrays, accel: str, device, bvh: FlatBVH, wid
     check_depth(cw_depth)
 
     def put(x, dtype):  # copies: the caller's arrays stay the caller's
-        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+        return None if x is None else torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
     f32, i32 = torch.float32, torch.int32
     sc = SceneArrays(
@@ -343,8 +344,8 @@ def scene_to_device(scene_np: SceneArrays, accel: str, device, bvh: FlatBVH, wid
         tri_vt=put(scene_np.tri_vt, i32),
         materials=Materials(*(put(x, f32) for x in scene_np.materials)),
         lights=Lights(*(put(x, f32) for x in scene_np.lights)),
-        textures=scene_np.textures,
-        env_map=scene_np.env_map,
+        textures=put(scene_np.textures, f32),
+        env_map=put(scene_np.env_map, f32),
     )
     int_fields = ("wb_oct_gid", "wb_oct_start")
     return DeviceScene(

@@ -78,7 +78,28 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      from the profiler
  16. B3 vs twin times at grid100k (65536 primary and bounce rays) and B3 vs
      B2 vs B1 at grid1m (16384 rays)
-About 3 minutes on one H100, builds included.  B3's stats variant
+ 17. shading on the card: (a) the main path (as phase 10, 16 spp after a
+     warm-up sample; ms/frame, rays/s, launch counts; the kernel launched,
+     its twin not, radiance finite and not black) on cornell 700x700, 3
+     bounces, with a Disney, a mirror and a glass floor through auto -> B1
+     (the Disney one, and the Lambert one beside it, with phase 10's split
+     of a sample), on
+     scenes/cornell.toml as written (its accel "wide": B2), and on
+     grid100k lit by the sky ([scene] env = "sky", use_env_map) at
+     256x256, 4 bounces, through B2; (b) B1, B2 (cornell, 64-triangle
+     groups) and B3 (cornell cwbvh) against their twins on the
+     integrator's new rays: the glass floor's continuation rays (over
+     1000 of them refracted, leaving 2 RAY_OFFSET below the floor) and
+     shadow rays (none from the floor), and the continuation rays of a
+     Disney floor with clearcoat 1 (over 1000 in each of the diffuse, GGX
+     and clearcoat lobes), phase 3's contract; (c) one sample at 128x128
+     of the Disney floor, the glass floor and the textured OBJ of
+     tests/test_textures.py (written to a temporary directory), the same
+     uniforms on the card (B1) and on the CPU (the twins): at most 0.5 %
+     of pixels beyond 1e-4 and the means within rtol 1e-3; (d) the
+     albedo, normal and depth AOVs of cornell at 700x700 through B1, two
+     runs of 2 samples equal bit for bit, one closest-hit launch a sample
+About 2.5 minutes on one H100, builds included.  B3's stats variant
 (`stats=True`) is checked and used for counts and bounds only; its launches
 are counted apart (`traverse_cw8.stats_launches`).  The line before the last is
 the kernels' JSON record, each kernel with its time, its plain twin's, and
@@ -92,6 +113,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import tomllib
 from concurrent.futures import ThreadPoolExecutor
@@ -501,41 +523,46 @@ def edge_rays(ds, camera, rng, ne):
     return origin, direction
 
 
-def hit_points(ds, o, d, tri):
-    """The integrator's hit points from bounce 0's closest hits `tri`, as
-    render/integrator.py's `hit_frame` makes them: the next rays' origins,
-    the flipped shading normal, and where the path goes on (a hit, not on
-    an emitter)."""
-    from caitlynrenderer_tpu_torch.render.integrator import hit_frame
+def vertex(ds, o, d, tri, families=("lambert",)):
+    """The integrator's first vertex from bounce 0's closest hits `tri`, as
+    render/integrator.py makes it: its `hit_frame` (the next rays' origin
+    `point`, the flipped shading normal `n_flip`), its `surface` under the
+    shading `families`, and where the path goes on (a hit, not on an
+    emitter)."""
+    from caitlynrenderer_tpu_torch.render.integrator import hit_frame, surface
 
     zero = torch.zeros_like(o[:, 0])
-    rows, hit, _, n_flip, origin = hit_frame(ds, o, d, zero, tri, zero, zero)
-    return origin, n_flip, hit & (rows[:, 33] == -1)
+    hf = hit_frame(ds, o, d, zero, tri, zero, zero)
+    return hf, surface(ds, hf, families), hf.keep & (hf.rows[:, 33] == -1)
 
 
-def bounce_rays(ds, o, d, tri, uni):
-    """The integrator's first continuation rays (its `continuation`) from
-    `hit_points`, with bounce 0's uniforms.  Lanes that missed or hit an
-    emitter are inactive, as their paths end."""
+def bounce_rays(ds, o, d, tri, uni, families=("lambert",)):
+    """The integrator's first continuation rays (its `continuation`: by
+    family a Lambert, Disney, mirror or glass sample, a refracted ray
+    leaving from below the surface) from `vertex`, with bounce 0's
+    uniforms.  Lanes that missed, hit an emitter or drew a Disney sample
+    without pdf are inactive, as their paths end."""
     from caitlynrenderer_tpu_torch.render.integrator import bounce_uniforms, continuation
 
-    origin, n_flip, live = hit_points(ds, o, d, tri)
-    _, _, _, u_b1, u_b2, _, _ = bounce_uniforms(uni, 0)
-    _, direction = continuation(u_b1, u_b2, n_flip)
-    return origin.contiguous(), direction.contiguous(), live
+    hf, surf, live = vertex(ds, o, d, tri, families)
+    _, _, _, u_b1, u_b2, u_lobe, _ = bounce_uniforms(uni, 0)
+    direction, _, _, _, ok, origin = continuation(hf, surf, d, torch.ones_like(o), u_b1, u_b2,
+                                                  u_lobe)
+    return origin.contiguous(), direction.contiguous(), live & ok
 
 
-def shadow_rays(ds, o, d, tri, uni):
+def shadow_rays(ds, o, d, tri, uni, families=("lambert",)):
     """The integrator's first NEE shadow rays (its `light_sample`) from
-    `hit_points`, with bounce 0's uniforms: active where the integrator
-    issues the query.  Returns (o, d, active, t_max)."""
+    `vertex`, with bounce 0's uniforms: active where the integrator issues
+    the query (not from a specular material).  Returns (o, d, active,
+    t_max)."""
     from caitlynrenderer_tpu_torch.render.integrator import bounce_uniforms, light_sample
 
-    origin, n_flip, live = hit_points(ds, o, d, tri)
+    hf, surf, live = vertex(ds, o, d, tri, families)
     u_lp, u_l1, u_l2 = bounce_uniforms(uni, 0)[:3]
-    _, ldir, _, _, _, cand, t_max = light_sample(ds.light_tab, origin, n_flip, u_lp, u_l1,
-                                                 u_l2, live)
-    return origin.contiguous(), ldir.contiguous(), cand, t_max.contiguous()
+    _, ldir, _, _, _, cand, t_max = light_sample(ds.light_tab, hf.point, hf.n_flip, u_lp, u_l1,
+                                                 u_l2, live, surf.specular)
+    return hf.point.contiguous(), ldir.contiguous(), cand, t_max.contiguous()
 
 
 def scattered_rays(ds, o, d, tri, rng, cuda):
@@ -545,19 +572,79 @@ def scattered_rays(ds, o, d, tri, rng, cuda):
     equality."""
     from caitlynrenderer_tpu_torch.core import math as cm
 
-    origin, _, act = hit_points(ds, o, d, tri)
-    return origin.contiguous(), cm.normalize(cuda(rng.standard_normal((o.shape[0], 3)))), act
+    hf, _, act = vertex(ds, o, d, tri)
+    return hf.point.contiguous(), cm.normalize(cuda(rng.standard_normal((o.shape[0], 3)))), act
 
 
-# The kernel module and kernel name each large-scene path runs.
-PATH_KERNEL = {"wide": ("traverse_mega", "mega_kernel", "B2"),
+# The textured scene of tests/test_textures.py (held equal to it by
+# tests/test_torch_render.py): a checker-textured quad, a plain quad
+# behind it and a lamp.
+TEX_OBJ = """\
+mtllib tex.mtl
+v -1 0 0
+v  1 0 0
+v  1 2 0
+v -1 2 0
+v -1 0 -3
+v  1 0 -3
+v  1 2 -3
+v -1 2 -3
+vt 0 0
+vt 1 0
+vt 1 1
+vt 0 1
+usemtl textured
+f 1/1 2/2 3/3 4/4
+usemtl plain
+f 5/1 6/2 7/3 8/4
+usemtl lamp
+v -0.5 1.9 1.5
+v  0.5 1.9 1.5
+v  0.0 1.9 2.5
+f 9 10 11
+"""
+TEX_MTL = """\
+newmtl textured
+Kd 1 1 1
+map_Kd checker.png
+newmtl plain
+Kd 0.2 0.5 0.8
+newmtl lamp
+Kd 0 0 0
+Ke 10 10 10
+"""
+
+
+def write_textured_scene(directory):
+    """Write the textured scene (tex.obj, tex.mtl and its 8x8 checker.png)
+    into `directory`; returns the OBJ's path.  Its camera: (0, 1, 4)
+    looking down -z at 40 degrees, translated with the scene."""
+    from caitlynrenderer_tpu_torch.io.image import save_png
+
+    checker = np.zeros((8, 8, 3), np.float32)
+    checker[:4, :4] = [1.0, 0.0, 0.0]
+    checker[:4, 4:] = [0.0, 1.0, 0.0]
+    checker[4:, :4] = [0.0, 0.0, 1.0]
+    checker[4:, 4:] = [1.0, 1.0, 0.0]
+    save_png(os.path.join(directory, "checker.png"), checker)
+    for name, text in (("tex.mtl", TEX_MTL), ("tex.obj", TEX_OBJ)):
+        with open(os.path.join(directory, name), "w") as f:
+            f.write(text)
+    return os.path.join(directory, "tex.obj")
+
+
+# The kernel module and kernel name each accelerator's path runs.
+PATH_KERNEL = {"brute": ("mt_brute", "mt_brute_kernel", "B1"),
+               "wide": ("traverse_mega", "mega_kernel", "B2"),
                "cwbvh": ("traverse_cw8", "cw8_kernel", "B3")}
 
 
-def main_path(label, scene, camera, options, dev, spp):
+def main_path(label, scene, camera, options, dev, spp, split_stages=True):
     """upload_scene -> render_steps -> resolve, timed after a warm-up
-    sample, through the "wide" or "cwbvh" kernel.  Returns the launch
-    counts of the timed run's kernels, by module."""
+    sample, through the "brute", "wide" or "cwbvh" kernel; with
+    `split_stages`, then the split of a sample between its stages.
+    Returns the launch counts of the warm-up and timed run's kernels, by
+    module, and the upload."""
     from caitlynrenderer_tpu_torch.accel.native import native_available
     from caitlynrenderer_tpu_torch.core.camera import generate_rays
     from caitlynrenderer_tpu_torch.ops import mt_brute, traverse_cw8, traverse_mega
@@ -574,10 +661,10 @@ def main_path(label, scene, camera, options, dev, spp):
     ds = upload_scene(scene, options.accel, dev)
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
-    layout = (f"{ds.wb_mega.shape[0]} groups of {ds.wb_mega.shape[2] // 3} columns"
-              if options.accel == "wide" else
-              f"{ds.cw_nodes.shape[0]} node8s of depth {ds.cw_depth}, "
-              f"{ds.cw_planes.shape[0]} windows")
+    layout = {"brute": "a brute-force slab",
+              "wide": f"{ds.wb_mega.shape[0]} groups of {ds.wb_mega.shape[2] // 3} columns",
+              "cwbvh": f"{ds.cw_nodes.shape[0]} node8s of depth {ds.cw_depth}, "
+                       f"{ds.cw_planes.shape[0]} windows"}[options.accel]
     print(f"  {label}: {scene.num_triangles} triangles, {layout}; upload + build "
           f"{upload_s:.3f} s (native BVH build: {native_available()})", flush=True)
 
@@ -614,6 +701,8 @@ def main_path(label, scene, camera, options, dev, spp):
           f"{rays_per_sample * spp / elapsed:.1f} ms_per_frame {elapsed / spp * 1e3:.3f} "
           f"alive_per_bounce {alive_per_bounce} mean pixel {float(img.mean()):.4f} "
           f"launches {launches}", flush=True)
+    if not split_stages:
+        return launches, ds
 
     # Where a sample's time goes: CUDA events around each stage, then the
     # kernel's device time from a profiler trace of two samples.
@@ -641,6 +730,14 @@ def main_path(label, scene, camera, options, dev, spp):
           flush=True)
     print(f"  {label} {tag} device time over 2 samples (profiler): " + ", ".join(
         f"{k} {us:.1f} us / {c} launches" for k, (us, c) in k_us.items()), flush=True)
+    kernel_ms = sum(us for us, _ in k_us.values()) / 2e3
+    busy_ms = sum(getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+                  for evt in prof.key_averages()
+                  if evt.device_type == torch.autograd.DeviceType.CUDA) / 2e3
+    print(f"  {label} integrator less {tag}: {split['integrator.trace_paths'] - kernel_ms:.3f} "
+          f"ms per sample ({tag} {kernel_ms:.3f}); every kernel of a sample on the card "
+          f"(profiler) {busy_ms:.3f} ms, {busy_ms / split['progressive.render_step']:.1%} of "
+          "render_step", flush=True)
     return launches, ds
 
 
@@ -667,7 +764,7 @@ def main():
     from caitlynrenderer_tpu_torch.ops import traverse_cw8 as cw8
     from caitlynrenderer_tpu_torch.ops import traverse_mega as mega
     from caitlynrenderer_tpu_torch.bench import bench_scene
-    from caitlynrenderer_tpu_torch.core.types import RenderOptions
+    from caitlynrenderer_tpu_torch.core.types import MaterialType, RenderOptions
     from caitlynrenderer_tpu_torch.render import progressive, sampling
     from caitlynrenderer_tpu_torch.render.integrator import trace_paths
     from caitlynrenderer_tpu_torch.scene import required_stack, scene_families, upload_scene
@@ -1181,6 +1278,145 @@ def main():
         "B1 anyhit": event_ms(lambda: mt.brute_anyhit(mo, md, mtmax, mact, mds.tris9), 3),
     }
     print(f"  grid1m, {nm} rays: " + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()))
+
+    # ------------------------------------------------------------- phase 17
+    phase("17 shading on the card")
+    from caitlynrenderer_tpu_torch.ops import bsdf
+    from caitlynrenderer_tpu_torch.render.integrator import render_sample
+
+    base_dir = os.path.dirname(CORNELL_TOML)
+
+    def cornell_cfg(floor):
+        return {**cfg, "scene": {**cfg["scene"], "floor": floor}}
+
+    sky_cfg = {"scene": {"builtin": "grid", "resolution": 224, "env": "sky"},
+               "camera": {"position": [5.0, 9.0, 11.0], "look_at": [5.0, 2.0, 5.0], "fov": 50.0},
+               "render": {"use_env_map": True}}
+    # a. Full width: the three shaded floors through auto -> B1, the
+    # cornell config as written (its accel "wide": B2), grid100k lit by the
+    # sky through B2; the Disney floor, and the Lambert one beside it, with
+    # the split of a sample.
+    runs17 = [(f"cornell {f} floor", cornell_cfg(f), {"accel": "auto"})
+              for f in ("diffuse", "disney", "mirror", "glass")]
+    runs17 += [("scenes/cornell.toml", cfg, {}),
+               ("grid100k under the sky", sky_cfg, {"accel": "wide"})]
+    for label, c, over in runs17:
+        size, depth = (BENCH, BENCH_DEPTH) if "grid" in label else (DEMO, 3)
+        sc, cam, opts = render_setup(c, base_dir, width=size, height=size, max_depth=depth, **over)
+        check(opts.accel == ("brute" if "floor" in label else "wide"),
+              f"{label}: accel {opts.accel}")
+        runs, _ = main_path(label, sc, cam, opts, dev, MAIN_SPP,
+                            split_stages=label in ("cornell diffuse floor",
+                                                   "cornell disney floor"))
+        if opts.accel == "brute":
+            for q in ("closest", "anyhit"):
+                launches[q] += runs["mt_brute"][q]
+        else:
+            for q in mega_launches:
+                mega_launches[q] += runs["traverse_mega"][q]
+
+    # b. B1, B2 and B3 against their twins on the new rays, each from its
+    # own upload: the glass floor's continuation rays (the refracted ones
+    # leave 2 RAY_OFFSET below the surface) and shadow rays (none from the
+    # floor), and the continuation rays of a Disney floor with clearcoat 1
+    # (diffuse, GGX and clearcoat samples).
+    glass_sc, _, glass_opts = render_setup(cornell_cfg("glass"), base_dir)
+    disney_sc, _, disney_opts = render_setup(cornell_cfg("disney"), base_dir)
+    m = disney_sc.materials
+    floor_row = int(np.nonzero(m.albedo[:, 3] == int(MaterialType.DISNEY))[0][0])
+    disney2 = m.disney2.copy()
+    disney2[floor_row, 0] = 1.0
+    disney_sc = disney_sc._replace(materials=m._replace(disney2=disney2))
+    kernels17 = (("brute", "B1", compare, mt, lambda x: x.tris9, err),
+                 ("wide", "B2", compare_mega, mega, wide_args, err_b2),
+                 ("cwbvh", "B3", compare_cw8, cw8, cw_args, err_b3))
+    for accel, tag, cmp, mod, args, errs in kernels17:
+        results = []
+        for name, sc, fams in (("glass", glass_sc, glass_opts.families),
+                               ("disney", disney_sc, disney_opts.families)):
+            kds = upload_scene(sc, accel, dev, wide_group_tris=64)
+            ka = args(kds)
+            if accel == "brute":
+                _, tri, _, _ = mt.brute_closest_plain(o, d, act, ka)
+            elif accel == "wide":
+                _, tri, _ = mega.mega_closest_plain(o, d, act, *ka)
+            else:
+                _, tri, _ = cw8.cw8_closest_plain(o, d, act, *ka)
+            bo17, bd17, ba17 = bounce_rays(kds, o, d, tri, uni, fams)
+            hf, surf, _ = vertex(kds, o, d, tri, fams)
+            if name == "glass":
+                refracted = int((ba17 & surf.glass & (cm.dot(bd17, hf.n_flip) < 0)).sum())
+                print(f"  {tag} glass floor: {int(ba17.sum())} live continuation rays, "
+                      f"{refracted} refracted", flush=True)
+                check(refracted > 1000, f"{tag}: too few refracted rays ({refracted})")
+                shadow17 = shadow_rays(kds, o, d, tri, uni, fams)
+                from_floor = int((shadow17[2] & surf.specular).sum())
+                check(from_floor == 0, f"{tag}: {from_floor} shadow rays leave the glass floor")
+                results.append(cmp(f"{tag} glass floor shadow", mod, *shadow17[:3], ka,
+                                   shadow17[3]))
+            else:
+                w_diff, w_spec, _ = bsdf._lobe_weights(surf.dis_p)
+                u_lobe = uni[:, 9]
+                lobes = [int((ba17 & surf.disney & k).sum()) for k in (
+                    u_lobe < w_diff, (u_lobe >= w_diff) & (u_lobe < w_diff + w_spec),
+                    u_lobe >= w_diff + w_spec)]
+                print(f"  {tag} Disney floor (clearcoat 1): live continuation rays by lobe "
+                      f"(diffuse, GGX, clearcoat) {lobes}", flush=True)
+                check(min(lobes) > 1000, f"{tag}: a Disney lobe was barely sampled: {lobes}")
+            results.append(cmp(f"{tag} {name} floor continuation", mod, bo17, bd17, ba17, ka,
+                               cuda(rng.uniform(0, 8, n))))
+        for i, q in enumerate(("closest", "anyhit")):
+            errs[q] = max(errs[q], max(r[i] for r in results))
+
+    # c. One sample at 128x128 of the Disney, glass and textured scenes with
+    # the same uniforms: kernels on the card against the twins on the CPU,
+    # under the CPU parity tests' per-pixel contract.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tex_") as tex_dir:
+        tex_cfg = {"scene": {"obj": write_textured_scene(tex_dir)},
+                   "camera": {"position": [0.0, 1.0, 4.0], "look_at": [0.0, 1.0, 3.0],
+                              "fov": 40.0}}
+        side = 128
+        ids = torch.arange(side * side, dtype=torch.int32, device=dev)
+        uni17 = sampling.pixel_uniforms(sampling.sample_key(sampling.prng_key(0), 0), ids, 3)
+        for label, c in (("disney floor", cornell_cfg("disney")),
+                         ("glass floor", cornell_cfg("glass")), ("textured OBJ", tex_cfg)):
+            sc, cam, opts = render_setup(c, base_dir, width=side, height=side, max_depth=3,
+                                         accel="auto")
+            mt.reset_launches()
+            card = render_sample(upload_scene(sc, opts.accel, dev), cam, uni17, side, side,
+                                 opts).cpu()
+            k_launches = mt.launches["closest"]
+            host = render_sample(upload_scene(sc, opts.accel, "cpu"), cam, uni17.cpu(), side,
+                                 side, opts)
+            diff = (card - host).abs().amax(dim=1)
+            off = float((diff > 1e-4).double().mean())
+            mean_c, mean_h = float(card.mean()), float(host.mean())
+            print(f"  {label} {side}x{side}, one sample, card vs CPU: max |d| "
+                  f"{float(diff.max()):.3e}, pixels beyond 1e-4 {off:.4%}, means {mean_c:.6f} / "
+                  f"{mean_h:.6f}; B1 launches on the card {k_launches}", flush=True)
+            check(bool(torch.isfinite(card).all()) and mean_h > 0, f"{label}: bad radiance")
+            check(k_launches == 3 and mt.launches["closest_twin"] == 3,
+                  f"{label}: launches {mt.launches}")
+            check(off <= 0.005 and abs(mean_c - mean_h) <= 1e-3 * abs(mean_h),
+                  f"{label}: the card's sample breaks the per-pixel contract")
+
+    # d. The AOVs of cornell at 700x700 through B1: one closest-hit query per
+    # sample, deterministic, so two runs give equal images.
+    for aov in ("albedo", "normal", "depth"):
+        aov_opts = setup(DEMO, DEMO)[2]._replace(aov=aov)
+        mt.reset_launches()
+        t0 = time.perf_counter()
+        imgs = [progressive.render_image(ds_main, camera, aov_opts, spp=2, seed=0)[0]
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 4 * 1e3
+        print(f"  AOV {aov}: mean {float(imgs[0].mean()):.4f}, {ms:.3f} ms per sample, "
+              f"launches {mt.launches}", flush=True)
+        check(torch.equal(imgs[0], imgs[1]), f"AOV {aov}: two runs differ")
+        check(bool(torch.isfinite(imgs[0]).all()) and float(imgs[0].mean()) > 0.05
+              and float(imgs[0].max()) <= 1.0, f"AOV {aov}: bad image")
+        check(mt.launches["closest"] == 4 and mt.launches["anyhit"] == 0
+              and mt.launches["closest_twin"] == 0, f"AOV {aov}: launches {mt.launches}")
 
     # Bounds at the shapes each row's time was taken at: B1 on the 700x700
     # cornell primary rays (closest) and their shadow rays (any-hit), B2 and
