@@ -21,8 +21,10 @@ Layout mirrors the reference so each module's counterpart is easy to find:
            torch (ops/traverse_bvh.py)
   render/  counter-based sampling, the wavefront integrator, progressive
            accumulation and resolve
-  utils/   TOML scene configs
-  scene.py upload to a device; convert.py carries state across packages
+  grad/    inverse rendering: parameter overlay, loss, Adam, optimize
+  utils/   TOML scene configs, checkpoints, metrics records, NaN checks
+  scene.py upload to a device; convert.py carries state and parameters
+           across packages
 
 Every function takes its tensors (and so its device) explicitly; there is
 no module-level default device.

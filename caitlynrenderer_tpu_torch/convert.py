@@ -1,7 +1,8 @@
 """Carrying a render across packages (counterpart of
 caitlynrenderer_tpu/utils/checkpoint.py:22-42).
 
-A renderer's "weights" are its scene arrays and its progressive state.
+A renderer's "weights" are its scene arrays, its progressive state and
+its optimizable parameters.
 These functions take and give numpy arrays only, so neither package
 imports the other: given the same scene and state, both compute the same
 thing from there on.
@@ -65,6 +66,20 @@ def device_scene_from_numpy(scene: SceneArrays, device, wide=None, cw=None,
     wide = empty_wide_arrays() if wide is None else _fields("wide", wide, WIDE_FIELDS)
     cw = empty_cw_arrays() if cw is None else _fields("cw", cw, CW_FIELDS)
     return scene_to_device(scene, accel, device, bvh=tree, wide=wide, cw=cw)
+
+
+def params_from_numpy(params_np: dict, device) -> dict:
+    """grad/inverse.py's parameter dict from the reference's, given as
+    numpy arrays (e.g. `{k: np.asarray(v) for k, v in params.items()}`):
+    each an f32 tensor on `device`."""
+    return {k: torch.tensor(np.asarray(v, dtype=np.float32), device=device)
+            for k, v in params_np.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The inverse of `params_from_numpy`: each parameter as an f32 numpy
+    array on the host."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
 def state_from_numpy(accum, frame_count, base_key, device) -> RenderState:

@@ -25,6 +25,12 @@ and not Disney, so it scatters as a Lambert bounce.  The wide and cwbvh
 paths thread the reference's origin-group (window) hint `og`; its
 `preorder` has no counterpart, and `options.traversal` is not read (each
 accelerator has one path per device).
+
+Gradients (grad/inverse.py): the reference's detached-traversal
+estimator.  Both ray queries and Russian roulette's survival probability
+are detached; the hit's t, u and v are refined from the shading table's
+rows, so radiance differentiates with respect to the camera, the vertices
+and the materials through refinement and shading in torch autograd.
 """
 
 from __future__ import annotations
@@ -115,11 +121,15 @@ def _bvh(ds: DeviceScene):
     return ds.node_bounds, ds.node_meta, ds.scene.vertices, ds.scene.tri_v
 
 
+@torch.no_grad()
 def _closest_hit_raw(ds: DeviceScene, o, d, active, options: RenderOptions, og):
     """Closest-hit dispatch on options.accel.  Returns (t, tri, u, v, group):
     group is the wide BVH's winning group or the CWBVH's winning window
     (None under the others), and the wide and cwbvh paths' u = v = 0 (the
-    caller refines them from the triangle)."""
+    caller refines them from the triangle).  Traversal is detached, as the
+    reference's stop_gradient makes it: nothing here records a graph, and
+    the gradient reaches t, u and v through `hit_frame`'s refinement."""
+    o, d = o.detach(), d.detach()
     if options.accel in ("wide", "cwbvh"):
         query = mega_closest if options.accel == "wide" else cw8_closest
         args = _wide(ds) if options.accel == "wide" else _cw(ds)
@@ -133,8 +143,11 @@ def _closest_hit_raw(ds: DeviceScene, o, d, active, options: RenderOptions, og):
     return (*brute_closest(o, d, active, ds.tris9), None)
 
 
+@torch.no_grad()
 def _occluded(ds: DeviceScene, o, d, t_max, active, options: RenderOptions, og):
-    """Any-hit visibility dispatch on options.accel."""
+    """Any-hit visibility dispatch on options.accel; detached (visibility
+    carries no gradient)."""
+    o, d, t_max = o.detach(), d.detach(), t_max.detach()
     if options.accel == "wide":
         return mega_anyhit(o, d, t_max, active, *_wide(ds), og=og)
     if options.accel == "cwbvh":
@@ -203,7 +216,10 @@ class HitFrame(NamedTuple):
 
 def hit_frame(ds: DeviceScene, o, d, raw_t, raw_tri, raw_u, raw_v) -> HitFrame:
     """The HitFrame of a closest-hit query's raw answer on rays (o, d)."""
-    rows = ds.shade_tab[torch.clamp(raw_tri, min=0).long()]
+    # index_select, not indexing: its backward is an index_add, where
+    # indexing's sorts the rows' many repeated ids (every lane that hit
+    # one triangle) on the card.
+    rows = ds.shade_tab.index_select(0, torch.clamp(raw_tri, min=0).long())
     t_r, u_r, v_r = refine_hit_tri(o, d, rows[:, 0:3], rows[:, 3:6], rows[:, 6:9])
     keep = raw_tri >= 0
     hit_t = torch.where(keep, t_r, raw_t)
@@ -383,9 +399,10 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
         u_lp, u_l1, u_l2, u_b1, u_b2, u_lobe, u_rr = bounce_uniforms(uniforms, bounce)
 
         # Russian roulette from rr_start on: survive with p = max throughput
-        # component (clamped to [0.05, 1]) and compensate T by 1/p.
+        # component (clamped to [0.05, 1]) and compensate T by 1/p.  The
+        # survival probability is a detached decision.
         if 0 <= options.rr_start <= bounce:
-            p_surv = torch.clamp(T.max(dim=1).values, 0.05, 1.0)
+            p_surv = torch.clamp(T.max(dim=1).values, 0.05, 1.0).detach()
             alive = alive & (u_rr < p_surv)
             T = T / p_surv[:, None]
 

@@ -213,8 +213,22 @@ def build_shade_table(sc: SceneArrays) -> torch.Tensor:
     light_idx = sc.tri_vt[:, 3].to(torch.float32)[:, None]
     m = sc.materials
     mat_tab = torch.cat([m.albedo, m.emission, m.specular, m.disney, m.disney2, m.tex_ind], dim=1)
-    mrows = mat_tab[tv[:, 3]]
+    mrows = mat_tab.index_select(0, tv[:, 3])  # backward: index_add (integrator.hit_frame)
     return torch.cat([p0, e1, e2, n0, n1, n2, nflag, t0, t1, t2, light_idx, mrows], dim=1)
+
+
+def replace_scene(ds: DeviceScene, sc: SceneArrays) -> DeviceScene:
+    """`ds` with its scene replaced by `sc`, the same triangles in the same
+    order with other vertices or materials (grad/inverse.apply_params'
+    overlay): the shading table rebuilt from `sc`, differentiably, and
+    where the vertices changed the brute-force slab re-packed from them,
+    detached, so that the brute query sees the moved geometry as the
+    reference's does.  The BVH, wide and CWBVH arrays stay those of the
+    upload, as in the reference."""
+    tris9 = ds.tris9
+    if sc.vertices is not ds.scene.vertices:
+        tris9 = pack_tris(sc.vertices.detach(), sc.tri_v).contiguous()
+    return ds._replace(scene=sc, tris9=tris9, shade_tab=build_shade_table(sc))
 
 
 def build_light_table(lights: Lights) -> torch.Tensor:

@@ -99,7 +99,28 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      of pixels beyond 1e-4 and the means within rtol 1e-3; (d) the
      albedo, normal and depth AOVs of cornell at 700x700 through B1, two
      runs of 2 samples equal bit for bit, one closest-hit launch a sample
-About 2.5 minutes on one H100, builds included.  B3's stats variant
+ 18. gradients on the card (grad/inverse.py; traversal detached, the
+     kernels in every forward pass): (a) BASELINE config #5,
+     scenes/cornell_disney.toml at its 256x256 and 3 bounces through
+     auto -> B1, an 8-sample self-target, the Disney rows' roughness +0.35
+     and the camera +0.35 in x, `optimize` at lr 2e-2 for 150 steps: the
+     losses, both errors every 10 steps, ms per step, peak memory; the
+     late losses below the early ones, each error at half its start or
+     less at some step (after which it drifts, as the reference's does),
+     every step's parameters finite, B1 launched 3 + 3 times a step and
+     for the target, no twin; (b) `python -m caitlynrenderer_tpu_torch.cli
+     optimize` in a subprocess, its params.npz loaded back; (c) the
+     grad-pass overhead ratio (value and grad over forward, as
+     benchmarks/run_configs.py measures it; 5 repetitions after 2
+     warm-ups, peak memory) of the Disney floor at 700x700 (B1), grid100k
+     at 256x256, 4 bounces through wide (B2, also with vertices) and one
+     call through cwbvh (B3), B1's and B2's also split under the profiler
+     (kernels launched, device busy, the most frequent ops); (d) one value and grad of the Disney floor
+     at 64x64 on the card and on the CPU: every group's gradient within
+     rtol 1e-3, atol 1e-6 max|g|, the losses within rtol 1e-5.  Its
+     numbers, beside the card's name and power limit, are also printed
+     as one {"grad": ...} JSON line before the kernels' line.
+About 3 minutes on one H100, builds included.  B3's stats variant
 (`stats=True`) is checked and used for counts and bounds only; its launches
 are counted apart (`traverse_cw8.stats_launches`).  The line before the last is
 the kernels' JSON record, each kernel with its time, its plain twin's, and
@@ -739,6 +760,257 @@ def main_path(label, scene, camera, options, dev, spp, split_stages=True):
           f"(profiler) {busy_ms:.3f} ms, {busy_ms / split['progressive.render_step']:.1%} of "
           "render_step", flush=True)
     return launches, ds
+
+
+GRAD_STEPS = 150
+GRAD_KEYS = ("albedo", "disney", "cam_position")  # the reference's overhead measurement's
+
+
+def grad_leaves(ds, camera, keys):
+    """Fresh leaves of the parameter groups `keys` at the scene's values."""
+    m = ds.scene.materials
+    values = {"albedo": m.albedo, "disney": m.disney, "emission": m.emission,
+              "vertices": ds.scene.vertices,
+              "cam_position": torch.tensor(camera.position, device=ds.device),
+              "cam_fov": torch.tensor(camera.fov, device=ds.device)}
+    return {k: values[k].detach().clone().requires_grad_(True) for k in keys}
+
+
+def grad_recovery(dev, disney_cfg, base_dir, mt):
+    """Phase 18a, BASELINE config #5: scenes/cornell_disney.toml at its own
+    256x256 and 3 bounces through auto -> B1, an 8-sample self-target, the
+    Disney rows' roughness +0.35 and the camera +0.35 in x, `optimize` at
+    lr 2e-2 for GRAD_STEPS steps.  Returns the record and B1's launches."""
+    from caitlynrenderer_tpu_torch.cli import render_setup
+    from caitlynrenderer_tpu_torch.core.types import LAMBERT_TYPES
+    from caitlynrenderer_tpu_torch.grad.inverse import optimize
+    from caitlynrenderer_tpu_torch.render import sampling
+    from caitlynrenderer_tpu_torch.render.integrator import render_sample
+    from caitlynrenderer_tpu_torch.scene import upload_scene
+
+    sc, cam, opts = render_setup(disney_cfg, base_dir)
+    w, h, depth = opts.width, opts.height, opts.max_depth
+    check(opts.accel == "brute", f"config #5 resolves to {opts.accel}")
+    ds = upload_scene(sc, opts.accel, dev)
+    mt.reset_launches()
+    target_spp = 8
+    with torch.no_grad():
+        target = sum(render_sample(ds, cam, sampling.draw_uniforms(
+            sampling.fold_in(sampling.prng_key(0), i), w * h, depth, dev), w, h, opts)
+            for i in range(target_spp)) / target_spp
+    m = ds.scene.materials
+    lambert = torch.tensor([int(t) for t in LAMBERT_TYPES], device=dev)
+    rows = ~torch.isin(m.albedo[:, 3].to(torch.int64), lambert)
+    start_d = m.disney.clone()
+    start_d[rows, 0] = torch.clamp(start_d[rows, 0] + 0.35, 0.02, 0.98)
+    true_pos = torch.tensor(cam.position, device=dev)
+    start = {"disney": start_d, "cam_position": true_pos + torch.tensor([0.35, 0.0, 0.0],
+                                                                          device=dev)}
+
+    def errors(p):
+        return (float((p["disney"][rows, 0] - m.disney[rows, 0]).abs().max()),
+                float((p["cam_position"] - true_pos).norm()))
+
+    trail, finite = [errors(start)], []
+
+    def step(i, loss, p):
+        # A non-finite gradient makes Adam's step, and so the parameters,
+        # non-finite: finite parameters after every step mean finite
+        # gradients.
+        finite.append(all(bool(torch.isfinite(v).all()) for v in p.values()))
+        trail.append(errors(p))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    params, losses = optimize(ds, cam, target, start, w, h, opts, steps=GRAD_STEPS, lr=2e-2,
+                              seed=0, callback=step)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / GRAD_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    runs = dict(mt.launches)
+    trail = np.array(trail)
+    best = trail[1:].argmin(axis=0) + 1
+    rec = {"scene": "scenes/cornell_disney.toml", "size": f"{w}x{h}", "bounces": depth,
+           "accel": opts.accel, "steps": GRAD_STEPS, "lr": 2e-2, "ms_per_step": ms_step,
+           "peak_bytes": peak, "loss_first": losses[0], "loss_last": losses[-1],
+           "loss_mean_first10": float(np.mean(losses[:10])),
+           "loss_mean_last10": float(np.mean(losses[-10:])),
+           "roughness_err": {"start": trail[0, 0], "min": trail[best[0], 0],
+                             "min_step": int(best[0]), "end": trail[-1, 0]},
+           "camera_err": {"start": trail[0, 1], "min": trail[best[1], 1],
+                          "min_step": int(best[1]), "end": trail[-1, 1]},
+           "launches": runs}
+    print(f"  config #5, {w}x{h}, {depth} bounces, {opts.accel}: loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f} (means of the first and last 10: {rec['loss_mean_first10']:.5f}, "
+          f"{rec['loss_mean_last10']:.5f}); {ms_step:.3f} ms per step, peak "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    for name, col in (("roughness", 0), ("camera", 1)):
+        print(f"  {name} error every 10 steps: "
+              + " ".join(f"{x:.4f}" for x in trail[::10, col]) + f" | end {trail[-1, col]:.4f}, "
+              f"least {trail[best[col], col]:.4f} at step {best[col]}", flush=True)
+    print(f"  B1 launches {runs}", flush=True)
+    check(all(finite), "a gradient of config #5 was not finite")
+    check(rec["loss_mean_last10"] < rec["loss_mean_first10"], "config #5: the loss did not fall")
+    # The errors reach half their start, then drift (PERF.md: the
+    # reference drifts alike); the least error of the run is held.
+    for name, col in (("roughness", 0), ("camera", 1)):
+        check(trail[best[col], col] <= 0.5 * trail[0, col],
+              f"config #5: the {name} error never fell to half its start")
+    want = (GRAD_STEPS + target_spp) * depth
+    check(runs["closest"] == want and runs["anyhit"] == want,
+          f"config #5: B1 launches {runs}, expected {want} each")
+    check(runs["closest_twin"] == 0 and runs["anyhit_twin"] == 0, "config #5: a twin ran")
+    return rec, runs
+
+
+def grad_cli(dev):
+    """Phase 18b: the `optimize` entry point in a subprocess, on the card;
+    its parameters load with checkpoint.load_params."""
+    from caitlynrenderer_tpu_torch.utils import checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_opt_") as tmp:
+        out = os.path.join(tmp, "params.npz")
+        cmd = [sys.executable, "-m", "caitlynrenderer_tpu_torch.cli", "optimize",
+               os.path.join("scenes", "cornell_disney.toml"), "--steps", "20",
+               "--perturb-roughness", "0.35", "--optimize-camera", "-o", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        print("  " + " ".join(cmd[1:]) + f": exit {proc.returncode}, {seconds:.3f} s", flush=True)
+        for line in proc.stdout.splitlines():
+            print("    " + line)
+        check(proc.returncode == 0, f"cli optimize failed: {proc.stderr[-2000:]}")
+        params, _ = checkpoint.load_params(out, dev)
+    check(set(params) == {"albedo", "disney", "cam_position"}
+          and all(bool(torch.isfinite(v).all()) for v in params.values()),
+          f"cli optimize wrote {sorted(params)}")
+    return {"exit": proc.returncode, "seconds": seconds, "params": sorted(params)}
+
+
+def profile_split(fn):
+    """One call of fn() under torch.profiler: (CUDA kernels launched,
+    their summed device ms, the CPU-side ops by count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, busy_us, ops = 0, 0.0, {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += evt.count
+            busy_us += getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        else:
+            ops[evt.key] = evt.count
+    return kernels, busy_us / 1e3, ops
+
+
+def grad_overhead(label, ds, camera, options, keys, reps, warmup, split=False):
+    """Phase 18c, the grad-pass overhead ratio as
+    benchmarks/run_configs.py:167-242 measures it: one render_sample under
+    no_grad against make_loss (the same uniforms, the forward's image as
+    target) and backward, for the parameter groups `keys`.  Host clock
+    between synchronizations, mean of `reps` after `warmup` calls each;
+    peak memory of the value-and-grad calls over what was allocated before
+    them.  With `split`, one more call of each under the profiler: kernels
+    launched, device-busy ms and the most frequent ops.  rec["calls"]
+    counts every forward pass made."""
+    from caitlynrenderer_tpu_torch.grad.inverse import make_loss
+    from caitlynrenderer_tpu_torch.render import sampling
+    from caitlynrenderer_tpu_torch.render.integrator import render_sample
+
+    w, h, dev = options.width, options.height, ds.device
+    key = sampling.prng_key(0)
+    uni = sampling.draw_uniforms(key, w * h, options.max_depth, dev)
+
+    def forward():
+        with torch.no_grad():
+            return render_sample(ds, camera, uni, w, h, options)
+
+    target = forward()
+    loss_fn = make_loss(ds, camera, target, w, h, options)
+    grads = {}
+
+    def value_and_grad():
+        leaves = grad_leaves(ds, camera, keys)
+        loss = loss_fn(leaves, key)
+        loss.backward()
+        grads.update({k: v.grad for k, v in leaves.items()}, loss=loss.detach())
+
+    def timed(fn, n):
+        total = 0.0
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            total += time.perf_counter() - t0
+        return total / n * 1e3 if n else 0.0
+
+    timed(forward, warmup)
+    fwd_ms = timed(forward, reps)
+    timed(value_and_grad, warmup)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    vg_ms = timed(value_and_grad, reps)
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    rec = {"case": label, "keys": list(keys), "reps": reps, "warmup": warmup,
+           "forward_ms": fwd_ms, "value_and_grad_ms": vg_ms, "ratio": vg_ms / fwd_ms,
+           "peak_bytes": peak, "finite": finite, "calls": 1 + 2 * (reps + warmup)}
+    print(f"  {label} ({', '.join(keys)}): forward {fwd_ms:.3f} ms, value and grad "
+          f"{vg_ms:.3f} ms, ratio {rec['ratio']:.3f} ({reps} repetitions after {warmup} "
+          f"warm-ups), peak {peak / 2**30:.3f} GiB, gradients finite {finite}", flush=True)
+    check(finite, f"{label}: a gradient is not finite")
+    if split:
+        for name, fn in (("forward", forward), ("value_and_grad", value_and_grad)):
+            kernels, busy_ms, ops = profile_split(fn)
+            top = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
+            rec[f"{name}_kernels"], rec[f"{name}_busy_ms"] = kernels, busy_ms
+            print(f"    {name} (profiler): {kernels} CUDA kernels, device busy {busy_ms:.3f} ms;"
+                  " most frequent ops " + ", ".join(f"{k} {c}" for k, c in top), flush=True)
+        rec["calls"] += 2
+    return rec
+
+
+def grad_card_vs_cpu(dev, disney_cfg, base_dir, side):
+    """Phase 18d: the Disney floor at side x side, 3 bounces, the same
+    uniforms and parameters (every group apply_params takes) on the card
+    (B1) and on the CPU (the twins): each gradient entry within rtol 1e-3,
+    atol 1e-6 max|g| of the CPU's, the losses within rtol 1e-5."""
+    from caitlynrenderer_tpu_torch.cli import render_setup
+    from caitlynrenderer_tpu_torch.grad.inverse import make_loss
+    from caitlynrenderer_tpu_torch.render import sampling
+    from caitlynrenderer_tpu_torch.scene import upload_scene
+
+    sc, cam, opts = render_setup(disney_cfg, base_dir, width=side, height=side, max_depth=3)
+    keys = ("albedo", "disney", "emission", "vertices", "cam_position", "cam_fov")
+    target = np.random.default_rng(18).uniform(0.0, 0.5, (side * side, 3)).astype(np.float32)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        ds = upload_scene(sc, opts.accel, where)
+        leaves = grad_leaves(ds, cam, keys)
+        loss = make_loss(ds, cam, torch.from_numpy(target).to(where), side, side, opts)(
+            leaves, sampling.prng_key(5))
+        loss.backward()
+        out[where.type] = (float(loss.detach()), {k: v.grad.cpu() for k, v in leaves.items()})
+    (loss_c, g_c), (loss_h, g_h) = out["cuda"], out["cpu"]
+    worst = {}
+    for k in keys:
+        scale = float(g_h[k].abs().max())
+        excess = (g_c[k] - g_h[k]).abs() - (1e-3 * g_h[k].abs() + 1e-6 * scale)
+        worst[k] = float(excess.max())
+        check(bool(torch.isfinite(g_c[k]).all()) and worst[k] <= 0.0,
+              f"card vs CPU, {side}x{side}: the {k} gradient is off by {worst[k]:.3e} beyond "
+              "rtol 1e-3, atol 1e-6 max|g|")
+    check(abs(loss_c - loss_h) <= 1e-5 * abs(loss_h),
+          f"card vs CPU, {side}x{side}: losses {loss_c} and {loss_h}")
+    print(f"  Disney floor {side}x{side}, card vs CPU: losses {loss_c:.7f} / {loss_h:.7f}; "
+          "largest excess over the bound per group " + ", ".join(
+              f"{k} {v:.2e}" for k, v in worst.items()), flush=True)
+    return {"size": f"{side}x{side}", "loss_card": loss_c, "loss_cpu": loss_h}
 
 
 def main():
@@ -1417,6 +1689,53 @@ def main():
               and float(imgs[0].max()) <= 1.0, f"AOV {aov}: bad image")
         check(mt.launches["closest"] == 4 and mt.launches["anyhit"] == 0
               and mt.launches["closest_twin"] == 0, f"AOV {aov}: launches {mt.launches}")
+
+    # ------------------------------------------------------------- phase 18
+    phase("18 gradients on the card")
+    with open(os.path.join(ROOT, "scenes", "cornell_disney.toml"), "rb") as f:
+        disney_cfg = tomllib.load(f)
+    check(all(disney_cfg["render"][k] == v for k, v in
+              (("width", 256), ("height", 256), ("max_depth", 3))),
+          "scenes/cornell_disney.toml is no longer BASELINE config #5's 256x256, 3 bounces")
+    t18 = time.perf_counter()
+    grad = {"device": smi}
+    grad["config5"], runs18 = grad_recovery(dev, disney_cfg, base_dir, mt)
+    for q in ("closest", "anyhit"):
+        launches[q] += runs18[q]
+    grad["cli"] = grad_cli(dev)
+    sc18, cam18, opts18 = render_setup(cornell_cfg("disney"), base_dir, width=DEMO, height=DEMO,
+                                       max_depth=3, accel="auto")
+    grid_cfg = {"scene": {"builtin": "grid", "resolution": 224}, "camera": sky_cfg["camera"]}
+    grid_sc, grid_cam, grid_opts = render_setup(grid_cfg, base_dir, width=BENCH, height=BENCH,
+                                                max_depth=BENCH_DEPTH, accel="wide")
+    # (label, scene, camera, options, kernel module, its launch totals,
+    # parameter sets, repetitions, warm-ups); B3: one call.  The first set
+    # of B1's and B2's cases is also split under the profiler.
+    cases = [("Disney floor 700x700, 3 bounces, B1", sc18, cam18, opts18, mt, launches,
+              [GRAD_KEYS], 5, 2),
+             ("grid100k 256x256, 4 bounces, wide (B2)", grid_sc, grid_cam, grid_opts, mega,
+              mega_launches, [GRAD_KEYS, GRAD_KEYS + ("vertices",)], 5, 2),
+             ("grid100k 256x256, 4 bounces, cwbvh (B3)", grid_sc, grid_cam,
+              grid_opts._replace(accel="cwbvh"), cw8, cw_launches, [GRAD_KEYS], 1, 0)]
+    grad["overhead"] = []
+    for label, sc_, cam_, opts_, mod, totals, key_sets, reps, warmup in cases:
+        ds_ = upload_scene(sc_, opts_.accel, dev)
+        for i, keys in enumerate(key_sets):
+            mod.reset_launches()
+            rec = grad_overhead(label, ds_, cam_, opts_, keys, reps, warmup,
+                                split=i == 0 and opts_.accel != "cwbvh")
+            grad["overhead"].append(rec)
+            runs_ = dict(mod.launches)
+            want = rec["calls"] * opts_.max_depth
+            check(runs_["closest"] == want and runs_["anyhit"] == want
+                  and runs_["closest_twin"] == 0 and runs_["anyhit_twin"] == 0,
+                  f"{label}: launches {runs_}, expected {want} each and no twin")
+            for q in ("closest", "anyhit"):
+                totals[q] += runs_[q]
+    grad["card_vs_cpu"] = grad_card_vs_cpu(dev, disney_cfg, base_dir, 64)
+    grad["seconds"] = time.perf_counter() - t18
+    print(f"  phase 18: {grad['seconds']:.3f} s", flush=True)
+    print(json.dumps({"grad": grad}))
 
     # Bounds at the shapes each row's time was taken at: B1 on the 700x700
     # cornell primary rays (closest) and their shadow rays (any-hit), B2 and

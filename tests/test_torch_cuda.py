@@ -1,6 +1,7 @@
 """CUDA tier: the hand-written kernels (mt_brute, traverse_mega,
 traverse_cw8) against their plain PyTorch twins on the card, their stats
-variants against the plain launches, and the golden render through each.
+variants against the plain launches, the golden render through each, and
+one value and grad on the card against the CPU.
 
 Marked `cuda`; every test skips (inside the fixture, never at import)
 when torch sees no CUDA device.  Run on an NVIDIA card with
@@ -420,3 +421,23 @@ def test_golden_render_through_tree_accels_on_cuda(accel, dev, cornell):
     assert err.mean() < 2e-3, err.mean()
     assert err.max() < 0.06, err.max()
     assert img[32, 4, 0] > img[32, 4, 1] and img[32, 60, 1] > img[32, 60, 0]
+
+
+def test_value_and_grad_on_cuda_matches_cpu(dev):
+    """One value and grad of the Disney floor at 32x32, 3 bounces, every
+    parameter group, on the card (B1) and on the CPU (the twins), as
+    chip_smoke.py's phase 18d: each gradient entry within rtol 1e-3, atol
+    1e-6 max|g|, the losses within rtol 1e-5 (its checks raise)."""
+    import importlib.util
+    import tomllib
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    with open(os.path.join(ROOT, "scenes", "cornell_disney.toml"), "rb") as f:
+        cfg = tomllib.load(f)
+    mt_brute.reset_launches()
+    rec = smoke.grad_card_vs_cpu(dev, cfg, os.path.join(ROOT, "scenes"), 32)
+    assert rec["size"] == "32x32"
+    assert mt_brute.launches["closest"] == 3 and mt_brute.launches["anyhit"] == 3
+    assert mt_brute.launches["closest_twin"] == 3 and mt_brute.launches["anyhit_twin"] == 3

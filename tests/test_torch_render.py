@@ -356,9 +356,9 @@ def _cli(config, tmp_path, *flags):
     return rc, out
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "auto"], ["--turntable", "4"], ["--resume", "c.npz"]])
+@pytest.mark.parametrize("flag", [["--mesh", "auto"], ["--turntable", "4"], ["--mesh", "1x1"]])
 def test_cli_unported_options_raise(flag, tmp_path):
-    """Unported flags."""
+    """Unported flags (--resume is ported: tests/test_torch_inverse.py)."""
     with pytest.raises(NotImplementedError):
         _cli(TOML, tmp_path, *flag)
 
