@@ -1,14 +1,19 @@
 """Command-line interface of the port (counterpart of
-caitlynrenderer_tpu/cli.py): progressive render to PNG on one device, with
-checkpoint and resume, and inverse rendering.
+caitlynrenderer_tpu/cli.py): progressive render to PNG, with checkpoint
+and resume, tiled ([render] num_tiles_x/num_tiles_y), as a turntable or
+sharded over a mesh of ranks; the benchmark; inverse rendering.
 
     python -m caitlynrenderer_tpu_torch.cli render scenes/cornell.toml -o out.png --spp 64
     python -m caitlynrenderer_tpu_torch.cli render scene.toml --resume ckpt.npz
+    python -m caitlynrenderer_tpu_torch.cli render scene.toml --turntable 8 -o frame.png
+    torchrun --nproc_per_node 2 -m caitlynrenderer_tpu_torch.cli render scene.toml --mesh 2x1
+    python -m caitlynrenderer_tpu_torch.cli benchmark --scene grid100k
     python -m caitlynrenderer_tpu_torch.cli optimize scenes/cornell_disney.toml \\
         --perturb-roughness 0.35 --optimize-camera -o params.npz
 
-Both run on the card unless given `--device cpu`.  Options the port does
-not cover yet raise NotImplementedError instead of being ignored.
+Everything runs on the card unless given `--device cpu`.  A combination
+of options that a path does not carry raises ValueError instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import argparse
 import os
 import sys
 import time
+
+import numpy as np
 
 
 def render_setup(cfg: dict, base_dir: str, **overrides):
@@ -38,16 +45,16 @@ def render_setup(cfg: dict, base_dir: str, **overrides):
     return scene, camera, options
 
 
-def _upload(args, **overrides):
+def _upload(args, device=None, **overrides):
     """(device, ds, camera, options) of the config named on the command
-    line: render_setup with `overrides`, then the upload to args.device,
-    logged as a "scene" record, the binary-BVH stack sized from the build
-    (a deep tree would overflow a fixed one)."""
+    line: render_setup with `overrides`, then the upload to `device`
+    (default args.device), logged as a "scene" record, the binary-BVH stack
+    sized from the build (a deep tree would overflow a fixed one)."""
     from caitlynrenderer_tpu_torch.device import get_device
     from caitlynrenderer_tpu_torch.scene import required_stack, upload_scene
     from caitlynrenderer_tpu_torch.utils import config, metrics
 
-    device = get_device(args.device)
+    device = get_device(args.device) if device is None else device
     scene, camera, options = render_setup(config.load_config(args.config),
                                           os.path.dirname(args.config), **overrides)
     t0 = time.perf_counter()
@@ -63,11 +70,42 @@ def _upload(args, **overrides):
     return device, ds, camera, options
 
 
+def turntable_camera(cfg: dict, translation, k: int, frames: int):
+    """Camera k of `frames` orbiting the config camera's look-at point about
+    the vertical axis, k / frames of a turn from the config's position: the
+    reference's turntable camera, which keeps the config's fov and leaves
+    focal_dist and aperture at make_camera's defaults.  The [camera] table
+    is read here as the reference reads it, since a Camera keeps no look-at
+    point."""
+    from caitlynrenderer_tpu_torch.core.types import make_camera
+
+    c = cfg.get("camera", {})
+    pos = np.asarray(c.get("position", [0.0, 1.0, 4.0]), np.float32)
+    look = np.asarray(c.get("look_at", [0.0, 1.0, 0.0]), np.float32)
+    if translation is not None:
+        pos = pos + translation
+        look = look + translation
+    rel = pos - look
+    ang = 2.0 * np.pi * k / frames
+    ca, sa = np.cos(ang), np.sin(ang)
+    rot = np.array([rel[0] * ca + rel[2] * sa, rel[1], -rel[0] * sa + rel[2] * ca], np.float32)
+    return make_camera(look + rot, look, fov_degrees=float(c.get("fov", 40.0)))
+
+
+def _refuse(flags) -> None:
+    """ValueError naming each combination in `flags` ({description: set?})
+    that is set: the render path taken does not carry it."""
+    given = [k for k, on in flags.items() if on]
+    if given:
+        raise ValueError(f"not carried by this render path: {'; '.join(given)}")
+
+
 def cmd_render(args) -> int:
+    if args.spp_per_launch != 1:
+        raise ValueError(f"--spp-per-launch {args.spp_per_launch}: this port launches sample "
+                         "by sample, so only 1 is accepted")
     if args.mesh is not None:
-        raise NotImplementedError("--mesh: multi-device rendering is not ported yet (ROADMAP A9)")
-    if args.turntable is not None:
-        raise NotImplementedError("--turntable is not ported yet (ROADMAP A6)")
+        return _render_mesh(args)
 
     from caitlynrenderer_tpu_torch.io.image import save_png
     from caitlynrenderer_tpu_torch.render import progressive
@@ -78,6 +116,14 @@ def cmd_render(args) -> int:
         aov=args.aov)
     w, h = options.width, options.height
     spp = args.spp or options.max_samples
+    tiled = options.num_tiles_x * options.num_tiles_y > 1
+    if args.turntable is not None:
+        if args.turntable < 1:
+            raise ValueError(f"--turntable must be at least 1, not {args.turntable}")
+        _refuse({"--turntable with --resume": args.resume,
+                 "--turntable with [render] num_tiles_x/num_tiles_y": tiled})
+    elif tiled:
+        _refuse({"[render] num_tiles_x/num_tiles_y with --resume": args.resume})
     if args.debug_checks:
         # One sample checked for NaN/inf radiance before the accumulation.
         from caitlynrenderer_tpu_torch.render import sampling
@@ -88,6 +134,36 @@ def cmd_render(args) -> int:
                                                options.max_depth, device),
             w, h, options)
         print("debug checks: the first sample's radiance is finite")
+
+    t0 = time.perf_counter()
+    if args.turntable is not None:
+        # The camera moves every frame, so every frame restarts the
+        # accumulation (the reference's interactive loop, offline).
+        from caitlynrenderer_tpu_torch.utils import config
+
+        cfg = config.load_config(args.config)
+        translation = config.scene_from_config(cfg, os.path.dirname(args.config))[1]
+        base, ext = os.path.splitext(args.output)
+        state = progressive.init_state(w, h, args.seed, device)
+        for k in range(args.turntable):
+            cam_k = turntable_camera(cfg, translation, k, args.turntable)
+            state = progressive.render_steps(ds, cam_k, progressive.reset(state), w, h,
+                                             options, spp)
+            path = f"{base}_{k:03d}{ext}"
+            save_png(path, progressive.resolve(state, w, h, options).cpu().numpy())
+            print(f"wrote {path} ({spp} spp, frame {k + 1}/{args.turntable})")
+        return 0
+
+    if tiled:
+        from caitlynrenderer_tpu_torch.render.tiled import render_image_tiled
+
+        img = render_image_tiled(ds, camera, options, spp=spp, seed=args.seed).cpu().numpy()
+        save_png(args.output, img)
+        print(f"wrote {args.output} ({spp} spp, {w}x{h} in {options.num_tiles_x}x"
+              f"{options.num_tiles_y} tiles, accel {options.accel}, {device}, "
+              f"{time.perf_counter() - t0:.3f} s)")
+        return 0
+
     if args.resume and os.path.exists(args.resume):
         # The saved state carries its base key: the samples continue its
         # sequence, whatever --seed says.
@@ -98,7 +174,6 @@ def cmd_render(args) -> int:
         print(f"resumed at {state.frame_count} spp")
     else:
         state = progressive.init_state(w, h, args.seed, device)
-    t0 = time.perf_counter()
     last_ckpt = time.monotonic()
     while state.frame_count < spp:
         state = progressive.render_step(ds, camera, state, w, h, options)
@@ -113,6 +188,93 @@ def cmd_render(args) -> int:
     print(f"wrote {args.output} ({state.frame_count} spp, {w}x{h}, accel {options.accel}, "
           f"{device}, {seconds:.3f} s)")
     return 0
+
+
+def _render_mesh(args) -> int:
+    """`render --mesh DPxSP|auto`: one rank of the sharded render, each
+    rank a process (torchrun), pixels over dp, sample streams over sp; the
+    image written by rank 0 with a "mesh_render" record.  A config with
+    tiles shards its tile grid instead of pixel rows."""
+    import torch.distributed as dist
+
+    from caitlynrenderer_tpu_torch.device import synchronize
+    from caitlynrenderer_tpu_torch.io.image import save_png
+    from caitlynrenderer_tpu_torch.parallel import render as pr
+    from caitlynrenderer_tpu_torch.parallel.distributed import (
+        assemble_image,
+        init_distributed,
+        make_multihost_mesh,
+        rank_device,
+    )
+    from caitlynrenderer_tpu_torch.parallel.mesh import make_mesh
+    from caitlynrenderer_tpu_torch.render import sampling
+    from caitlynrenderer_tpu_torch.utils import metrics
+
+    _refuse({"--mesh with --aov": args.aov not in (None, "beauty"),
+             "--mesh with --resume": args.resume,
+             "--mesh with --turntable": args.turntable is not None,
+             "--mesh with --debug-checks": args.debug_checks})
+    device = rank_device(args.device)
+    rank, world = init_distributed(device=device)
+    try:
+        if args.mesh == "auto":
+            mesh = make_multihost_mesh()
+        else:
+            dp_s, _, sp_s = args.mesh.lower().partition("x")
+            mesh = make_mesh((int(dp_s), int(sp_s or 1)))
+        _, ds, camera, options = _upload(args, device=device, width=args.width,
+                                         height=args.height, max_depth=args.depth,
+                                         accel=args.accel)
+        w, h = options.width, options.height
+        spp = args.spp or options.max_samples
+        if spp % mesh.sp:
+            raise ValueError(f"--spp {spp} is not a multiple of the mesh's sp = {mesh.sp} "
+                             "(each step adds sp samples)")
+        steps = spp // mesh.sp
+        timer = metrics.StepTimer()
+        tiles = (options.num_tiles_x, options.num_tiles_y)
+        if tiles[0] * tiles[1] > 1:
+            order, _ = pr.tile_pixel_order(w, h, *tiles, mesh.dp)
+            ts = pr.init_tiled_state(mesh, order, device)
+            accum, base_key = ts.accum, sampling.prng_key(args.seed)
+            for f in range(steps):
+                with timer.span("step"):
+                    accum = pr.sharded_render_step_tiled(ds, camera, accum, ts.order, f, base_key,
+                                                         mesh, w, h, options)
+                    synchronize(device)
+                timer.count("samples", mesh.sp)
+            img = pr.gather_image_tiled(accum, ts.order, steps, mesh, w, h, options)
+            img = img.cpu().numpy()
+        else:
+            state = pr.init_sharded_state(mesh, w, h, args.seed, device)
+            for _ in range(steps):
+                with timer.span("step"):
+                    state = pr.sharded_render_step(ds, camera, state, mesh, w, h, options)
+                    synchronize(device)
+                timer.count("samples", mesh.sp)
+            img = assemble_image(state, mesh, w, h, options)
+        if rank == 0:
+            save_png(args.output, img)
+            metrics.log_record("mesh_render", {"mesh": mesh.shape, "spp": spp,
+                                               "tiles": list(tiles), **timer.summary()})
+            print(f"wrote {args.output} ({spp} spp, mesh {mesh.dp}x{mesh.sp}, {w}x{h}, "
+                  f"accel {options.accel}, {device})")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+def cmd_benchmark(args) -> int:
+    """Runs `python -m caitlynrenderer_tpu_torch.bench` with the remaining
+    arguments (one JSON line; needs a CUDA card)."""
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    return subprocess.call([sys.executable, "-m", "caitlynrenderer_tpu_torch.bench",
+                            *args.bench_args], env=env)
 
 
 def cmd_optimize(args) -> int:
@@ -216,9 +378,25 @@ def main(argv=None) -> int:
                    help="checkpoint path: resumed from where it exists, saved between "
                    "samples every --checkpoint-every seconds and at the end")
     r.add_argument("--checkpoint-every", type=float, default=60.0)
-    r.add_argument("--mesh", default=None, help="not ported yet")
-    r.add_argument("--turntable", type=int, default=None, help="not ported yet")
+    r.add_argument("--spp-per-launch", type=int, default=1,
+                   help="the reference's samples per device launch; this port launches "
+                   "sample by sample and checks the checkpoint clock after each, so only "
+                   "1 is accepted")
+    r.add_argument("--mesh", default=None, metavar="DPxSP|auto",
+                   help="sharded render, one rank per process under torchrun (pixels over "
+                   "dp, sample streams over sp; --spp a multiple of sp), e.g. "
+                   "torchrun --nproc_per_node 4 -m caitlynrenderer_tpu_torch.cli render "
+                   "scene.toml --mesh 2x2; not with --aov, --resume, --turntable or "
+                   "--debug-checks")
+    r.add_argument("--turntable", type=int, default=None, metavar="N",
+                   help="N frames orbiting the look-at point, each restarting the "
+                   "accumulation; writes OUTPUT_000.png ...")
     r.set_defaults(fn=cmd_render)
+
+    b = sub.add_parser("benchmark", add_help=False,
+                       help="python -m caitlynrenderer_tpu_torch.bench with the remaining "
+                       "arguments (--help for its own)")
+    b.set_defaults(fn=cmd_benchmark)
 
     o = sub.add_parser("optimize", help="inverse rendering")
     o.add_argument("config")
@@ -239,7 +417,11 @@ def main(argv=None) -> int:
     o.add_argument("--device", default="cuda", help="torch device (default cuda)")
     o.set_defaults(fn=cmd_optimize)
 
-    args = ap.parse_args(argv)
+    # Everything after "benchmark" is the bench's, its --help included.
+    args, rest = ap.parse_known_args(argv)
+    if args.cmd != "benchmark" and rest:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    args.bench_args = rest
     return args.fn(args)
 
 

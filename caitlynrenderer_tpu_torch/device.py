@@ -22,3 +22,9 @@ def get_device(name: str = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {name!r} (expected cuda or cpu)")
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on a CUDA device; nothing on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

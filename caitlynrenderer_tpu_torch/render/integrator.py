@@ -8,9 +8,17 @@ ray queries go through the scene's accelerator: ops/mt_brute under
 "brute", ops/traverse_mega under "wide" and ops/traverse_cw8 under
 "cwbvh", each of which launches its CUDA kernel for CUDA tensors, and
 ops/traverse_bvh (plain torch ops, as the reference's XLA walk) under
-"bvh2" and "sbvh".  The estimator, the uniform layout and the order of the
-arithmetic are the reference's, so the tests can hold the two against
-each other per pixel.  A vertex's steps (`hit_frame`, `surface`,
+"bvh2" and "sbvh".  options.traversal chooses, as in the reference:
+"auto" takes those paths (the kernel on the card, its twin on CPU
+tensors); "pallas" insists on the hand-written kernel and raises
+ValueError for CPU tensors; "xla", for parity with the reference on CPU
+tensors, runs the reference's plain walks where it has them, the dense
+Möller–Trumbore of ops/intersect under "brute" and the node8 walk of
+ops/traverse_cwbvh under "cwbvh" ("wide", "bvh2" and "sbvh" have one
+path each), and raises ValueError for CUDA tensors, where it would walk
+past the kernels.  The estimator, the uniform layout and the
+order of the arithmetic are the reference's, so the tests can hold the
+two against each other per pixel.  A vertex's steps (`hit_frame`, `surface`,
 `light_sample`, `continuation`) are functions of their own, so that
 chip_smoke.py builds the kernels' bounce and shadow ray sets with the
 integrator's code.
@@ -23,8 +31,7 @@ ray-count stats and the first-hit AOVs (`trace_aov`).  As in the
 reference, CONDUCTOR is specular (no NEE) but not MIRROR (no reflection)
 and not Disney, so it scatters as a Lambert bounce.  The wide and cwbvh
 paths thread the reference's origin-group (window) hint `og`; its
-`preorder` has no counterpart, and `options.traversal` is not read (each
-accelerator has one path per device).
+`preorder` has no counterpart.
 
 Gradients (grad/inverse.py): the reference's detached-traversal
 estimator.  Both ray queries and Russian roulette's survival probability
@@ -48,13 +55,14 @@ from caitlynrenderer_tpu_torch.core.types import (
     RenderOptions,
 )
 from caitlynrenderer_tpu_torch.core import math as cm
-from caitlynrenderer_tpu_torch.core.camera import generate_rays
+from caitlynrenderer_tpu_torch.core.camera import generate_rays, generate_rays_for_ids
 from caitlynrenderer_tpu_torch.ops import bsdf
-from caitlynrenderer_tpu_torch.ops.intersect import refine_hit_tri
+from caitlynrenderer_tpu_torch.ops.intersect import intersect_brute, occluded_brute, refine_hit_tri
 from caitlynrenderer_tpu_torch.ops.mt_brute import brute_anyhit, brute_closest
 from caitlynrenderer_tpu_torch.ops.texture import sample_bilinear, sample_env
 from caitlynrenderer_tpu_torch.ops.traverse_bvh import traverse_anyhit, traverse_closest
 from caitlynrenderer_tpu_torch.ops.traverse_cw8 import cw8_anyhit, cw8_closest
+from caitlynrenderer_tpu_torch.ops.traverse_cwbvh import cwbvh_anyhit, cwbvh_closest
 from caitlynrenderer_tpu_torch.ops.traverse_mega import mega_anyhit, mega_closest
 from caitlynrenderer_tpu_torch.scene import ACCELS, DeviceScene
 
@@ -81,11 +89,27 @@ def _type_is(mat_type, ids):
     return torch.bitwise_left_shift(torch.ones_like(mat_type), mat_type) & mask != 0
 
 
+TRAVERSALS = ("auto", "xla", "pallas")
+
+
 def check_supported(ds: DeviceScene, options: RenderOptions) -> None:
     """Raise ValueError for an unknown accelerator or one the scene was not
-    uploaded for ("brute" runs on every upload)."""
+    uploaded for ("brute" runs on every upload), for an unknown traversal,
+    for traversal "pallas" on a scene that is not on a CUDA device, and for
+    traversal "xla" on one that is."""
     if options.accel not in ACCELS:
         raise ValueError(f"unknown accel {options.accel!r} (expected one of {'/'.join(ACCELS)})")
+    if options.traversal not in TRAVERSALS:
+        raise ValueError(f"unknown traversal {options.traversal!r} "
+                         f"(expected one of {'/'.join(TRAVERSALS)})")
+    on_card = ds.tris9.device.type == "cuda"
+    if options.traversal == "pallas" and not on_card:
+        raise ValueError('traversal "pallas" launches the hand-written kernels, which need '
+                         f"CUDA tensors; the scene is on {ds.tris9.device}")
+    if options.traversal == "xla" and on_card:
+        raise ValueError('traversal "xla" runs the plain walks the reference runs off the TPU, '
+                         'for parity on CPU tensors; on the card use "auto" or "pallas", '
+                         "which launch the kernels")
     # bvh2 and sbvh differ only in how the binary tree was built.
     binary = {"sbvh": "bvh2"}
     same = binary.get(options.accel, options.accel) == binary.get(ds.accel, ds.accel)
@@ -123,13 +147,19 @@ def _bvh(ds: DeviceScene):
 
 @torch.no_grad()
 def _closest_hit_raw(ds: DeviceScene, o, d, active, options: RenderOptions, og):
-    """Closest-hit dispatch on options.accel.  Returns (t, tri, u, v, group):
-    group is the wide BVH's winning group or the CWBVH's winning window
-    (None under the others), and the wide and cwbvh paths' u = v = 0 (the
-    caller refines them from the triangle).  Traversal is detached, as the
+    """Closest-hit dispatch on options.accel and options.traversal.  Returns
+    (t, tri, u, v, group): group is the wide BVH's winning group or the
+    CWBVH kernel's winning window (None under the others), and those two
+    paths' u = v = 0 (the caller refines them from the triangle).  Traversal is detached, as the
     reference's stop_gradient makes it: nothing here records a graph, and
     the gradient reaches t, u and v through `hit_frame`'s refinement."""
     o, d = o.detach(), d.detach()
+    if options.traversal == "xla" and options.accel == "brute":
+        t, tri, u, v = intersect_brute(o, d, ds.scene.vertices, ds.scene.tri_v)
+        return t, torch.where(active, tri, -1), u, v, None
+    if options.traversal == "xla" and options.accel == "cwbvh":
+        t, tri, u, v = cwbvh_closest(o, d, active, ds.cw_nodes, ds.tris9, ds.cw_depth)
+        return t, tri, u, v, None
     if options.accel in ("wide", "cwbvh"):
         query = mega_closest if options.accel == "wide" else cw8_closest
         args = _wide(ds) if options.accel == "wide" else _cw(ds)
@@ -145,9 +175,14 @@ def _closest_hit_raw(ds: DeviceScene, o, d, active, options: RenderOptions, og):
 
 @torch.no_grad()
 def _occluded(ds: DeviceScene, o, d, t_max, active, options: RenderOptions, og):
-    """Any-hit visibility dispatch on options.accel; detached (visibility
-    carries no gradient)."""
+    """Any-hit visibility dispatch on options.accel and options.traversal;
+    detached (visibility carries no gradient)."""
     o, d, t_max = o.detach(), d.detach(), t_max.detach()
+    if options.traversal == "xla" and options.accel == "brute":
+        return occluded_brute(o, d, torch.where(active, t_max, 0.0), ds.scene.vertices,
+                              ds.scene.tri_v) & active
+    if options.traversal == "xla" and options.accel == "cwbvh":
+        return cwbvh_anyhit(o, d, t_max, active, ds.cw_nodes, ds.tris9, ds.cw_depth)
     if options.accel == "wide":
         return mega_anyhit(o, d, t_max, active, *_wide(ds), og=og)
     if options.accel == "cwbvh":
@@ -509,11 +544,15 @@ def trace_aov(ds: DeviceScene, o, d, options: RenderOptions):
 
 
 def render_sample(ds: DeviceScene, camera: Camera, uniforms, width: int, height: int,
-                  options: RenderOptions):
-    """One full sample of every pixel: raygen, then the path trace (or the
-    first-hit AOV unless options.aov is "beauty").  Returns (H*W, 3)
-    radiance on the uniforms' device."""
-    o, d = generate_rays(camera, width, height, uniforms)
+                  options: RenderOptions, pixel_ids=None):
+    """One sample of every pixel, or of the global pixel ids `pixel_ids`
+    ((N,) int32, one row of `uniforms` each): raygen, then the path trace
+    (or the first-hit AOV unless options.aov is "beauty").  Returns (H*W, 3)
+    or (N, 3) radiance on the uniforms' device."""
+    if pixel_ids is None:
+        o, d = generate_rays(camera, width, height, uniforms)
+    else:
+        o, d = generate_rays_for_ids(camera, width, height, pixel_ids, uniforms)
     if options.aov != "beauty":
         return trace_aov(ds, o, d, options)
     return trace_paths(ds, o, d, uniforms, options)

@@ -45,13 +45,22 @@ def reset(state: RenderState) -> RenderState:
     return state._replace(accum=torch.zeros_like(state.accum), frame_count=0)
 
 
+def render_pixels(ds: DeviceScene, camera: Camera, key, pixel_ids, width: int, height: int,
+                  options: RenderOptions):
+    """One sample (`key`, an int pair) of the global pixel ids `pixel_ids`
+    ((N,) int32; ids past the image trace throwaway rays): (N, 3) radiance.
+    A pixel's uniforms depend only on the key and its id, so any split of
+    the pixels (tiles, shards) renders each the same."""
+    uniforms = sampling.pixel_uniforms(key, pixel_ids, options.max_depth)
+    return render_sample(ds, camera, uniforms, width, height, options, pixel_ids)
+
+
 def render_step(ds: DeviceScene, camera: Camera, state: RenderState, width: int,
                 height: int, options: RenderOptions) -> RenderState:
     """Add one sample per pixel to the accumulation."""
     key = sampling.sample_key(state.base_key, state.frame_count)
     pixel_ids = torch.arange(width * height, dtype=torch.int32, device=state.accum.device)
-    uniforms = sampling.pixel_uniforms(key, pixel_ids, options.max_depth)
-    radiance = render_sample(ds, camera, uniforms, width, height, options)
+    radiance = render_pixels(ds, camera, key, pixel_ids, width, height, options)
     return RenderState(state.accum + radiance, state.frame_count + 1, state.base_key)
 
 
@@ -76,7 +85,12 @@ def resolve(state: RenderState, width: int, height: int, options: RenderOptions)
     linearly, clipped to [0, 1], "depth" first normalized by the frame's
     largest value."""
     inv = 1.0 / max(float(state.frame_count), 1.0)
-    hdr = state.accum * inv * options.hdr_multiplier
+    return display(state.accum * inv * options.hdr_multiplier, width, height, options)
+
+
+def display(hdr, width: int, height: int, options: RenderOptions):
+    """Mean radiance (H*W, 3), row-major from the bottom row → display
+    image (H, W, 3), as `resolve` describes."""
     if options.aov == "depth":
         img = torch.clamp(hdr / torch.clamp(hdr.max(), min=1e-8), 0.0, 1.0)
     elif options.aov != "beauty":

@@ -120,7 +120,38 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      rtol 1e-3, atol 1e-6 max|g|, the losses within rtol 1e-5.  Its
      numbers, beside the card's name and power limit, are also printed
      as one {"grad": ...} JSON line before the kernels' line.
-About 3 minutes on one H100, builds included.  B3's stats variant
+ 19. tooling and multi-device on the card: (a) the 700x700 cornell (3
+     bounces, B1) in 4x4 tiles (render/tiled.py) against the untiled
+     progressive loop, 4 samples: accumulations equal bit for bit,
+     ms/frame of both, and B1 against its twin bit for bit on every query
+     of one tiled sample (30,625 rays a tile); (b) grid100k's 65,536
+     primary rays and the main path's bounce and shadow rays: the node8
+     torch walk (ops/traverse_cwbvh.py, called directly) against B3 under
+     phase 8's contract (`check_vs_b1`, the walk in B1's place: both are
+     Moller-Trumbore), the times of both, the walk launching neither B3
+     nor any twin; one 256x256, 4-bounce sample under "auto" (B3
+     launched 4 + 4 times, its twin never), and traversal "xla" refused
+     on the card (ValueError, nothing launched); (c) a 1x1 mesh under
+     NCCL (world size 1): the sharded render of the cornell demo (B1) and
+     of grid100k through wide (B2, 256x256, 4 bounces), 4 samples, equal
+     bit for bit to the progressive loop, ms/frame of both, the kernel
+     against its twin bit for bit on one sharded sample's queries (B1's
+     all, B2's first bounce), and scaling_report (1.0 by construction on
+     one rank); (d) two ranks on cuda:0 over gloo (all-reduce on CUDA
+     tensors), spawned here: the cornell demo on the 2x1 mesh equal bit
+     for bit to (a)'s loop, on the 1x2 mesh within rtol 1e-5, atol 1e-6
+     (the row's sum reassociates samples), each rank's ms/frame, and on
+     each rank B1 against its twin bit for bit on one sample's queries of
+     its block (245,000 rays on 2x1, 490,000 on 1x2); (e) one
+     sharded_train_step at 64x64 on the card against the CPU (loss rtol
+     1e-4; each parameter's step rtol 1e-3, atol 1e-6 of the largest);
+     (f) `cli render --turntable 2`, `cli benchmark --scene cornell
+     --steps 2` and `cli render --mesh 1x1` under `python -m
+     torch.distributed.run` (one NCCL rank) as three subprocesses at
+     once; each frame and the mesh's image equal, PNG for PNG, the same
+     render made in this process.  Its numbers are also
+     printed as one {"phase19": ...} JSON line before the kernels' line.
+About 5 minutes on one H100, builds included.  B3's stats variant
 (`stats=True`) is checked and used for counts and bounds only; its launches
 are counted apart (`traverse_cw8.stats_launches`).  The line before the last is
 the kernels' JSON record, each kernel with its time, its plain twin's, and
@@ -130,6 +161,7 @@ inputs as `*_bound` below say); the last line is {"ok": true, "device":
 {...}}.  Nothing of JAX or of the JAX package is imported.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1013,6 +1045,491 @@ def grad_card_vs_cpu(dev, disney_cfg, base_dir, side):
     return {"size": f"{side}x{side}", "loss_card": loss_c, "loss_cpu": loss_h}
 
 
+# Phase 19: tooling and multi-device on the card (tiled render, the node8
+# walk, sharded render on a 1x1 NCCL mesh and on two gloo ranks sharing the
+# card, the sharded training step, the turntable and benchmark commands).
+SHARD_STEPS = 4  # progressive steps of each phase 19 render
+SHARD_RTOL, SHARD_ATOL = 1e-5, 1e-6  # sp > 1: the row's sum reassociates samples
+
+
+def _timed_steps(step, state, steps, dev):
+    """Run `state = step(state)` `steps` times after one warm-up step;
+    returns (warm-up state, final state, ms per step)."""
+    state = warm = step(state)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = step(state)
+    torch.cuda.synchronize(dev)
+    return warm, state, (time.perf_counter() - t0) / steps * 1e3
+
+
+def _progressive_accum(ds, camera, options, samples, dev):
+    """(accum after `samples` progressive samples, ms per frame)."""
+    from caitlynrenderer_tpu_torch.render import progressive
+
+    w, h = options.width, options.height
+    st = progressive.init_state(w, h, 0, dev)
+    st = progressive.render_steps(ds, camera, st, w, h, options, 1)  # warm-up
+    torch.cuda.synchronize(dev)
+    st = progressive.init_state(w, h, 0, dev)
+    t0 = time.perf_counter()
+    st = progressive.render_steps(ds, camera, st, w, h, options, samples)
+    torch.cuda.synchronize(dev)
+    return st.accum, (time.perf_counter() - t0) / samples * 1e3
+
+
+def _sharded_accum(ds, camera, options, mesh, steps, dev):
+    """Whole accumulation of `steps` sharded steps from seed 0 (each adds
+    mesh.sp samples), and ms per frame, after a warm-up step."""
+    from caitlynrenderer_tpu_torch.parallel import render as pr
+
+    w, h = options.width, options.height
+    st = pr.sharded_render_step(ds, camera, pr.init_sharded_state(mesh, w, h, 0, dev), mesh, w,
+                                h, options)  # warm-up
+    torch.cuda.synchronize(dev)
+    st = pr.init_sharded_state(mesh, w, h, 0, dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        st = pr.sharded_render_step(ds, camera, st, mesh, w, h, options)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) / (steps * mesh.sp) * 1e3
+    return pr.gather_accum(st, mesh)[: w * h], ms
+
+
+@contextlib.contextmanager
+def captured_queries(*names):
+    """Wrap the integrator's ray-query entry points `names` (e.g.
+    "brute_closest", "mega_anyhit") for the block: every call still runs,
+    and its (name, args, kwargs) is appended to the yielded list, so the
+    kernels can be held against their twins on the very inputs a path gave
+    them."""
+    from caitlynrenderer_tpu_torch.render import integrator
+
+    calls, real = [], {n: getattr(integrator, n) for n in names}
+
+    def wrap(name):
+        def query(*args, **kw):
+            calls.append((name, args, kw))
+            return real[name](*args, **kw)
+        return query
+
+    for n in names:
+        setattr(integrator, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in real.items():
+            setattr(integrator, n, fn)
+
+
+def hold_to_twins(calls, module):
+    """Run each captured query again through its kernel and through the
+    kernel's plain twin (`module.<name>_plain`) on the same inputs; returns
+    (queries, largest ray count, number of queries whose outputs differ
+    anywhere, bit for bit)."""
+    differ, rays = 0, 0
+    for name, args, kw in calls:
+        got = getattr(module, name)(*args, **kw)
+        want = getattr(module, name + "_plain")(*args, **kw)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        differ += not all(torch.equal(a, b) for a, b in zip(got, want))
+        rays = max(rays, args[0].shape[0])
+    return len(calls), rays, differ
+
+
+def _call_ms(fn):
+    """(fn(), milliseconds of the call on the card's clock, CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def gloo_rank(rank, world, init, out_dir):
+    """Phase 19d, one of two ranks sharing cuda:0 over gloo (all-reduce on
+    CUDA tensors): the cornell demo on the 2x1 and the 1x2 mesh, the whole
+    accumulation, ms per frame, B1's launches and B1 against its twin on
+    one sample's queries of the rank's block saved for the parent."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from caitlynrenderer_tpu_torch.cli import render_setup
+    from caitlynrenderer_tpu_torch.ops import mt_brute as mt
+    from caitlynrenderer_tpu_torch.parallel import distributed as pd
+    from caitlynrenderer_tpu_torch.parallel import render as pr
+    from caitlynrenderer_tpu_torch.parallel.mesh import make_mesh
+    from caitlynrenderer_tpu_torch.scene import upload_scene
+
+    dev = torch.device("cuda:0")
+    pd.init_distributed(init_method=init, world_size=world, rank=rank, backend="gloo",
+                        device=dev, timeout=timedelta(seconds=300))
+    try:
+        with open(CORNELL_TOML, "rb") as f:
+            cfg = tomllib.load(f)
+        scene, camera, options = render_setup(cfg, os.path.dirname(CORNELL_TOML), width=DEMO,
+                                              height=DEMO, max_depth=3, accel="auto")
+        ds = upload_scene(scene, options.accel, dev)
+        out = {"backend": dist.get_backend()}
+        for shape in ((2, 1), (1, 2)):
+            mesh = make_mesh(shape)
+            with captured_queries("brute_closest", "brute_anyhit") as calls:
+                pr.sharded_render_step(ds, camera, pr.init_sharded_state(mesh, DEMO, DEMO, 0, dev),
+                                       mesh, DEMO, DEMO, options)
+            twins = hold_to_twins(calls, mt)
+            mt.reset_launches()
+            accum, ms = _sharded_accum(ds, camera, options, mesh, SHARD_STEPS // mesh.sp, dev)
+            out[shape] = {"accum": accum.cpu(), "ms": ms, "launches": dict(mt.launches),
+                          "b1_vs_twin": twins}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase19(dev, setup, camera, grid, grid_cam, g3, go, gd, gact, guni, b3o, b3d, b3act, smi):
+    """Phase 19 (a)-(f); returns (record, B1/B2/B3 launches of its main
+    paths under "auto")."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from caitlynrenderer_tpu_torch.cli import render_setup, turntable_camera
+    from caitlynrenderer_tpu_torch.core.types import RenderOptions
+    from caitlynrenderer_tpu_torch.io.image import load_png, save_png
+    from caitlynrenderer_tpu_torch.ops import mt_brute as mt
+    from caitlynrenderer_tpu_torch.ops import traverse_cw8 as cw8
+    from caitlynrenderer_tpu_torch.ops import traverse_cwbvh as walk
+    from caitlynrenderer_tpu_torch.ops import traverse_mega as mega
+    from caitlynrenderer_tpu_torch.parallel import distributed as pd
+    from caitlynrenderer_tpu_torch.parallel import render as pr
+    from caitlynrenderer_tpu_torch.parallel.mesh import SINGLE, make_mesh
+    from caitlynrenderer_tpu_torch.render import progressive, tiled
+    from caitlynrenderer_tpu_torch.scene import required_stack, scene_families, upload_scene
+    from caitlynrenderer_tpu_torch.utils import config
+
+    t19 = time.perf_counter()
+    rec = {"device": smi}
+    totals = {"mt_brute": {"closest": 0, "anyhit": 0}, "traverse_mega": {"closest": 0, "anyhit": 0},
+              "traverse_cw8": {"closest": 0, "anyhit": 0}}
+    modules = {"mt_brute": mt, "traverse_mega": mega, "traverse_cw8": cw8}
+
+    def reset():
+        for m in modules.values():
+            m.reset_launches()
+
+    def read(name, want_min, label):
+        """Add kernel `name`'s launches since reset() to the totals; the
+        kernel must have run, its twin and the other kernels not."""
+        runs = {k: dict(m.launches) for k, m in modules.items()}
+        check(runs[name]["closest"] >= want_min and runs[name]["anyhit"] >= want_min,
+              f"{label}: {name} not launched: {runs}")
+        check(all(v == 0 for k, r in runs.items() for q, v in r.items()
+                  if k != name or q.endswith("_twin")), f"{label}: another path ran: {runs}")
+        for q in ("closest", "anyhit"):
+            totals[name][q] += runs[name][q]
+        return runs[name]
+
+    # (a) the cornell demo tiled 4x4 through B1, against the untiled render.
+    sc_demo, _, opts = setup(DEMO, DEMO)
+    ds = upload_scene(sc_demo, opts.accel, dev)
+    tiled_opts = opts._replace(num_tiles_x=4, num_tiles_y=4)
+    with captured_queries("brute_closest", "brute_anyhit") as calls:
+        tiled.accumulate_tiled(ds, camera, tiled_opts, spp=1)  # warm-up
+    n_q, n_rays, differ = hold_to_twins(calls, mt)
+    check(n_q == 16 * 3 * 2 and differ == 0,
+          f"(a) B1 against its twin on the tiles' queries: {differ} of {n_q} differ")
+    print(f"  (a) B1 against its twin on one tiled sample's {n_q} queries ({n_rays} rays "
+          f"each): equal bit for bit", flush=True)
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    acc_t = tiled.accumulate_tiled(ds, camera, tiled_opts, spp=SHARD_STEPS)
+    torch.cuda.synchronize()
+    ms_tiled = (time.perf_counter() - t0) / SHARD_STEPS * 1e3
+    runs = read("mt_brute", 16 * 3 * SHARD_STEPS, "(a) tiled cornell")
+    reset()
+    acc_u, ms_untiled = _progressive_accum(ds, camera, opts, SHARD_STEPS, dev)
+    read("mt_brute", 3 * SHARD_STEPS, "(a) untiled cornell")
+    check(torch.equal(acc_t, acc_u), "(a) the tiled cornell differs from the untiled one")
+    rec["a_tiled_cornell"] = {"ms_per_frame_tiled": ms_tiled, "ms_per_frame_untiled": ms_untiled,
+                              "tiles": 16, "b1_launches": runs, "bit_equal": True,
+                              "b1_vs_twin": {"queries": n_q, "rays": n_rays, "differ": differ}}
+    print(f"  (a) cornell {DEMO}x{DEMO}, 3 bounces, 4x4 tiles through B1: {ms_tiled:.3f} ms/frame "
+          f"tiled, {ms_untiled:.3f} untiled; accumulations equal bit for bit; B1 {runs}",
+          flush=True)
+
+    # (b) grid100k: the node8 torch walk (traversal "xla") against B3.
+    gc = cw_args(g3)
+    _, gtri, _ = cw8.cw8_closest(go, gd, gact, *gc)
+    sets = {"primary": (go, gd, gact, None), "bounce": (b3o, b3d, b3act, None),
+            "shadow": shadow_rays(g3, go, gd, gtri, guni)}
+    rng19 = np.random.default_rng(19)
+    walk_rec = {}
+    for label, (qo, qd, qa, qt) in sets.items():
+        if qt is None:
+            qt = torch.as_tensor(rng19.uniform(0, 20, qo.shape[0]), dtype=torch.float32,
+                                 device=dev)
+        # The walk's time: one call as its caller sees it (it syncs the host
+        # every step, so there is no device time apart from the host's).
+        reset()
+        (tw, triw, _, _), walk_closest_ms = _call_ms(lambda: walk.cwbvh_closest(
+            qo, qd, qa, g3.cw_nodes, g3.tris9, g3.cw_depth))
+        occw, walk_anyhit_ms = _call_ms(lambda: walk.cwbvh_anyhit(
+            qo, qd, qt, qa, g3.cw_nodes, g3.tris9, g3.cw_depth))
+        check(all(v == 0 for m in modules.values() for v in m.launches.values()),
+              f"(b) {label}: the node8 walk launched a kernel or a twin")
+        t3, tri3, _ = cw8.cw8_closest(qo, qd, qa, *gc)
+        occ3 = cw8.cw8_anyhit(qo, qd, qt, qa, *gc)
+        torch.cuda.synchronize()
+
+        def cracks(bad):
+            i = bad.nonzero()[:, 0]
+            tt, trt, _ = cw8.cw8_closest_plain(qo[i], qd[i], qa[i], *gc)
+            ot = cw8.cw8_anyhit_plain(qo[i], qd[i], qt[i], qa[i], *gc)
+            twin_equal = (torch.equal(tt, t3[i]) and torch.equal(trt, tri3[i])
+                          and torch.equal(ot, occ3[i]))
+            return twin_equal, torch.minimum(edge_distance(qo[i], qd[i], g3.tris9, triw[i]),
+                                             edge_distance(qo[i], qd[i], g3.tris9, tri3[i]))
+
+        check_vs_b1(f"(b) grid100k {label}, B3 against the node8 walk", t3, tri3, occ3, tw,
+                    triw, occw, qt, g3.tris9, g3.tris9, None if label == "primary" else qd,
+                    cracks)
+        walk_rec[label] = {
+            "rays": int(qa.sum()), "walk_closest_ms": walk_closest_ms,
+            "walk_anyhit_ms": walk_anyhit_ms,
+            "b3_closest_ms": event_ms(lambda: cw8.cw8_closest(qo, qd, qa, *gc), 20),
+            "b3_anyhit_ms": event_ms(lambda: cw8.cw8_anyhit(qo, qd, qt, qa, *gc), 20)}
+        print(f"    {label}: " + ", ".join(f"{k} {v:.4f}" if k != "rays" else f"{k} {v}"
+                                           for k, v in walk_rec[label].items()), flush=True)
+    gopts = RenderOptions(width=BENCH, height=BENCH, max_depth=BENCH_DEPTH, accel="cwbvh",
+                          families=scene_families(grid))
+    progressive.render_step(g3, grid_cam, progressive.init_state(BENCH, BENCH, 0, dev), BENCH,
+                            BENCH, gopts)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    progressive.render_step(g3, grid_cam, progressive.init_state(BENCH, BENCH, 0, dev), BENCH,
+                            BENCH, gopts)
+    torch.cuda.synchronize()
+    ms_auto = (time.perf_counter() - t0) * 1e3
+    runs = read("traverse_cw8", BENCH_DEPTH, "(b) grid100k cwbvh, auto")
+    check(runs["closest"] == BENCH_DEPTH and runs["anyhit"] == BENCH_DEPTH,
+          f"(b) auto: B3 launches {runs}")
+    # "xla" is the reference's plain walks for CPU tensors: on the card it
+    # refuses to run, so no frame walks past B3.
+    reset()
+    refused = None
+    try:
+        progressive.render_step(g3, grid_cam, progressive.init_state(BENCH, BENCH, 0, dev),
+                                BENCH, BENCH, gopts._replace(traversal="xla"))
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None, '(b) traversal "xla" rendered on the card')
+    check(all(v == 0 for m in modules.values() for v in m.launches.values()),
+          '(b) traversal "xla": a kernel or a twin ran before the refusal')
+    rec["b_node8_walk"] = {"rays": walk_rec, "frames": {
+        "auto": {"ms_per_frame": ms_auto, "b3_launches": runs}, "xla": {"refused": refused}}}
+    print(f"  (b) grid100k {BENCH}x{BENCH}, {BENCH_DEPTH} bounces, cwbvh: ms/frame auto (B3) "
+          f"{ms_auto:.3f}, B3 launches {runs}; xla on the card refused: {refused}", flush=True)
+
+    # (c) a 1x1 mesh under NCCL: the cornell demo (B1) and grid100k wide (B2).
+    pd.init_distributed(init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0,
+                        backend="nccl", device=pd.rank_device("cuda"))
+    check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+    mesh = make_mesh((1, 1))
+    check(mesh.group is not None, "the 1x1 mesh has no process group")
+    wds = upload_scene(grid, "wide", dev)
+    wopts = gopts._replace(accel="wide")
+    rec["c_nccl_1x1"] = {}
+    for label, cds, copts, name in (("cornell", ds, opts, "mt_brute"),
+                                    ("grid100k wide", wds, wopts, "traverse_mega")):
+        # The kernel against its twin on the queries of one sharded sample:
+        # every one of B1's; B2's first bounce (its twin takes about a
+        # second a query at this size).
+        queries = ("brute_closest", "brute_anyhit") if name == "mt_brute" else (
+            "mega_closest", "mega_anyhit")
+        with captured_queries(*queries) as calls:
+            pr.sharded_render_step(cds, camera if label == "cornell" else grid_cam,
+                                   pr.init_sharded_state(mesh, copts.width, copts.height, 0, dev),
+                                   mesh, copts.width, copts.height, copts)
+        n_q, n_rays, differ = hold_to_twins(calls if name == "mt_brute" else calls[:2],
+                                            modules[name])
+        check(differ == 0, f"(c) {label}: {differ} of {n_q} queries differ from the twin")
+        reset()
+        acc_s, ms_s = _sharded_accum(cds, camera if label == "cornell" else grid_cam, copts, mesh,
+                                     SHARD_STEPS, dev)
+        runs = read(name, copts.max_depth * SHARD_STEPS, f"(c) {label} sharded")
+        reset()
+        acc_p, ms_p = _progressive_accum(cds, camera if label == "cornell" else grid_cam, copts,
+                                         SHARD_STEPS, dev)
+        read(name, copts.max_depth * SHARD_STEPS, f"(c) {label} progressive")
+        check(torch.equal(acc_s, acc_p), f"(c) {label}: the 1x1 NCCL mesh differs")
+        rec["c_nccl_1x1"][label] = {"ms_per_frame_sharded": ms_s, "ms_per_frame_progressive": ms_p,
+                                    "launches": runs, "bit_equal": True,
+                                    "kernel_vs_twin": {"queries": n_q, "rays": n_rays,
+                                                       "differ": differ}}
+        print(f"  (c) {label} on a 1x1 NCCL mesh: {ms_s:.3f} ms/frame, progressive loop "
+              f"{ms_p:.3f}; accumulations equal bit for bit; {name} {runs}; the kernel equal "
+              f"to its twin bit for bit on {n_q} of the mesh's queries ({n_rays} rays)",
+              flush=True)
+    img = pd.assemble_image(pr.init_sharded_state(mesh, 8, 8, 0, dev)._replace(frame_count=1),
+                            mesh, 8, 8, opts)
+    check(img.shape == (8, 8, 3), "assemble_image")
+    rep = pd.scaling_report(wds, grid_cam, wopts, BENCH, BENCH, spp=4)
+    check(rep["devices"] == 1 and rep["scaling_efficiency"] == 1.0, f"scaling {rep}")
+    rec["c_scaling_report"] = rep
+    print(f"  (c) scaling_report, grid100k wide on one card: {rep}", flush=True)
+    dist.destroy_process_group()
+
+    # (d) two ranks sharing the card over gloo, against (a)'s progressive
+    # accumulation of the same SHARD_STEPS samples.
+    want = acc_u.cpu()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as tmp:
+        ctx = mp.start_processes(gloo_rank, args=(2, "file://" + os.path.join(tmp, "rdv"), tmp),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + 600
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise RuntimeError("(d) the gloo ranks did not finish in 600 s")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    rec["d_gloo_two_ranks"] = {"backend": ranks[0]["backend"]}
+    for shape in ((2, 1), (1, 2)):
+        for r in ranks:
+            got = r[shape]["accum"]
+            if shape[1] == 1:
+                check(torch.equal(got, want), f"(d) {shape}: differs from the loop")
+            else:
+                check(torch.allclose(got, want, rtol=SHARD_RTOL, atol=SHARD_ATOL),
+                      f"(d) {shape}: beyond rtol {SHARD_RTOL}")
+            runs = r[shape]["launches"]
+            check(runs["closest"] > 0 and runs["anyhit"] > 0 and runs["closest_twin"] == 0
+                  and runs["anyhit_twin"] == 0, f"(d) {shape}: B1 launches {runs}")
+            n_q, n_rays, differ = r[shape]["b1_vs_twin"]
+            check(n_q == 2 * opts.max_depth and n_rays == DEMO * DEMO // shape[0] and differ == 0,
+                  f"(d) {shape}: B1 against its twin on the rank's queries: {differ} of "
+                  f"{n_q} differ ({n_rays} rays)")
+            for q in ("closest", "anyhit"):
+                totals["mt_brute"][q] += runs[q]
+        err = float((ranks[0][shape]["accum"] - want).abs().max())
+        rec["d_gloo_two_ranks"][f"{shape[0]}x{shape[1]}"] = {
+            "ms_per_frame": [r[shape]["ms"] for r in ranks], "max_abs_err": err,
+            "b1_launches": [r[shape]["launches"] for r in ranks],
+            "b1_vs_twin": [r[shape]["b1_vs_twin"] for r in ranks]}
+        print(f"  (d) cornell on a {shape[0]}x{shape[1]} mesh, two gloo ranks on cuda:0: ms/frame "
+              f"{[round(r[shape]['ms'], 3) for r in ranks]} (progressive loop "
+              f"{ms_untiled:.3f}); max |diff| {err:.3e}; B1 equal to its twin bit for bit on "
+              f"each rank's {ranks[0][shape]['b1_vs_twin'][0]} queries of "
+              f"{ranks[0][shape]['b1_vs_twin'][1]} rays", flush=True)
+
+    # (e) one sharded training step (1x1 mesh), card against CPU: the same
+    # target, parameters and key; the CPU runs B1's twin.
+    cpu, side = torch.device("cpu"), 64
+    sc64, cam64, o64 = setup(side, side)
+    uploads = {w.type: upload_scene(sc64, o64.accel, w) for w in (dev, cpu)}
+    target = progressive.render_steps(uploads["cpu"], cam64,
+                                      progressive.init_state(side, side, 0, cpu), side, side,
+                                      o64, 2).accum / 2.0
+    albedo = uploads["cpu"].scene.materials.albedo.clone()
+    albedo[:, :3] *= 0.5
+    params0 = {"albedo": albedo, "cam_position": torch.tensor(cam64.position)}
+    res = {}
+    for where in (dev, cpu):
+        reset()
+        new, loss = pr.sharded_train_step({k: v.to(where) for k, v in params0.items()},
+                                          uploads[where.type], cam64, target.to(where), (0, 11),
+                                          0, SINGLE, side, side, o64, lr=2.0)
+        res[where.type] = ({k: v.cpu() for k, v in new.items()}, loss)
+        if where.type == "cuda":
+            runs = read("mt_brute", 3, "(e) train step")
+    (new_c, loss_c), (new_h, loss_h) = res["cuda"], res["cpu"]
+    check(abs(loss_c - loss_h) <= 1e-4 * abs(loss_h), f"(e) losses {loss_c} / {loss_h}")
+    for k, v in params0.items():
+        sw, sg = new_h[k] - v, new_c[k] - v
+        check(torch.allclose(sg, sw, rtol=1e-3, atol=1e-6 * float(sw.abs().max())),
+              f"(e) {k}: the card's step differs from the CPU's")
+    rec["e_train_step"] = {"loss_card": loss_c, "loss_cpu": loss_h, "b1_launches": runs}
+    print(f"  (e) sharded_train_step, cornell {side}x{side}: loss card {loss_c:.7f} CPU "
+          f"{loss_h:.7f}; steps within rtol 1e-3; B1 {runs}", flush=True)
+
+    # (f) the turntable and benchmark commands, and a --mesh render under
+    # torchrun (one NCCL rank), three subprocesses at once.
+    rec["f_cli"] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        toml = os.path.join("scenes", "cornell.toml")
+        cli = ["-m", "caitlynrenderer_tpu_torch.cli"]
+        cmds = {"turntable": [*cli, "render", toml, "--turntable", "2", "--spp", "4", "-o",
+                              os.path.join(tmp, "tt.png")],
+                "benchmark": [*cli, "benchmark", "--scene", "cornell", "--steps", "2"],
+                "mesh": ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                         *cli, "render", toml, "--mesh", "1x1", "--spp", "4", "-o",
+                         os.path.join(tmp, "mesh.png")]}
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen([sys.executable, *cmd], cwd=ROOT, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+                 for name, cmd in cmds.items()}
+        try:  # all run at once; communicate() reads each one's pipes to its end
+            outs = {name: p.communicate(timeout=600) for name, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+        seconds = time.perf_counter() - t0
+        for name, (stdout, stderr) in outs.items():
+            code = procs[name].returncode
+            print(f"  (f) {' '.join(cmds[name][1:])}: exit {code}", flush=True)
+            for line in stdout.splitlines()[-4:]:
+                print("    " + line)
+            check(code == 0, f"(f) cli {name} failed: {stderr[-2000:]}")
+            rec["f_cli"][name] = {"exit": code}
+        print(f"  (f) the three commands done in {seconds:.3f} s", flush=True)
+        rec["f_cli"]["seconds_all"] = seconds
+        # Each image against the same render made here, from the same
+        # config, camera and seed through the same kernel: equal PNGs.
+        # (The turntable's second frame looks at the box from behind, so a
+        # brightness floor would not hold for it.)
+        with open(CORNELL_TOML, "rb") as f:
+            cfg = tomllib.load(f)
+        base = os.path.dirname(CORNELL_TOML)
+        sc_f, cam_f, o_f = render_setup(cfg, base)
+        ds_f = upload_scene(sc_f, o_f.accel, dev, max_leaf=o_f.max_leaf)
+        o_f = o_f._replace(max_stack=required_stack(ds_f))
+        translation = config.scene_from_config(cfg, base)[1]
+        wants = {f"tt_{k:03d}.png": turntable_camera(cfg, translation, k, 2) for k in range(2)}
+        wants["mesh.png"] = cam_f
+        for png, cam in wants.items():
+            st = progressive.render_steps(ds_f, cam, progressive.init_state(o_f.width, o_f.height,
+                                                                            0, dev),
+                                          o_f.width, o_f.height, o_f, 4)
+            save_png(os.path.join(tmp, "want_" + png),
+                     progressive.resolve(st, o_f.width, o_f.height, o_f).cpu().numpy())
+            got = os.path.join(tmp, png)
+            check(os.path.exists(got) and load_png(got).shape == (256, 256, 3),
+                  f"(f) {png} missing or not 256x256")
+            check(np.array_equal(load_png(got), load_png(os.path.join(tmp, "want_" + png))),
+                  f"(f) {png} differs from the same render made in this process")
+        check(load_png(os.path.join(tmp, "mesh.png")).mean() > 0.05, "(f) mesh.png is black")
+        print("  (f) the turntable's two frames and mesh.png equal, PNG for PNG, the same renders "
+              "made in this process", flush=True)
+        rec["f_cli"]["benchmark"]["result"] = json.loads(
+            outs["benchmark"][0].strip().splitlines()[-1])
+    rec["seconds"] = time.perf_counter() - t19
+    print(f"  phase 19: {rec['seconds']:.3f} s", flush=True)
+    return rec, totals
+
+
 def main():
     # -------------------------------------------------------------- phase 1
     phase("1 device")
@@ -1736,6 +2253,16 @@ def main():
     grad["seconds"] = time.perf_counter() - t18
     print(f"  phase 18: {grad['seconds']:.3f} s", flush=True)
     print(json.dumps({"grad": grad}))
+
+    # ------------------------------------------------------------- phase 19
+    phase("19 tooling and multi-device on the card")
+    rec19, runs19 = phase19(dev, setup, camera, grid, bench_scene("grid100k")[1], g3, go, gd,
+                            gact, guni, b3o, b3d, b3act, smi)
+    for q in ("closest", "anyhit"):
+        launches[q] += runs19["mt_brute"][q]
+        mega_launches[q] += runs19["traverse_mega"][q]
+        cw_launches[q] += runs19["traverse_cw8"][q]
+    print(json.dumps({"phase19": rec19}))
 
     # Bounds at the shapes each row's time was taken at: B1 on the 700x700
     # cornell primary rays (closest) and their shadow rays (any-hit), B2 and

@@ -441,3 +441,18 @@ def test_value_and_grad_on_cuda_matches_cpu(dev):
     assert rec["size"] == "32x32"
     assert mt_brute.launches["closest"] == 3 and mt_brute.launches["anyhit"] == 3
     assert mt_brute.launches["closest_twin"] == 3 and mt_brute.launches["anyhit_twin"] == 3
+
+
+@pytest.mark.parametrize("accel", ["brute", "cwbvh"])
+def test_xla_traversal_raises_on_cuda(accel, dev, cornell):
+    """traversal "xla" would walk past B1/B3 on the card: it raises, and
+    neither a kernel nor a twin runs."""
+    scene, camera = cornell
+    options = RenderOptions(width=16, height=16, max_depth=2, accel=accel, traversal="xla",
+                            families=scene_families(scene))
+    mt_brute.reset_launches()
+    traverse_cw8.reset_launches()
+    with pytest.raises(ValueError, match='"xla"'):
+        progressive.render_image(upload_scene(scene, accel, dev), camera, options, spp=1, seed=0)
+    assert all(v == 0 for v in mt_brute.launches.values())
+    assert all(v == 0 for v in traverse_cw8.launches.values())

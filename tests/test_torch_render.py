@@ -358,9 +358,15 @@ def _cli(config, tmp_path, *flags):
 
 @pytest.mark.parametrize("flag", [["--mesh", "auto"], ["--turntable", "4"], ["--mesh", "1x1"]])
 def test_cli_unported_options_raise(flag, tmp_path):
-    """Unported flags (--resume is ported: tests/test_torch_inverse.py)."""
-    with pytest.raises(NotImplementedError):
-        _cli(TOML, tmp_path, *flag)
+    """The flags that once raised NotImplementedError render now (a
+    process without a process group is the 1x1 mesh; tests/test_torch_tiled.py
+    and tests/test_torch_parallel.py hold what they render), and each
+    raises ValueError with an option its path does not carry."""
+    rc, out = _cli(TOML, tmp_path, *flag)
+    assert rc == 0
+    assert (tmp_path / "x_003.png").exists() if "--turntable" in flag else out.exists()
+    with pytest.raises(ValueError, match="with --resume"):
+        _cli(TOML, tmp_path, *flag, "--resume", str(tmp_path / "ck.npz"))
 
 
 @pytest.mark.parametrize("config,flags", [(DISNEY_TOML, []), (TOML, ["--aov", "depth"])],
