@@ -5,10 +5,15 @@ metric, rays/s on a CUDA card (the keys of the repo-root bench.py, plus
 Headline: closest-hit + any-hit ray queries actually issued per second on
 a progressive render: the cornell box (default) or the root bench's large
 scenes, each with its camera.  It needs a CUDA device and fails without
-one.
+one.  The root bench's protocol: `--warmup` launches of `--steps` samples
+(the first captures the CUDA graph of render_steps), then 2 launches of
+`--steps` samples timed; ms_per_frame is over those 2 x steps samples.
+`--spp-per-launch N` splits each of those launches into render_steps
+calls of N samples (the rest one at a time): "bvh2" and "sbvh" take one
+sample a launch on the card, so they need `--spp-per-launch 1`.
 
     python -m caitlynrenderer_tpu_torch.bench [--width N] [--height N]
-        [--depth N] [--steps N] [--warmup N]
+        [--depth N] [--steps N] [--warmup N] [--spp-per-launch N]
         [--scene cornell|soup|grid100k|grid1m]
         [--accel auto|brute|bvh2|sbvh|wide|cwbvh]
         [--group-tris N]
@@ -58,8 +63,13 @@ def main(argv=None) -> int:
     ap.add_argument("--accel", default="auto",
                     choices=["auto", "brute", "bvh2", "sbvh", "wide", "cwbvh"])
     ap.add_argument("--scene", default="cornell", choices=SCENES)
-    ap.add_argument("--steps", type=int, default=128, help="samples timed")
-    ap.add_argument("--warmup", type=int, default=1, help="samples before timing")
+    ap.add_argument("--steps", type=int, default=128,
+                    help="samples per launch (2 launches are timed)")
+    ap.add_argument("--warmup", type=int, default=1,
+                    help="launches of --steps samples before timing")
+    ap.add_argument("--spp-per-launch", type=int, default=None,
+                    help="samples per render_steps call within a launch of --steps "
+                    "(default --steps; bvh2 and sbvh need 1 on the card)")
     ap.add_argument("--group-tris", type=int, default=None,
                     help="wide-BVH group size (default: by triangle count; explicit values "
                     "are used as given)")
@@ -101,16 +111,33 @@ def main(argv=None) -> int:
     _, stats = trace_paths(ds, o, d, uniforms, options, with_stats=True)
     rays_per_sample = int(stats["rays_closest"]) + int(stats["rays_anyhit"])
 
-    # Timed section: the production progressive loop.
+    # Timed section: the production progressive loop, `args.steps` samples
+    # a launch (one replay of a CUDA graph unless --spp-per-launch splits
+    # it), after warm-up launches of the same length (the first one
+    # captures the graph).
+    spl = args.steps if args.spp_per_launch is None else max(1, min(args.spp_per_launch,
+                                                                    args.steps))
+
+    def launch(state):
+        for _ in range(args.steps // spl):
+            state = progressive.render_steps(ds, camera, state, w, h, options, spl)
+        for _ in range(args.steps % spl):
+            state = progressive.render_steps(ds, camera, state, w, h, options, 1)
+        return state
+
     state = progressive.init_state(w, h, 0, device)
-    state = progressive.render_steps(ds, camera, state, w, h, options, max(args.warmup, 1))
+    for _ in range(max(args.warmup, 1)):
+        state = launch(state)
     torch.cuda.synchronize()
+    launches = 2
     t0 = time.perf_counter()
-    state = progressive.render_steps(ds, camera, state, w, h, options, args.steps)
+    for _ in range(launches):
+        state = launch(state)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
 
-    rays_per_sec = rays_per_sample * args.steps / elapsed
+    frames = launches * args.steps
+    rays_per_sec = rays_per_sample * frames / elapsed
     name = torch.cuda.get_device_name(device)
     result = {
         "metric": "rays/sec/chip",
@@ -124,12 +151,12 @@ def main(argv=None) -> int:
             "resolution": [w, h],
             "max_depth": depth,
             "accel": accel,
-            "ms_per_frame": round(elapsed / args.steps * 1e3, 3),
+            "ms_per_frame": round(elapsed / frames * 1e3, 3),
             "rays_per_sample": rays_per_sample,
             "bvh_build_s": round(build_s, 3),
             "device": name,
-            "steps_timed": args.steps,
-            "spp_per_launch": 1,
+            "steps_timed": frames,
+            "spp_per_launch": spl,
             "alive_per_bounce": [int(x) for x in stats["alive_per_bounce"]],
         },
     }

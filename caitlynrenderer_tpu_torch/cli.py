@@ -101,21 +101,20 @@ def _refuse(flags) -> None:
 
 
 def cmd_render(args) -> int:
-    if args.spp_per_launch != 1:
-        raise ValueError(f"--spp-per-launch {args.spp_per_launch}: this port launches sample "
-                         "by sample, so only 1 is accepted")
     if args.mesh is not None:
         return _render_mesh(args)
 
+    from caitlynrenderer_tpu_torch.device import synchronize
     from caitlynrenderer_tpu_torch.io.image import save_png
     from caitlynrenderer_tpu_torch.render import progressive
-    from caitlynrenderer_tpu_torch.utils import checkpoint
+    from caitlynrenderer_tpu_torch.utils import checkpoint, metrics
 
     device, ds, camera, options = _upload(
         args, width=args.width, height=args.height, max_depth=args.depth, accel=args.accel,
         aov=args.aov)
     w, h = options.width, options.height
     spp = args.spp or options.max_samples
+    spl = max(1, args.spp_per_launch)
     tiled = options.num_tiles_x * options.num_tiles_y > 1
     if args.turntable is not None:
         if args.turntable < 1:
@@ -144,11 +143,14 @@ def cmd_render(args) -> int:
         cfg = config.load_config(args.config)
         translation = config.scene_from_config(cfg, os.path.dirname(args.config))[1]
         base, ext = os.path.splitext(args.output)
+        _check_chunk(ds, options, min(spl, spp))
         state = progressive.init_state(w, h, args.seed, device)
         for k in range(args.turntable):
             cam_k = turntable_camera(cfg, translation, k, args.turntable)
-            state = progressive.render_steps(ds, cam_k, progressive.reset(state), w, h,
-                                             options, spp)
+            state = progressive.reset(state)
+            while state.frame_count < spp:
+                chunk = min(spl, spp - state.frame_count)
+                state = progressive.render_steps(ds, cam_k, state, w, h, options, chunk)
             path = f"{base}_{k:03d}{ext}"
             save_png(path, progressive.resolve(state, w, h, options).cpu().numpy())
             print(f"wrote {path} ({spp} spp, frame {k + 1}/{args.turntable})")
@@ -174,12 +176,36 @@ def cmd_render(args) -> int:
         print(f"resumed at {state.frame_count} spp")
     else:
         state = progressive.init_state(w, h, args.seed, device)
+    _check_chunk(ds, options, spl if spp - state.frame_count >= spl else 1)
+    rays_per_sample = _rays_per_sample(ds, camera, options, args.seed, device)
+    timer = metrics.StepTimer()
     last_ckpt = time.monotonic()
+    last_logged = 0
+    log_every = max(spp // 10, 1)
     while state.frame_count < spp:
-        state = progressive.render_step(ds, camera, state, w, h, options)
+        # spl samples a launch, the tail one at a time.  With --resume the
+        # chunk is halved until one launch takes about --checkpoint-every
+        # at the pace so far (a power of two, so few graphs are captured):
+        # checkpoints fall between launches.
+        chunk = spl if spp - state.frame_count >= spl else 1
+        if args.resume and chunk > 1 and timer.counts.get("samples", 0) > 0:
+            s_per_sample = timer.spans.get("step", 0.0) / timer.counts["samples"]
+            budget = max(1, int(args.checkpoint_every / max(s_per_sample, 1e-9)))
+            while chunk > budget and chunk > 1:
+                chunk //= 2
+        with timer.span("step"):
+            state = progressive.render_steps(ds, camera, state, w, h, options, chunk)
+            synchronize(device)
+        timer.count("samples", chunk)
+        timer.count("rays", rays_per_sample * chunk)
         if args.resume and time.monotonic() - last_ckpt > args.checkpoint_every:
             checkpoint.save_render_state(args.resume, state)
             last_ckpt = time.monotonic()
+        # Logged where the count crosses the next tenth of spp (it moves in
+        # chunks, so a multiple of spp / 10 may never be hit).
+        if state.frame_count // log_every > last_logged // log_every:
+            last_logged = state.frame_count
+            metrics.log_record("progress", {"spp": state.frame_count, **timer.summary()})
     if args.resume:
         checkpoint.save_render_state(args.resume, state)
     img = progressive.resolve(state, w, h, options).cpu().numpy()
@@ -188,6 +214,30 @@ def cmd_render(args) -> int:
     print(f"wrote {args.output} ({state.frame_count} spp, {w}x{h}, accel {options.accel}, "
           f"{device}, {seconds:.3f} s)")
     return 0
+
+
+def _check_chunk(ds, options, first: int) -> None:
+    """On the card "bvh2" and "sbvh" take one sample a launch: raise before
+    rendering when the first launch (the largest) would carry several."""
+    from caitlynrenderer_tpu_torch.render import progressive
+
+    if first > 1 and ds.device.type == "cuda":
+        progressive.check_graphable(options)
+
+
+def _rays_per_sample(ds, camera, options, seed: int, device) -> int:
+    """The closest-hit and any-hit queries one sample issues (an
+    instrumented pass of the seed's first uniforms), for the rays counted
+    in the progress records."""
+    from caitlynrenderer_tpu_torch.core.camera import generate_rays
+    from caitlynrenderer_tpu_torch.render import sampling
+    from caitlynrenderer_tpu_torch.render.integrator import trace_paths
+
+    w, h = options.width, options.height
+    uni = sampling.draw_uniforms(sampling.prng_key(seed), w * h, options.max_depth, device)
+    o, d = generate_rays(camera, w, h, uni)
+    _, stats = trace_paths(ds, o, d, uni, options, with_stats=True)
+    return int(stats["rays_closest"]) + int(stats["rays_anyhit"])
 
 
 def _render_mesh(args) -> int:
@@ -376,12 +426,16 @@ def main(argv=None) -> int:
     r.add_argument("--device", default="cuda", help="torch device (default cuda)")
     r.add_argument("--resume", default=None,
                    help="checkpoint path: resumed from where it exists, saved between "
-                   "samples every --checkpoint-every seconds and at the end")
+                   "launches every --checkpoint-every seconds and at the end")
     r.add_argument("--checkpoint-every", type=float, default=60.0)
-    r.add_argument("--spp-per-launch", type=int, default=1,
-                   help="the reference's samples per device launch; this port launches "
-                   "sample by sample and checks the checkpoint clock after each, so only "
-                   "1 is accepted")
+    r.add_argument("--spp-per-launch", type=int, default=64,
+                   help="samples per launch from the host: on the card one replay of a CUDA "
+                   "graph of that many samples, on the CPU a loop (values < 1 read as 1); "
+                   "with --resume the chunk is halved until a launch takes about "
+                   "--checkpoint-every, and checkpoints fall between launches; the turntable "
+                   "chunks each frame by it; tiles and --mesh ignore it; on the card bvh2 "
+                   "and sbvh need 1 when --spp reaches it (a render of fewer samples "
+                   "launches one at a time)")
     r.add_argument("--mesh", default=None, metavar="DPxSP|auto",
                    help="sharded render, one rank per process under torchrun (pixels over "
                    "dp, sample streams over sp; --spp a multiple of sp), e.g. "

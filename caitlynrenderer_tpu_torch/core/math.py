@@ -47,8 +47,12 @@ def onb(n):
     u_reg = torch.stack([1.0 - nx * nx * a, b, -nx], dim=-1)
     v_reg = torch.stack([b, 1.0 - ny * ny * a, -ny], dim=-1)
     pole = (nz < -0.9999999).unsqueeze(-1)
-    u_pole = torch.tensor([0.0, -1.0, 0.0], dtype=n.dtype, device=n.device)
-    v_pole = torch.tensor([-1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
+    # The pole's basis is made on the device: a constant from the host (a
+    # list, or a scalar stored into an element) is a copy that waits for
+    # the card, which a CUDA graph cannot capture.
+    axis = torch.arange(3, device=n.device)
+    u_pole = torch.where(axis == 1, -1.0, 0.0).to(n.dtype)
+    v_pole = torch.where(axis == 0, -1.0, 0.0).to(n.dtype)
     return torch.where(pole, u_pole, u_reg), torch.where(pole, v_pole, v_reg)
 
 

@@ -10,6 +10,7 @@ import time: the CPU tests import every module on machines without nvcc.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -116,3 +117,95 @@ def raise_on(rc: int, error_string, fn: str) -> None:
     library's code -> message function."""
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc} ({error_string(rc).decode()})")
+
+
+# --------------------------------------------------------------------------
+# Launch counters
+# --------------------------------------------------------------------------
+
+# Each kernel module's launch counter, by module: (counts, kernels), where
+# kernels maps a counter key to a fragment of its kernel's mangled name.
+COUNTERS: dict = {}
+
+
+def launch_counter(module: str, kernels: dict) -> dict:
+    """The launch counter of kernel module `module`, registered here: for
+    each key of `kernels` the launches of the kernel whose mangled name
+    contains kernels[key], and under key + "_twin" the calls of its plain
+    twin.  The wrapper adds one where it launches."""
+    counts = {k: 0 for k in kernels}
+    counts.update({f"{k}_twin": 0 for k in kernels})
+    COUNTERS[module] = (counts, dict(kernels))
+    return counts
+
+
+def launch_counts() -> dict:
+    """A copy of every registered counter, {module: {key: n}}."""
+    return {m: dict(counts) for m, (counts, _) in COUNTERS.items()}
+
+
+def set_launch_counts(saved: dict) -> None:
+    """Put the counters back to `saved` (from `launch_counts`)."""
+    for m, (counts, _) in COUNTERS.items():
+        counts.update(saved[m])
+
+
+def add_launches(added: dict) -> None:
+    """Add {module: {key: n}} to the counters."""
+    for m, row in added.items():
+        for k, n in row.items():
+            COUNTERS[m][0][k] += n
+
+
+def count_kernels(names) -> dict:
+    """{module: {key: n}} over every registered counter: the kernels among
+    the mangled names `names`, one per launch, by the fragment each key
+    stands for (twin keys 0)."""
+    out = {m: dict.fromkeys(counts, 0) for m, (counts, _) in COUNTERS.items()}
+    for name, n in collections.Counter(names).items():
+        for m, (_, kernels) in COUNTERS.items():
+            for key, fragment in kernels.items():
+                if fragment in name:
+                    out[m][key] += n
+    return out
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of cuda.h (libcuda's interface)."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_mem_bytes", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_kernels(raw_graph: int):
+    """(nodes, names) of a captured CUDA graph, given its cudaGraph_t
+    handle: its node count and the mangled name of each kernel node's
+    kernel, read through libcuda."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn, *args):
+        rc = getattr(cu, fn)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{fn} failed: CUresult {rc}")
+
+    graph = ctypes.c_void_p(raw_graph)
+    count = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", graph, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    call("cuGraphGetNodes", graph, nodes, ctypes.byref(count))
+    names, by_handle = [], {}
+    kind, params = ctypes.c_int(0), _KernelNodeParams()
+    for node in nodes:
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(params))
+        handle = ("cuFuncGetName", params.func) if params.func else ("cuKernelGetName",
+                                                                    params.kern)
+        if handle not in by_handle:
+            name = ctypes.c_char_p()
+            call(handle[0], ctypes.byref(name), ctypes.c_void_p(handle[1]))
+            by_handle[handle] = name.value.decode()
+        names.append(by_handle[handle])
+    return count.value, names

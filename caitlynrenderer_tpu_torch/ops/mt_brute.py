@@ -30,7 +30,8 @@ from caitlynrenderer_tpu_torch.ops.intersect import INF, mt_uvt
 SOURCE = "caitlynrenderer_tpu_torch/csrc/mt_brute.cu"
 REPLACES = "caitlynrenderer_tpu/ops/pallas_mt.py:41"
 
-launches = {"closest": 0, "anyhit": 0, "closest_twin": 0, "anyhit_twin": 0}
+launches = _build.launch_counter("mt_brute", {"closest": "mt_brute_kernelILb0E",
+                                              "anyhit": "mt_brute_kernelILb1E"})
 
 # The twins materialize (rays, triangles) temporaries; rays are processed in
 # chunks of about this many pairs to bound their memory.

@@ -48,7 +48,8 @@ STK = 24  # the reference kernel's stack levels
 MAX_DEPTH = STK - 2  # deepest node8 tree the packer accepts
 STACKS = (8, 16, 24)  # the kernel's stack sizes; a tree of depth D needs D - 1
 
-launches = {"closest": 0, "anyhit": 0, "closest_twin": 0, "anyhit_twin": 0}
+launches = _build.launch_counter("traverse_cw8", {"closest": "cw8_kernelILb0E",
+                                                  "anyhit": "cw8_kernelILb1E"})
 # Launches of the stats variant, apart from `launches`.
 stats_launches = {"closest": 0, "anyhit": 0}
 

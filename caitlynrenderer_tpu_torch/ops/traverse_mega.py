@@ -42,7 +42,8 @@ REPLACES = "caitlynrenderer_tpu/ops/traverse_mega.py:205"
 
 INF = 1e9
 
-launches = {"closest": 0, "anyhit": 0, "closest_twin": 0, "anyhit_twin": 0}
+launches = _build.launch_counter("traverse_mega", {"closest": "mega_kernelILb0E",
+                                                   "anyhit": "mega_kernelILb1E"})
 stats_launches = {"closest": 0, "anyhit": 0}
 
 # Columns of the stats variant's per-ray counts.

@@ -544,15 +544,16 @@ def trace_aov(ds: DeviceScene, o, d, options: RenderOptions):
 
 
 def render_sample(ds: DeviceScene, camera: Camera, uniforms, width: int, height: int,
-                  options: RenderOptions, pixel_ids=None):
+                  options: RenderOptions, pixel_ids=None, lens=None):
     """One sample of every pixel, or of the global pixel ids `pixel_ids`
     ((N,) int32, one row of `uniforms` each): raygen, then the path trace
-    (or the first-hit AOV unless options.aov is "beauty").  Returns (H*W, 3)
-    or (N, 3) radiance on the uniforms' device."""
+    (or the first-hit AOV unless options.aov is "beauty").  `lens` as in
+    `generate_rays_for_ids`.  Returns (H*W, 3) or (N, 3) radiance on the
+    uniforms' device."""
     if pixel_ids is None:
-        o, d = generate_rays(camera, width, height, uniforms)
+        o, d = generate_rays(camera, width, height, uniforms, lens)
     else:
-        o, d = generate_rays_for_ids(camera, width, height, pixel_ids, uniforms)
+        o, d = generate_rays_for_ids(camera, width, height, pixel_ids, uniforms, lens)
     if options.aov != "beauty":
         return trace_aov(ds, o, d, options)
     return trace_paths(ds, o, d, uniforms, options)

@@ -3,21 +3,48 @@
 
 The state is explicit — accumulation buffer, sample counter, base key — so
 a render resumes exactly (convert.state_from_numpy reads the reference's
-checkpoint fields).  Samples are a plain Python loop: the reference's
-`lax.scan` batching hid per-launch dispatch cost on a TPU and has no
-counterpart here.
+checkpoint fields).
+
+`render_steps` is the reference's one-launch contract: `spp` samples for
+one launch from the host, bit for bit `spp` `render_step` calls.  The
+reference scans the samples inside one jitted launch; on the card they
+are captured once into a CUDA graph (`accumulate`, with the frame
+counter, the base key and the camera in the graph's static buffers on
+the card) and replayed with one host call.  On CPU tensors the samples
+run as a loop.  "bvh2" and "sbvh" cannot be captured (their walk reads
+its live ray count on the host every step), so on the card they raise for
+`spp > 1` and run sample by sample with `spp_per_launch=1`.
 """
 
 from __future__ import annotations
 
+import time
+from collections import OrderedDict
 from typing import NamedTuple, Tuple
 
 import torch
 
+from caitlynrenderer_tpu_torch.core.camera import camera_tensors, copy_camera, has_lens
 from caitlynrenderer_tpu_torch.core.types import Camera, RenderOptions
+from caitlynrenderer_tpu_torch.ops import _build
 from caitlynrenderer_tpu_torch.render import sampling
-from caitlynrenderer_tpu_torch.render.integrator import render_sample
+from caitlynrenderer_tpu_torch.render.integrator import check_supported, render_sample
 from caitlynrenderer_tpu_torch.scene import DeviceScene
+from caitlynrenderer_tpu_torch.utils import metrics
+
+# Accelerators whose walk cannot be captured into a CUDA graph.
+UNGRAPHED = ("bvh2", "sbvh")
+# Graphs kept, the least recently used dropped first.  The graphs of a
+# device share one memory pool, so together they hold about what the
+# largest of them needs, not the sum.
+MAX_GRAPHS = 8
+# Graphs captured and replayed; a capture also runs one warm-up sample.
+graph_counts = {"captures": 0, "replays": 0}
+_graphs: "OrderedDict[tuple, SampleGraph]" = OrderedDict()
+# device -> (the memory pool its graphs share, their capture stream): the
+# caching allocator reuses a freed block only on the stream it was used
+# on, so the graphs of a pool are captured on one stream.
+_pools: dict = {}
 
 
 class RenderState(NamedTuple):
@@ -64,12 +91,159 @@ def render_step(ds: DeviceScene, camera: Camera, state: RenderState, width: int,
     return RenderState(state.accum + radiance, state.frame_count + 1, state.base_key)
 
 
+def check_graphable(options: RenderOptions) -> None:
+    """Raise ValueError for an accelerator a CUDA graph cannot hold."""
+    if options.accel in UNGRAPHED:
+        raise ValueError(
+            f'accel "{options.accel}" cannot take several samples in one launch on the card: '
+            "its binary-BVH walk reads its live ray count on the host at every step, which "
+            "a CUDA graph cannot capture; render it one sample per launch (spp_per_launch=1, "
+            "on the command line --spp-per-launch 1)")
+
+
+def accumulate(ds: DeviceScene, camera: Camera, accum, frame, base_key, width: int,
+               height: int, options: RenderOptions, spp: int, lens: bool):
+    """The body a CUDA graph captures: `accum` plus `spp` samples, the
+    first of them sample number `frame`.  Everything is a tensor on the
+    accumulation's device: frame a 0-d int64, base_key a pair of 0-d int64
+    words, camera from `camera_tensors` (lens: `has_lens` of the host's
+    camera).  It reads nothing back to the host and copies nothing to the
+    device, and adds the samples in render_step's order, so it returns
+    what `spp` render_step calls accumulate, bit for bit."""
+    dev = accum.device
+    keys = sampling.sample_key(base_key, frame + torch.arange(spp, dtype=torch.int64, device=dev))
+    ids = torch.arange(width * height, dtype=torch.int32, device=dev)
+    for i in range(spp):
+        uniforms = sampling.pixel_uniforms((keys[0][i], keys[1][i]), ids, options.max_depth)
+        accum = accum + render_sample(ds, camera, uniforms, width, height, options, ids, lens)
+    return accum
+
+
+class SampleGraph:
+    """`spp` samples of one scene, size, options and lens captured as one
+    CUDA graph on the accumulation's device, replayed by `run`.  Its
+    static buffers (accumulation, frame counter, base key, camera) are
+    written before each replay; it holds the scene, whose tensors it
+    reads.
+
+    capture_s, instantiate_s: host seconds of the capture (after one
+    warm-up sample of the same body on a side stream, which loads each
+    kernel before capture, under the sync debug mode "error") and of the
+    graph's instantiation.  nodes: the graph's node count.  launches: the
+    kernel launches one replay adds, {module: {counter key: n}}, counted
+    from the graph's kernel nodes and held equal to the wrappers' own
+    counts during capture.  Each capture logs a "graph_capture" record."""
+
+    def __init__(self, ds: DeviceScene, camera: Camera, state: RenderState, width: int,
+                 height: int, options: RenderOptions, spp: int, lens: bool):
+        dev = self.device = state.accum.device
+        self.ds, self.spp = ds, spp
+        # Everything below runs with the scene's device current: a capture
+        # records only the work of its stream's device, and work queued on
+        # another device would run at once, outside the graph.
+        with torch.no_grad(), torch.cuda.device(dev):
+            self.accum = torch.empty_like(state.accum)
+            self.frame = torch.zeros((), dtype=torch.int64, device=dev)
+            self.key = (torch.zeros_like(self.frame), torch.zeros_like(self.frame))
+            self.camera = camera_tensors(camera, dev)
+            self._load(camera, state)
+            body = (ds, self.camera, self.accum, self.frame, self.key, width, height, options)
+            # The warm-up raises where the body would wait for the card,
+            # which would break the capture.
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with torch.cuda.stream(side):
+                    accumulate(*body, 1, lens)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            # keep_graph: the captured graph stays readable for its nodes.
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            if str(dev) not in _pools:
+                _pools[str(dev)] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev))
+            pool, stream = _pools[str(dev)]
+            before = _build.launch_counts()
+            t0 = time.perf_counter()
+            try:
+                with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                    self.out = accumulate(*body, spp, lens)
+            finally:
+                # The capture ran nothing: take its counts back.
+                counted = _build.launch_counts()
+                _build.set_launch_counts(before)
+            self.capture_s = time.perf_counter() - t0
+            self.nodes, names = _build.graph_kernels(self.graph.raw_cuda_graph())
+            self.launches = _build.count_kernels(names)
+            wrappers = {m: {k: counted[m][k] - before[m][k] for k in row}
+                        for m, row in counted.items()}
+            if self.nodes == 0 or self.launches != wrappers:
+                raise RuntimeError(
+                    f"the CUDA graph of {spp} samples on {dev} holds {self.nodes} nodes and the "
+                    f"kernel launches {self.launches}; the wrappers launched {wrappers}")
+            t0 = time.perf_counter()
+            self.graph.instantiate()
+            self.instantiate_s = time.perf_counter() - t0
+        graph_counts["captures"] += 1
+        metrics.log_record("graph_capture", {
+            "spp": spp, "width": width, "height": height, "accel": options.accel,
+            "device": str(dev), "nodes": self.nodes, "launches": self.launches,
+            "capture_s": round(self.capture_s, 6), "instantiate_s": round(self.instantiate_s, 6)})
+
+    def _load(self, camera: Camera, state: RenderState) -> None:
+        self.accum.copy_(state.accum)
+        self.frame.fill_(state.frame_count)
+        self.key[0].fill_(state.base_key[0])
+        self.key[1].fill_(state.base_key[1])
+        copy_camera(self.camera, camera)
+
+    def run(self, camera: Camera, state: RenderState) -> RenderState:
+        """One replay from `state` under the host camera `camera`; the
+        returned accumulation is a tensor of its own (the graphs of a
+        device share their pool, so another graph's replay may overwrite
+        this one's output)."""
+        with torch.cuda.device(self.device):
+            self._load(camera, state)
+            self.graph.replay()
+            accum = self.out.clone()
+        _build.add_launches(self.launches)
+        graph_counts["replays"] += 1
+        return RenderState(accum, state.frame_count + self.spp, state.base_key)
+
+
+def clear_graphs() -> None:
+    """Drop every cached graph, and with them their memory pools."""
+    _graphs.clear()
+    _pools.clear()
+
+
 def render_steps(ds: DeviceScene, camera: Camera, state: RenderState, width: int,
                  height: int, options: RenderOptions, spp: int) -> RenderState:
-    """Accumulate `spp` samples; identical to `spp` render_step calls."""
-    for _ in range(spp):
-        state = render_step(ds, camera, state, width, height, options)
-    return state
+    """Accumulate `spp` samples in one launch from the host, bit for bit
+    `spp` render_step calls.  On CUDA tensors with spp > 1: one replay of
+    a CUDA graph of the `spp` samples, captured at the first call for this
+    scene, size, options, spp, lens and device and cached (MAX_GRAPHS
+    kept); "bvh2" and "sbvh" raise ValueError there.  Otherwise a loop of
+    render_step.  `camera` is the host's (numpy) camera."""
+    dev = state.accum.device
+    if dev.type != "cuda" or spp <= 1:
+        for _ in range(spp):
+            state = render_step(ds, camera, state, width, height, options)
+        return state
+    check_supported(ds, options)
+    check_graphable(options)
+    lens = has_lens(camera)
+    key = (id(ds), width, height, options, spp, lens, str(dev))
+    graph = _graphs.get(key)
+    if graph is None:
+        graph = SampleGraph(ds, camera, state, width, height, options, spp, lens)
+        _graphs[key] = graph
+        while len(_graphs) > MAX_GRAPHS:
+            _graphs.popitem(last=False)
+    _graphs.move_to_end(key)
+    return graph.run(camera, state)
 
 
 def tonemap(rgb, limit: float = 2.0):
@@ -101,9 +275,15 @@ def display(hdr, width: int, height: int, options: RenderOptions):
 
 
 def render_image(ds: DeviceScene, camera: Camera, options: RenderOptions, spp: int = 16,
-                 seed: int = 0):
-    """Accumulate `spp` samples on the scene's device and resolve.
-    Returns (image, state)."""
+                 seed: int = 0, spp_per_launch: int = 8):
+    """Accumulate `spp` samples on the scene's device and resolve, as the
+    reference does: `spp_per_launch` samples per render_steps launch, the
+    remainder one render_step each.  Returns (image, state)."""
     w, h = options.width, options.height
-    state = render_steps(ds, camera, init_state(w, h, seed, ds.device), w, h, options, spp)
+    state = init_state(w, h, seed, ds.device)
+    chunk = max(1, min(spp_per_launch, spp))
+    for _ in range(spp // chunk):
+        state = render_steps(ds, camera, state, w, h, options, chunk)
+    for _ in range(spp % chunk):
+        state = render_step(ds, camera, state, w, h, options)
     return resolve(state, w, h, options), state

@@ -6,10 +6,13 @@ Threefry-2x32 `fold_in` and `uniform` written in torch, bitwise equal to
 pixel's numbers depend only on (key, sample index, pixel id), so a port
 render can be compared bitwise with a reference render.
 
-A key is a pair of Python ints (k1, k2), each a uint32 value, as in the
-reference's raw `uint32[2]` key.  torch has little uint32 support
-(especially on CUDA), so the arithmetic runs in int64 with every sum and
-shift masked back to 32 bits.
+A key is a pair (k1, k2) of uint32 values, as in the reference's raw
+`uint32[2]` key: Python ints, or 0-d int64 tensors on the scene's device.
+A CUDA graph of several samples (render/progressive.py) folds a frame
+counter that lives on the card into a base key there, so that each replay
+draws the samples of its own frames; the numbers are the same either way.
+torch has little uint32 support (especially on CUDA), so the arithmetic
+runs in int64 with every sum and shift masked back to 32 bits.
 
 Uniform layout per pixel-sample (shared with the reference integrator):
 
@@ -52,9 +55,22 @@ def threefry2x32(k1: int, k2: int, x0, x1):
     return x0, x1
 
 
-def fold_in(key, data: int):
-    """`jax.random.fold_in(key, data)` for one key and one integer."""
-    return threefry2x32(int(key[0]), int(key[1]), 0, int(data) & _MASK)
+def _words(key):
+    """A key's two words: as they are where they are tensors, else ints."""
+    k1, k2 = key
+    if isinstance(k1, torch.Tensor):
+        return k1, k2
+    return int(k1), int(k2)
+
+
+def fold_in(key, data):
+    """`jax.random.fold_in(key, data)`: data an integer, or an int64 tensor
+    of integers (then each is folded in, and the key's words are tensors
+    of data's shape)."""
+    k1, k2 = _words(key)
+    if isinstance(data, torch.Tensor):
+        return threefry2x32(k1, k2, torch.zeros_like(data), data & _MASK)
+    return threefry2x32(k1, k2, 0, int(data) & _MASK)
 
 
 def prng_key(seed: int):
@@ -63,9 +79,10 @@ def prng_key(seed: int):
     return (0, int(seed) & _MASK)
 
 
-def sample_key(base_key, sample_idx: int):
+def sample_key(base_key, sample_idx):
     """Per-sample key: the progressive sample counter folded into the base
-    key."""
+    key.  sample_idx: an int, or an int64 tensor of sample counters on the
+    card (the base key's words then ints or 0-d tensors there)."""
     return fold_in(base_key, sample_idx)
 
 
@@ -81,17 +98,18 @@ def draw_uniforms(key, num_pixels: int, max_depth: int, device) -> torch.Tensor:
     block for one sample of every pixel, keyed by lane position."""
     n_u = uniforms_per_sample(max_depth)
     count = torch.arange(num_pixels * n_u, dtype=torch.int64, device=device)
-    b0, b1 = threefry2x32(int(key[0]), int(key[1]), torch.zeros_like(count), count)
+    b0, b1 = threefry2x32(*_words(key), torch.zeros_like(count), count)
     return _bits_to_uniform(b0, b1).reshape(num_pixels, n_u)
 
 
 def pixel_uniforms(key, pixel_ids, max_depth: int) -> torch.Tensor:
     """Per-pixel-keyed uniforms, `vmap(uniform(fold_in(key, pid), (n_u,)))`:
-    stream i depends only on (key, pixel_ids[i]).  pixel_ids: (N,) integer
+    stream i depends only on (key, pixel_ids[i]).  key: an int pair, or a
+    pair of 0-d int64 tensors on pixel_ids' device; pixel_ids: (N,) integer
     tensor.  Returns (N, 4 + 7*max_depth) f32 in [0, 1) on its device."""
     n_u = uniforms_per_sample(max_depth)
     pid = pixel_ids.to(torch.int64) & _MASK
-    pk1, pk2 = threefry2x32(int(key[0]), int(key[1]), torch.zeros_like(pid), pid)
+    pk1, pk2 = threefry2x32(*_words(key), torch.zeros_like(pid), pid)
     pk1, pk2 = pk1[:, None], pk2[:, None]
     count = torch.arange(n_u, dtype=torch.int64, device=pixel_ids.device)[None, :]
     b0, b1 = threefry2x32(pk1, pk2, torch.zeros_like(count), count)

@@ -16,10 +16,13 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      ray).  tri and occlusion must be equal on every ray, t/u/v within 1e-6
      relative (atol 0).
   4. golden: cornell 64x64, 3 bounces, 48 spp, seed 0 through the port's
-     render_image against scenes/golden/cornell_64_cpu.npz (mean < 2e-3,
-     max < 0.06, red/green walls); kernel launches > 0, twin calls = 0
+     render_image (6 launches of 8 samples, CUDA graph replays) against
+     scenes/golden/cornell_64_cpu.npz (mean < 2e-3, max < 0.06, red/green
+     walls); kernel launches > 0, twin calls = 0
   5. the main path at the demo size: upload_scene -> render_steps ->
-     resolve, 700x700, 3 bounces, 32 spp after one warm-up sample
+     resolve, 700x700, 3 bounces, one launch of 32 spp (a graph's replay)
+     after a warm-up launch of the same length (the capture, with its
+     warm-up sample)
   6. closest-hit (and any-hit) kernel vs twin times at the path's shapes:
      490k primary, bounce and shadow rays x 36 triangles (the shadow rays
      are the main path's any-hit, and the JSON record's) and 65k rays x
@@ -50,9 +53,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
   9. golden through B2: cornell 64x64, 48 spp, accel "wide", 64-triangle
      groups, within the golden's bounds; B2 launched, B1 and the twins not
  10. the main path on grid100k and grid1m: upload_scene -> render_steps ->
-     resolve at 256x256, 4 bounces, 16 spp after one warm-up sample;
-     upload seconds, ms/frame, rays/s, live lanes per bounce, launch
-     counts, and the split of a sample between sampling, camera and the
+     resolve at 256x256, 4 bounces, one launch of 16 spp after a warm-up
+     launch of the same length (as phase 5); upload seconds, ms/frame,
+     rays/s, live lanes per bounce, launch counts, and the split of an
+     eager sample (render_step) between sampling, camera and the
      integrator, with B2's share from a torch.profiler trace
  11. B2 vs twin times at grid100k (65536 rays) and B2 vs B1 at grid1m
      (16384 rays); then B2 and B3, closest and any-hit, on four ray sets
@@ -71,15 +75,16 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      within 1e-6 relative; on every set B3's stats variant, plain and
      seeded with the closest t, returns the plain launch's answers.
  13. B3 vs B1 at grid1m: phase 8's rays and contract
- 14. golden through B3 ("cwbvh"), and through "bvh2" and "sbvh" (plain
-     torch walk, no kernel): cornell 64x64, 48 spp, within the golden's
+ 14. golden through B3 ("cwbvh", 8 samples a launch), and through "bvh2"
+     and "sbvh" (plain torch walk, no kernel, one sample a launch: their
+     walk cannot be captured): cornell 64x64, 48 spp, within the golden's
      bounds; for "cwbvh" B3 launched, B1, B2 and the twins not
  15. the cwbvh main path on grid100k and grid1m, as phase 10, B3's share
      from the profiler
  16. B3 vs twin times at grid100k (65536 primary and bounce rays) and B3 vs
      B2 vs B1 at grid1m (16384 rays)
- 17. shading on the card: (a) the main path (as phase 10, 16 spp after a
-     warm-up sample; ms/frame, rays/s, launch counts; the kernel launched,
+ 17. shading on the card: (a) the main path (as phase 10, one launch of 16
+     spp after a warm-up launch; ms/frame, rays/s, launch counts; the kernel launched,
      its twin not, radiance finite and not black) on cornell 700x700, 3
      bounces, with a Disney, a mirror and a glass floor through auto -> B1
      (the Disney one, and the Lambert one beside it, with phase 10's split
@@ -151,6 +156,32 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      once; each frame and the mesh's image equal, PNG for PNG, the same
      render made in this process.  Its numbers are also
      printed as one {"phase19": ...} JSON line before the kernels' line.
+ 20. samples per launch (render/progressive.py: render_steps as one
+     CUDA-graph replay): (a) on the 700x700 cornell (3 bounces, B1),
+     grid100k at 256x256, 4 bounces, through wide (B2) and cwbvh (B3), and
+     grid1m through wide: two replays of a graph of 16 samples against 32
+     eager render_step calls, accumulations equal bit for bit; both
+     paths' ms/frame (the graph's over two more replays), the first
+     launch's seconds with the capture's and the instantiation's (from
+     the "graph_capture" log record), the graph's node count, the bytes
+     in the graphs' pool and the peak over the first launch; the graph
+     holds depth x 16 + depth x 16 kernel nodes of the path's kernel,
+     counted by name (cuGraphKernelNodeGetParams), which a replay adds to
+     the counters, and no twin runs (the graph's warm-up sample runs under
+     the sync debug mode "error"); (b) three orbit cameras (`turntable_camera`)
+     through the cornell's cached graph, no capture, each frame equal to
+     its eager render bit for bit; (c) `cli render scenes/cornell.toml
+     --spp 64 --spp-per-launch 64` at 700x700 in a subprocess (one launch
+     through the config's "wide"), its PNG equal to the same render made
+     eagerly in this process, its progress records present; (d)
+     render_steps of 4 under "bvh2" on the card raises ValueError naming
+     --spp-per-launch 1, nothing launched; (e) the cornell at 1920x1080
+     in launches of 4, 2 and 2 samples (the halving of the CLI's --resume
+     loop) through two graphs that share one memory pool, equal bit for
+     bit to 8 eager samples, with the pool's bytes after each capture;
+     the second graph grows the pool by at most a tenth.
+     Its numbers are also printed
+     as one {"phase20": ...} JSON line before the kernels' line.
 About 5 minutes on one H100, builds included.  B3's stats variant
 (`stats=True`) is checked and used for counts and bounds only; its launches
 are counted apart (`traverse_cw8.stats_launches`).  The line before the last is
@@ -163,6 +194,7 @@ inputs as `*_bound` below say); the last line is {"ok": true, "device":
 
 import contextlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -693,9 +725,10 @@ PATH_KERNEL = {"brute": ("mt_brute", "mt_brute_kernel", "B1"),
 
 
 def main_path(label, scene, camera, options, dev, spp, split_stages=True):
-    """upload_scene -> render_steps -> resolve, timed after a warm-up
-    sample, through the "brute", "wide" or "cwbvh" kernel; with
-    `split_stages`, then the split of a sample between its stages.
+    """upload_scene -> render_steps -> resolve, one launch of `spp` samples
+    (a CUDA graph's replay) timed after a warm-up launch of the same length
+    (the capture), through the "brute", "wide" or "cwbvh" kernel; with
+    `split_stages`, then the split of an eager sample between its stages.
     Returns the launch counts of the warm-up and timed run's kernels, by
     module, and the upload."""
     from caitlynrenderer_tpu_torch.accel.native import native_available
@@ -729,8 +762,9 @@ def main_path(label, scene, camera, options, dev, spp, split_stages=True):
 
     for m in modules.values():
         m.reset_launches()
+    captures = progressive.graph_counts["captures"]
     state = progressive.init_state(w, h, 0, dev)
-    state = progressive.render_steps(ds, camera, state, w, h, options, 1)
+    state = progressive.render_steps(ds, camera, state, w, h, options, spp)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = progressive.render_steps(ds, camera, state, w, h, options, spp)
@@ -740,7 +774,8 @@ def main_path(label, scene, camera, options, dev, spp, split_stages=True):
     torch.cuda.synchronize()
     launches = {k: dict(m.launches) for k, m in modules.items()}
     run = launches[name]
-    expect = depth * (spp + 1)
+    # Two launches of spp samples, and a capture's warm-up sample.
+    expect = depth * (2 * spp + progressive.graph_counts["captures"] - captures)
     check(run["closest"] == expect and run["anyhit"] == expect,
           f"{label}: unexpected launch counts {launches}")
     check(run["closest_twin"] == 0 and run["anyhit_twin"] == 0,
@@ -757,8 +792,8 @@ def main_path(label, scene, camera, options, dev, spp, split_stages=True):
     if not split_stages:
         return launches, ds
 
-    # Where a sample's time goes: CUDA events around each stage, then the
-    # kernel's device time from a profiler trace of two samples.
+    # Where an eager sample's time goes: CUDA events around each stage, then
+    # the kernel's device time from a profiler trace of two eager samples.
     key = sampling.sample_key(sampling.prng_key(0), 0)
     ids = torch.arange(n, dtype=torch.int32, device=dev)
     stages = {
@@ -772,7 +807,8 @@ def main_path(label, scene, camera, options, dev, spp, split_stages=True):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        progressive.render_steps(ds, camera, state, w, h, options, 2)
+        for _ in range(2):
+            progressive.render_step(ds, camera, state, w, h, options)
         torch.cuda.synchronize()
     k_us = {}
     for evt in prof.key_averages():
@@ -1065,12 +1101,13 @@ def _timed_steps(step, state, steps, dev):
 
 
 def _progressive_accum(ds, camera, options, samples, dev):
-    """(accum after `samples` progressive samples, ms per frame)."""
+    """(accum after `samples` progressive samples in one launch, ms per
+    frame after a warm-up launch of the same length, the capture)."""
     from caitlynrenderer_tpu_torch.render import progressive
 
     w, h = options.width, options.height
     st = progressive.init_state(w, h, 0, dev)
-    st = progressive.render_steps(ds, camera, st, w, h, options, 1)  # warm-up
+    st = progressive.render_steps(ds, camera, st, w, h, options, samples)  # warm-up
     torch.cuda.synchronize(dev)
     st = progressive.init_state(w, h, 0, dev)
     t0 = time.perf_counter()
@@ -1530,6 +1567,255 @@ def phase19(dev, setup, camera, grid, grid_cam, g3, go, gd, gact, guni, b3o, b3d
     return rec, totals
 
 
+# Phase 20: samples per launch (render/progressive.py's CUDA graphs).
+GRAPH_SPP = 16  # samples a replay of phase 20's graphs
+
+
+def graph_pool_bytes():
+    """Bytes the caching allocator holds in CUDA graph pools (those of
+    render/progressive.py's graphs, the only graphs this script makes)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+class CaptureRecords(logging.Handler):
+    """The port's "graph_capture" log records, as dicts, while installed
+    with `with`."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.rows = []
+        self.logger = logging.getLogger("caitlynrenderer_tpu_torch")
+
+    def emit(self, record):
+        kind, _, body = record.getMessage().partition(" ")
+        if kind == "graph_capture":
+            self.rows.append(json.loads(body))
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
+
+
+def phase20(dev, smi, runs, cfg, base_dir):
+    """Phase 20 (a)-(d).  runs: [(label, upload, camera, options)] for (a);
+    the first is the cornell demo through B1, whose graph (b) reuses.
+    Returns (record, kernel launches of (a) and (b) by module)."""
+    from caitlynrenderer_tpu_torch.cli import render_setup, turntable_camera
+    from caitlynrenderer_tpu_torch.io.image import load_png, save_png
+    from caitlynrenderer_tpu_torch.ops import mt_brute as mt
+    from caitlynrenderer_tpu_torch.ops import traverse_cw8 as cw8
+    from caitlynrenderer_tpu_torch.ops import traverse_mega as mega
+    from caitlynrenderer_tpu_torch.render import progressive
+    from caitlynrenderer_tpu_torch.scene import required_stack, upload_scene
+    from caitlynrenderer_tpu_torch.utils import config
+
+    t20 = time.perf_counter()
+    modules = {"mt_brute": mt, "traverse_mega": mega, "traverse_cw8": cw8}
+    totals = {k: {"closest": 0, "anyhit": 0} for k in modules}
+    rec = {"device": smi, "spp_per_launch": GRAPH_SPP, "a_graph_vs_eager": {}}
+
+    def reset():
+        for m in modules.values():
+            m.reset_launches()
+
+    def eager(ds, camera, options, n):
+        w, h = options.width, options.height
+        st = progressive.init_state(w, h, 0, dev)
+        for _ in range(n):
+            st = progressive.render_step(ds, camera, st, w, h, options)
+        return st
+
+    # (a) 2 replays of a graph of 16 samples against 32 eager samples.
+    for label, ds, camera, options in runs:
+        name = PATH_KERNEL[options.accel][0]
+        w, h, depth = options.width, options.height, options.max_depth
+        eager(ds, camera, options, 1)  # the eager path warm
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        want = eager(ds, camera, options, 2 * GRAPH_SPP)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / (2 * GRAPH_SPP) * 1e3
+        counts = dict(progressive.graph_counts)
+        alloc0 = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with CaptureRecords() as captured:
+            st = progressive.render_steps(ds, camera, progressive.init_state(w, h, 0, dev),
+                                          w, h, options, GRAPH_SPP)
+            torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - alloc0
+        st = progressive.render_steps(ds, camera, st, w, h, options, GRAPH_SPP)
+        torch.cuda.synchronize()
+        check(st.frame_count == 2 * GRAPH_SPP and torch.equal(st.accum, want.accum),
+              f"(a) {label}: two replays of {GRAPH_SPP} samples differ from "
+              f"{2 * GRAPH_SPP} eager samples")
+        t0 = time.perf_counter()
+        for _ in range(2):
+            st = progressive.render_steps(ds, camera, st, w, h, options, GRAPH_SPP)
+        torch.cuda.synchronize()
+        graph_ms = (time.perf_counter() - t0) / (2 * GRAPH_SPP) * 1e3
+        check(progressive.graph_counts == {"captures": counts["captures"] + 1,
+                                           "replays": counts["replays"] + 4},
+              f"(a) {label}: graphs {progressive.graph_counts}, before {counts}")
+        check(len(captured.rows) == 1, f"(a) {label}: capture records {captured.rows}")
+        g = captured.rows[0]
+        per_replay = g["launches"][name]
+        check(g["nodes"] > 0 and g["spp"] == GRAPH_SPP
+              and g["device"] == f"cuda:{torch.cuda.current_device()}"
+              and per_replay["closest"] == per_replay["anyhit"] == depth * GRAPH_SPP
+              and all(v == 0 for k, r in g["launches"].items() for q, v in r.items()
+                      if k != name or q.endswith("_twin")),
+              f"(a) {label}: the graph holds {g}")
+        launches = {k: dict(m.launches) for k, m in modules.items()}
+        samples = 2 * GRAPH_SPP + 1 + 4 * GRAPH_SPP  # eager, the warm-up, 4 replays
+        check(launches[name]["closest"] == launches[name]["anyhit"] == depth * samples,
+              f"(a) {label}: launches {launches}")
+        check(all(v == 0 for k, r in launches.items() for q, v in r.items()
+                  if k != name or q.endswith("_twin")), f"(a) {label}: another path ran: "
+              f"{launches}")
+        for q in ("closest", "anyhit"):
+            totals[name][q] += launches[name][q]
+        nodes = g["nodes"]
+        row = {"eager_ms_per_frame": eager_ms, "graph_ms_per_frame": graph_ms,
+               "first_launch_s": first_s, "capture_s": g["capture_s"],
+               "instantiate_s": g["instantiate_s"], "nodes": nodes,
+               "nodes_per_sample": nodes / GRAPH_SPP, "pool_bytes": graph_pool_bytes(),
+               "peak_bytes_first_launch": peak, "launches_per_replay": per_replay}
+        rec["a_graph_vs_eager"][label] = row
+        print(f"  (a) {label}: eager {eager_ms:.3f} ms/frame, graph {graph_ms:.3f} "
+              f"({eager_ms / graph_ms:.2f}x); first launch {first_s:.3f} s (capture "
+              f"{g['capture_s']:.3f} s, instantiate {g['instantiate_s']:.3f} s); {nodes} nodes "
+              f"({nodes / GRAPH_SPP:.1f} a sample); graph pool {row['pool_bytes'] / 2**20:.1f} "
+              f"MiB, peak over the first launch {peak / 2**20:.1f} MiB; kernel nodes of "
+              f"{name}, which a replay adds: {per_replay}; 2 replays equal {2 * GRAPH_SPP} "
+              "eager samples bit for bit", flush=True)
+
+    # (b) a turntable of three orbit cameras through (a)'s first graph, each
+    # frame equal to its eager render.
+    label, ds, _, options = runs[0]
+    w, h = options.width, options.height
+    translation = config.scene_from_config(cfg, base_dir)[1]
+    counts = dict(progressive.graph_counts)
+    reset()
+    state = progressive.init_state(w, h, 0, dev)
+    for k in range(3):
+        cam_k = turntable_camera(cfg, translation, k, 3)
+        state = progressive.render_steps(ds, cam_k, progressive.reset(state), w, h, options,
+                                         GRAPH_SPP)
+        want = eager(ds, cam_k, options, GRAPH_SPP)
+        check(torch.equal(state.accum, want.accum), f"(b) turntable frame {k} differs from "
+              "its eager render")
+    check(progressive.graph_counts == {"captures": counts["captures"],
+                                       "replays": counts["replays"] + 3},
+          f"(b) the turntable captured again: {progressive.graph_counts}")
+    for q in ("closest", "anyhit"):
+        totals["mt_brute"][q] += mt.launches[q]
+    rec["b_turntable"] = {"frames": 3, "captures": 0, "bit_equal": True}
+    print(f"  (b) turntable of 3 orbit cameras, {label}: one cached graph, no capture, each "
+          "frame equal to its eager render bit for bit", flush=True)
+
+    # (c) cli render at 700x700, 64 samples in one launch, in a subprocess,
+    # its log records on stderr; its PNG against the eager render.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spl_") as tmp:
+        out = os.path.join(tmp, "cli.png")
+        argv = ["render", CORNELL_TOML, "--spp", "64", "--spp-per-launch", "64", "--width",
+                str(DEMO), "--height", str(DEMO), "-o", out]
+        code = ("import logging, sys; logging.basicConfig(level=logging.INFO, "
+                "format='%(message)s'); from caitlynrenderer_tpu_torch.cli import main; "
+                "sys.exit(main(sys.argv[1:]))")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code, *argv], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"(c) cli render failed: {proc.stderr[-2000:]}")
+        progress = [json.loads(line.split(" ", 1)[1]) for line in proc.stderr.splitlines()
+                    if line.startswith("progress ")]
+        check(progress and progress[-1]["spp"] == 64 and progress[-1]["samples"] == 64,
+              f"(c) progress records {progress}")
+        capture = [json.loads(line.split(" ", 1)[1]) for line in proc.stderr.splitlines()
+                   if line.startswith("graph_capture ")]
+        check(len(capture) == 1 and capture[0]["spp"] == 64 and capture[0]["nodes"] > 0,
+              f"(c) capture records {capture}")
+        sc, cam, opts = render_setup(cfg, base_dir, width=DEMO, height=DEMO)
+        cds = upload_scene(sc, opts.accel, dev, max_leaf=opts.max_leaf)
+        opts = opts._replace(max_stack=required_stack(cds))
+        st = eager(cds, cam, opts, 64)
+        save_png(os.path.join(tmp, "eager.png"), progressive.resolve(st, DEMO, DEMO, opts)
+                 .cpu().numpy())
+        check(np.array_equal(load_png(out), load_png(os.path.join(tmp, "eager.png"))),
+              "(c) the CLI's PNG differs from the eager render")
+    rec["c_cli"] = {"seconds": cli_s, "accel": opts.accel, "progress": progress,
+                    "capture": capture[0]}
+    print(f"  (c) cli render {os.path.relpath(CORNELL_TOML, ROOT)} at {DEMO}x{DEMO}, --spp 64 "
+          f"--spp-per-launch 64 (accel {opts.accel}): {cli_s:.3f} s in a subprocess; "
+          f"progress {progress}; the 64-sample graph: {capture[0]['nodes']} nodes, capture "
+          f"{capture[0]['capture_s']:.3f} s, instantiate {capture[0]['instantiate_s']:.3f} s; "
+          "its PNG equal to the eager render", flush=True)
+
+    # (d) bvh2 refuses samples per launch on the card, launching nothing.
+    sc, cam, opts = render_setup(cfg, base_dir, width=64, height=64, accel="bvh2")
+    bds = upload_scene(sc, "bvh2", dev, max_leaf=opts.max_leaf)
+    opts = opts._replace(max_stack=required_stack(bds))
+    reset()
+    counts = dict(progressive.graph_counts)
+    try:
+        progressive.render_steps(bds, cam, progressive.init_state(64, 64, 0, dev), 64, 64,
+                                 opts, 4)
+        refused = None
+    except ValueError as e:  # the refusal this phase checks for
+        refused = str(e)
+    check(refused is not None and "--spp-per-launch 1" in refused,
+          f"(d) bvh2 was not refused: {refused}")
+    check(progressive.graph_counts == counts and all(
+        v == 0 for m in modules.values() for v in m.launches.values()),
+        "(d) the refused call launched something")
+    rec["d_bvh2"] = {"refused": refused}
+    print(f"  (d) bvh2, render_steps of 4 on the card: ValueError ({refused[:60]}...), nothing "
+          "launched", flush=True)
+
+    # (e) the cornell at 1920x1080 in launches of 4, 2 and 2 samples (the
+    # --resume loop's halving) through two graphs sharing one pool, against
+    # 8 eager samples; the pool's bytes after each launch.
+    progressive.clear_graphs()
+    torch.cuda.empty_cache()
+    label, ds, camera, options = runs[0]
+    big = options._replace(width=1920, height=1080)
+    reset()
+    want = eager(ds, camera, big, 8)
+    pools = []
+    with CaptureRecords() as captured:
+        st = progressive.init_state(1920, 1080, 0, dev)
+        for n in (4, 2, 2):
+            st = progressive.render_steps(ds, camera, st, 1920, 1080, big, n)
+            torch.cuda.synchronize()
+            pools.append(graph_pool_bytes())
+    check(st.frame_count == 8 and torch.equal(st.accum, want.accum),
+          "(e) launches of 4, 2 and 2 samples differ from 8 eager samples")
+    check([r["spp"] for r in captured.rows] == [4, 2], f"(e) captures {captured.rows}")
+    check(pools[1] <= 1.1 * pools[0], f"(e) the second graph grew the shared pool from "
+          f"{pools[0]} to {pools[1]} bytes")
+    for q in ("closest", "anyhit"):
+        totals["mt_brute"][q] += mt.launches[q]
+    rec["e_shared_pool"] = {"resolution": [1920, 1080], "launches": [4, 2, 2],
+                            "pool_bytes_after_each_launch": pools, "captures": captured.rows}
+    caps = [(r["spp"], r["nodes"], r["capture_s"]) for r in captured.rows]
+    print(f"  (e) cornell 1920x1080 (B1), launches of 4, 2, 2 samples equal to 8 eager samples "
+          f"bit for bit; graph pool after each launch {[round(p / 2**20, 1) for p in pools]} "
+          f"MiB (two graphs, one pool); captures (spp, nodes, seconds) {caps}", flush=True)
+    rec["seconds"] = time.perf_counter() - t20
+    print(f"  phase 20: {rec['seconds']:.3f} s", flush=True)
+    return rec, totals
+
+
 def main():
     # -------------------------------------------------------------- phase 1
     phase("1 device")
@@ -1681,9 +1967,11 @@ def main():
     alive_per_bounce = [int(x) for x in stats["alive_per_bounce"]]
 
     mt.reset_launches()
+    captures = progressive.graph_counts["captures"]
     ds_main = upload_scene(scene, options.accel, dev)
     state = progressive.init_state(DEMO, DEMO, 0, dev)
-    state = progressive.render_steps(ds_main, camera, state, DEMO, DEMO, options, 1)
+    # A warm-up launch of the same length: the capture of the graph.
+    state = progressive.render_steps(ds_main, camera, state, DEMO, DEMO, options, spp)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = progressive.render_steps(ds_main, camera, state, DEMO, DEMO, options, spp)
@@ -1692,7 +1980,8 @@ def main():
     img = progressive.resolve(state, DEMO, DEMO, options)
     torch.cuda.synchronize()
     launches = dict(mt.launches)
-    check(launches["closest"] == 3 * (spp + 1) and launches["anyhit"] == 3 * (spp + 1),
+    samples = 2 * spp + progressive.graph_counts["captures"] - captures
+    check(launches["closest"] == 3 * samples and launches["anyhit"] == 3 * samples,
           f"unexpected launch counts {launches}")
     check(launches["closest_twin"] == 0 and launches["anyhit_twin"] == 0,
           "the twin ran on the card's path")
@@ -2021,7 +2310,10 @@ def main():
         mt.reset_launches()
         mega.reset_launches()
         cw8.reset_launches()
-        img, _ = progressive.render_image(ads, camera, options, spp=48, seed=0)
+        captures = progressive.graph_counts["captures"]
+        # bvh2 and sbvh cannot be captured: one sample a launch.
+        img, _ = progressive.render_image(ads, camera, options, spp=48, seed=0,
+                                          spp_per_launch=8 if accel == "cwbvh" else 1)
         img = img.cpu().numpy()
         gerr = np.abs(img - golden)
         print(f"  {accel} vs golden: mean {gerr.mean():.3e} max {gerr.max():.3e}; B3 launches "
@@ -2029,7 +2321,7 @@ def main():
         check(gerr.mean() < 2e-3 and gerr.max() < 0.06, f"golden through {accel} out of bounds")
         check(img[32, 4, 0] > img[32, 4, 1] and img[32, 60, 1] > img[32, 60, 0],
               f"{accel}: walls are not red / green dominant")
-        want = 48 * 3 if accel == "cwbvh" else 0
+        want = (48 + progressive.graph_counts["captures"] - captures) * 3 if accel == "cwbvh" else 0
         check(cw8.launches["closest"] == want and cw8.launches["anyhit"] == want,
               f"{accel}: B3 launches {cw8.launches}")
         check(cw8.launches["closest_twin"] == 0 and cw8.launches["anyhit_twin"] == 0,
@@ -2194,6 +2486,7 @@ def main():
     for aov in ("albedo", "normal", "depth"):
         aov_opts = setup(DEMO, DEMO)[2]._replace(aov=aov)
         mt.reset_launches()
+        captures = progressive.graph_counts["captures"]
         t0 = time.perf_counter()
         imgs = [progressive.render_image(ds_main, camera, aov_opts, spp=2, seed=0)[0]
                 for _ in range(2)]
@@ -2204,7 +2497,8 @@ def main():
         check(torch.equal(imgs[0], imgs[1]), f"AOV {aov}: two runs differ")
         check(bool(torch.isfinite(imgs[0]).all()) and float(imgs[0].mean()) > 0.05
               and float(imgs[0].max()) <= 1.0, f"AOV {aov}: bad image")
-        check(mt.launches["closest"] == 4 and mt.launches["anyhit"] == 0
+        samples = 4 + progressive.graph_counts["captures"] - captures  # and a warm-up
+        check(mt.launches["closest"] == samples and mt.launches["anyhit"] == 0
               and mt.launches["closest_twin"] == 0, f"AOV {aov}: launches {mt.launches}")
 
     # ------------------------------------------------------------- phase 18
@@ -2263,6 +2557,25 @@ def main():
         mega_launches[q] += runs19["traverse_mega"][q]
         cw_launches[q] += runs19["traverse_cw8"][q]
     print(json.dumps({"phase19": rec19}))
+
+    # ------------------------------------------------------------- phase 20
+    phase("20 samples per launch: one CUDA graph replay")
+    _, _, demo_opts = setup(DEMO, DEMO)
+    grid_opts = {accel: RenderOptions(width=BENCH, height=BENCH, max_depth=BENCH_DEPTH,
+                                      accel=accel, families=scene_families(grid))
+                 for accel in ("wide", "cwbvh")}
+    rec20, runs20 = phase20(dev, smi, [
+        (f"cornell {DEMO}x{DEMO} brute (B1)", ds_main, camera, demo_opts),
+        (f"grid100k {BENCH}x{BENCH} wide (B2)", gds, grid_cam, grid_opts["wide"]),
+        (f"grid100k {BENCH}x{BENCH} cwbvh (B3)", g3, grid_cam, grid_opts["cwbvh"]),
+        (f"grid1m {BENCH}x{BENCH} wide (B2)", mds, grid_cam,
+         grid_opts["wide"]._replace(families=scene_families(grid1m))),
+    ], cfg, os.path.dirname(CORNELL_TOML))
+    for q in ("closest", "anyhit"):
+        launches[q] += runs20["mt_brute"][q]
+        mega_launches[q] += runs20["traverse_mega"][q]
+        cw_launches[q] += runs20["traverse_cw8"][q]
+    print(json.dumps({"phase20": rec20}))
 
     # Bounds at the shapes each row's time was taken at: B1 on the 700x700
     # cornell primary rays (closest) and their shadow rays (any-hit), B2 and

@@ -166,10 +166,13 @@ def test_golden_render_on_cuda(dev, cornell):
     options = RenderOptions(width=64, height=64, max_depth=3, accel="brute",
                             families=scene_families(scene))
     mt_brute.reset_launches()
+    captures = progressive.graph_counts["captures"]
     img, _ = progressive.render_image(upload_scene(scene, "brute", dev), camera, options,
                                       spp=48, seed=0)
     img = img.cpu().numpy()
-    assert mt_brute.launches["closest"] == 48 * 3 and mt_brute.launches["anyhit"] == 48 * 3
+    # 6 replays of an 8-sample graph, and the capture's warm-up sample.
+    samples = 48 + progressive.graph_counts["captures"] - captures
+    assert mt_brute.launches["closest"] == mt_brute.launches["anyhit"] == samples * 3
     assert mt_brute.launches["closest_twin"] == 0 and mt_brute.launches["anyhit_twin"] == 0
     err = np.abs(img - np.load(GOLDEN)["img"])
     assert err.mean() < 2e-3, err.mean()
@@ -302,9 +305,11 @@ def test_golden_render_through_wide_on_cuda(dev, cornell):
     mt_brute.reset_launches()
     traverse_mega.reset_launches()
     ds = upload_scene(scene, "wide", dev, wide_group_tris=64)
+    captures = progressive.graph_counts["captures"]
     img, _ = progressive.render_image(ds, camera, options, spp=48, seed=0)
     img = img.cpu().numpy()
-    assert traverse_mega.launches == {"closest": 48 * 3, "anyhit": 48 * 3,
+    samples = 48 + progressive.graph_counts["captures"] - captures  # and a warm-up
+    assert traverse_mega.launches == {"closest": samples * 3, "anyhit": samples * 3,
                                       "closest_twin": 0, "anyhit_twin": 0}
     assert all(v == 0 for v in mt_brute.launches.values())
     err = np.abs(img - np.load(GOLDEN)["img"])
@@ -410,10 +415,15 @@ def test_golden_render_through_tree_accels_on_cuda(accel, dev, cornell):
     mt_brute.reset_launches()
     traverse_mega.reset_launches()
     traverse_cw8.reset_launches()
+    captures = progressive.graph_counts["captures"]
+    # bvh2 and sbvh cannot be captured: one sample a launch.
     img, _ = progressive.render_image(upload_scene(scene, accel, dev), camera, options,
-                                      spp=48, seed=0)
+                                      spp=48, seed=0,
+                                      spp_per_launch=8 if accel == "cwbvh" else 1)
     img = img.cpu().numpy()
-    expect = {"closest": 48 * 3, "anyhit": 48 * 3} if accel == "cwbvh" else {}
+    # A capture runs one warm-up sample.
+    samples = 48 + progressive.graph_counts["captures"] - captures
+    expect = {"closest": samples * 3, "anyhit": samples * 3} if accel == "cwbvh" else {}
     assert {k: v for k, v in traverse_cw8.launches.items() if v} == expect
     assert all(v == 0 for v in mt_brute.launches.values())
     assert all(v == 0 for v in traverse_mega.launches.values())
@@ -456,3 +466,87 @@ def test_xla_traversal_raises_on_cuda(accel, dev, cornell):
         progressive.render_image(upload_scene(scene, accel, dev), camera, options, spp=1, seed=0)
     assert all(v == 0 for v in mt_brute.launches.values())
     assert all(v == 0 for v in traverse_cw8.launches.values())
+
+
+@pytest.mark.parametrize("accel", ["brute", "wide", "cwbvh"])
+def test_graph_equals_eager_on_cuda(accel, dev, cornell):
+    """render_steps of 4 samples, replayed twice from one CUDA graph, ≡ 8
+    eager render_step calls bit for bit, through B1, B2 and B3; each
+    replay adds the graph's 3 + 3 launches a sample, the capture one
+    warm-up sample, and no twin runs.  A second camera through the same
+    graph ≡ its eager render too."""
+    scene, camera = cornell
+    options = RenderOptions(width=48, height=40, max_depth=3, accel=accel,
+                            families=scene_families(scene))
+    ds = upload_scene(scene, accel, dev)
+    w, h = options.width, options.height
+    mods = {"brute": mt_brute, "wide": traverse_mega, "cwbvh": traverse_cw8}
+    for m in mods.values():
+        m.reset_launches()
+    eager = progressive.init_state(w, h, 3, dev)
+    for _ in range(8):
+        eager = progressive.render_step(ds, camera, eager, w, h, options)
+    counts = dict(progressive.graph_counts)
+    graph = progressive.init_state(w, h, 3, dev)
+    for _ in range(2):
+        graph = progressive.render_steps(ds, camera, graph, w, h, options, 4)
+    assert graph.frame_count == 8
+    assert torch.equal(graph.accum, eager.accum)
+    assert progressive.graph_counts == {"captures": counts["captures"] + 1,
+                                        "replays": counts["replays"] + 2}
+    run = mods[accel].launches
+    assert run["closest"] == run["anyhit"] == 3 * (8 + 8 + 1)
+    assert run["closest_twin"] == run["anyhit_twin"] == 0
+    assert all(v == 0 for k, m in mods.items() if k != accel for v in m.launches.values())
+
+    moved = camera._replace(position=camera.position + np.float32(0.3))
+    want = progressive.init_state(w, h, 3, dev)
+    for _ in range(4):
+        want = progressive.render_step(ds, moved, want, w, h, options)
+    got = progressive.render_steps(ds, moved, progressive.init_state(w, h, 3, dev), w, h,
+                                   options, 4)
+    assert torch.equal(got.accum, want.accum) and not torch.equal(got.accum, graph.accum)
+    assert progressive.graph_counts["captures"] == counts["captures"] + 1
+    progressive.clear_graphs()
+
+
+def test_graph_on_a_card_that_is_not_current(dev, cornell):
+    """With cuda:0 current, render_steps on cuda:1 captures its graph on
+    cuda:1: two replays of 4 samples ≡ 8 eager samples bit for bit, and a
+    second camera through the same graph ≡ its eager render (a graph
+    captured on another card's stream would hold nothing and replay the
+    capture-time result)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    scene, camera = cornell
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(dev)
+    options = RenderOptions(width=48, height=40, max_depth=3, accel="brute",
+                            families=scene_families(scene))
+    ds = upload_scene(scene, "brute", other)
+    mt_brute.reset_launches()
+    for cam in (camera, camera._replace(position=camera.position + np.float32(0.3))):
+        eager = progressive.init_state(48, 40, 3, other)
+        for _ in range(8):
+            eager = progressive.render_step(ds, cam, eager, 48, 40, options)
+        graph = progressive.init_state(48, 40, 3, other)
+        for _ in range(2):
+            graph = progressive.render_steps(ds, cam, graph, 48, 40, options, 4)
+        assert torch.equal(graph.accum, eager.accum)
+    assert mt_brute.launches["closest"] == mt_brute.launches["anyhit"] == 3 * (32 + 1)
+    assert torch.cuda.current_device() == dev.index
+    progressive.clear_graphs()
+
+
+@pytest.mark.parametrize("accel", ["bvh2", "sbvh"])
+def test_binary_bvh_refuses_a_graph_on_cuda(accel, dev, cornell):
+    scene, camera = cornell
+    options = RenderOptions(width=16, height=16, max_depth=2, accel=accel,
+                            families=scene_families(scene))
+    for m in (mt_brute, traverse_mega, traverse_cw8):
+        m.reset_launches()
+    with pytest.raises(ValueError, match="--spp-per-launch 1"):
+        progressive.render_steps(upload_scene(scene, accel, dev), camera,
+                                 progressive.init_state(16, 16, 0, dev), 16, 16, options, 4)
+    assert all(v == 0 for m in (mt_brute, traverse_mega, traverse_cw8)
+               for v in m.launches.values())

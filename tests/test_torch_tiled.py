@@ -11,7 +11,10 @@ Tolerances, each with its reason:
     keyed by the global pixel id, accumulated in the same order), the
     accumulation at any spp and the image where the two resolves agree;
   * CLI images: equal PNGs (the same tensors through the same save); the
-    turntable's frames against the reference CLI's within one 8-bit level.
+    turntable's frames, and a --spp-per-launch render, against the
+    reference CLI's within one 8-bit level; the chunked loop's checkpoint
+    saves and progress records at the same sample counts as the
+    reference CLI's.
 """
 
 import os
@@ -185,33 +188,61 @@ def test_cli_benchmark_help(capfd):
     assert "--scene" in out and "grid100k" in out
 
 
-@pytest.mark.parametrize("spl,saves", [(1, [1, 2, 3, 4, 5, 5]), (2, []), (8, []), (0, []),
-                                       (64, [])])
-def test_cli_spp_per_launch_spaces_checkpoint_checks(tmp_path, monkeypatch, spl, saves):
-    """--spp-per-launch: the port launches sample by sample, so 1 (the
-    default) is the only value; with it, and --checkpoint-every -1, the
-    checkpoint clock is read after every sample (each read saves), then
-    the final save.  Any other value raises before anything renders."""
-    seen = []
-    real = checkpoint.save_render_state
+@pytest.mark.parametrize("spl", [1, 2, 8, 0, 64])
+def test_cli_spp_per_launch_spaces_checkpoint_checks(tmp_path, monkeypatch, spl):
+    """--spp-per-launch with --resume: the port's checkpoint saves fall
+    after the same samples as the reference CLI's on the same argv.  With
+    --checkpoint-every -1 the clock is read, and saves, after every
+    launch, and the budget halves every launch after the first to one
+    sample; then the final save.  spl 0 reads as 1."""
+    from caitlynrenderer_tpu import cli as j_cli
+    from caitlynrenderer_tpu.utils import checkpoint as j_checkpoint
 
-    def spy(path, state):
-        seen.append(state.frame_count)
-        real(path, state)
+    seen = {"port": [], "ref": []}
 
-    monkeypatch.setattr(checkpoint, "save_render_state", spy)
-    out = str(tmp_path / "s.png")
-    argv = ["render", TOML, "--device", "cpu", "--accel", "brute", "--width", "8", "--height",
-            "8", "--depth", "1", "--spp", "5", "--resume", str(tmp_path / "ck.npz"),
-            "--checkpoint-every", "-1", "-o", out]
-    if spl != 1:
-        with pytest.raises(ValueError, match="only 1 is accepted"):
-            cli.main([*argv, "--spp-per-launch", str(spl)])
-        assert seen == saves and not os.path.exists(out)
-        return
-    assert cli.main([*argv, "--spp-per-launch", "1"]) == 0
-    assert seen == saves
-    seen.clear()
-    os.remove(tmp_path / "ck.npz")
-    assert cli.main(argv) == 0
-    assert seen == saves
+    def spy(side, real):
+        def save(path, state):
+            seen[side].append(int(state.frame_count))
+            real(path, state)
+        return save
+
+    monkeypatch.setattr(checkpoint, "save_render_state", spy("port", checkpoint.save_render_state))
+    monkeypatch.setattr(j_checkpoint, "save_render_state",
+                        spy("ref", j_checkpoint.save_render_state))
+    argv = ["render", TOML, "--accel", "brute", "--width", "8", "--height", "8", "--depth", "1",
+            "--spp", "9", "--checkpoint-every", "-1", "--spp-per-launch", str(spl)]
+    assert cli.main([*argv, "--device", "cpu", "--resume", str(tmp_path / "ck.npz"), "-o",
+                     str(tmp_path / "s.png")]) == 0
+    assert j_cli.main([*argv, "--resume", str(tmp_path / "j_ck.npz"), "-o",
+                       str(tmp_path / "j.png")]) == 0
+    first = spl if 1 < spl <= 9 else 1
+    assert seen["port"] == seen["ref"] == [*range(first, 10), 9]
+
+
+def test_cli_spp_per_launch_image_and_progress_match_reference(tmp_path, caplog):
+    """cli render --spp 20 --spp-per-launch 8 (launches of 8, 8, then 1 x
+    4): the PNG within one 8-bit level of the reference CLI's, and the
+    progress records at the same sample counts (each tenth of --spp the
+    count crosses), each with its samples and rays counted."""
+    import json
+    import logging
+
+    from caitlynrenderer_tpu import cli as j_cli
+
+    argv = ["render", TOML, "--accel", "brute", "--width", "12", "--height", "10", "--depth",
+            "2", "--spp", "20", "--spp-per-launch", "8", "--seed", "3"]
+    with caplog.at_level(logging.INFO):
+        assert cli.main([*argv, "--device", "cpu", "-o", str(tmp_path / "port.png")]) == 0
+        assert j_cli.main([*argv, "-o", str(tmp_path / "ref.png")]) == 0
+
+    def progress(logger):
+        return [json.loads(r.getMessage().split(" ", 1)[1]) for r in caplog.records
+                if r.name == logger and r.getMessage().startswith("progress ")]
+
+    got, want = progress("caitlynrenderer_tpu_torch"), progress("caitlynrenderer_tpu")
+    assert [r["spp"] for r in got] == [r["spp"] for r in want] == [8, 16, 18, 20]
+    assert [r["samples"] for r in got] == [r["spp"] for r in got]
+    assert got[-1]["rays"] == want[-1]["rays"] > 0 and got[-1]["rays_per_sec"] > 0
+    img, ref = load_png(str(tmp_path / "port.png")), load_png(str(tmp_path / "ref.png"))
+    assert img.shape == ref.shape == (10, 12, 3)
+    assert np.abs(img - ref).max() <= 1.0 / 255 + 1e-6
