@@ -9,8 +9,7 @@ one.  The root bench's protocol: `--warmup` launches of `--steps` samples
 (the first captures the CUDA graph of render_steps), then 2 launches of
 `--steps` samples timed; ms_per_frame is over those 2 x steps samples.
 `--spp-per-launch N` splits each of those launches into render_steps
-calls of N samples (the rest one at a time): "bvh2" and "sbvh" take one
-sample a launch on the card, so they need `--spp-per-launch 1`.
+calls of N samples (the rest one at a time).
 
     python -m caitlynrenderer_tpu_torch.bench [--width N] [--height N]
         [--depth N] [--steps N] [--warmup N] [--spp-per-launch N]
@@ -69,7 +68,7 @@ def main(argv=None) -> int:
                     help="launches of --steps samples before timing")
     ap.add_argument("--spp-per-launch", type=int, default=None,
                     help="samples per render_steps call within a launch of --steps "
-                    "(default --steps; bvh2 and sbvh need 1 on the card)")
+                    "(default --steps)")
     ap.add_argument("--group-tris", type=int, default=None,
                     help="wide-BVH group size (default: by triangle count; explicit values "
                     "are used as given)")

@@ -132,6 +132,7 @@ def cmd_render(args) -> int:
             ds, camera, sampling.draw_uniforms(sampling.prng_key(args.seed), w * h,
                                                options.max_depth, device),
             w, h, options)
+        metrics.log_record("debug_checks", {"finite": True})
         print("debug checks: the first sample's radiance is finite")
 
     t0 = time.perf_counter()
@@ -143,7 +144,6 @@ def cmd_render(args) -> int:
         cfg = config.load_config(args.config)
         translation = config.scene_from_config(cfg, os.path.dirname(args.config))[1]
         base, ext = os.path.splitext(args.output)
-        _check_chunk(ds, options, min(spl, spp))
         state = progressive.init_state(w, h, args.seed, device)
         for k in range(args.turntable):
             cam_k = turntable_camera(cfg, translation, k, args.turntable)
@@ -176,7 +176,6 @@ def cmd_render(args) -> int:
         print(f"resumed at {state.frame_count} spp")
     else:
         state = progressive.init_state(w, h, args.seed, device)
-    _check_chunk(ds, options, spl if spp - state.frame_count >= spl else 1)
     rays_per_sample = _rays_per_sample(ds, camera, options, args.seed, device)
     timer = metrics.StepTimer()
     last_ckpt = time.monotonic()
@@ -214,15 +213,6 @@ def cmd_render(args) -> int:
     print(f"wrote {args.output} ({state.frame_count} spp, {w}x{h}, accel {options.accel}, "
           f"{device}, {seconds:.3f} s)")
     return 0
-
-
-def _check_chunk(ds, options, first: int) -> None:
-    """On the card "bvh2" and "sbvh" take one sample a launch: raise before
-    rendering when the first launch (the largest) would carry several."""
-    from caitlynrenderer_tpu_torch.render import progressive
-
-    if first > 1 and ds.device.type == "cuda":
-        progressive.check_graphable(options)
 
 
 def _rays_per_sample(ds, camera, options, seed: int, device) -> int:
@@ -417,7 +407,8 @@ def main(argv=None) -> int:
     r.add_argument("--depth", type=int, default=None)
     r.add_argument("--accel", default=None,
                    help="brute, bvh2, sbvh, wide, cwbvh, or auto (brute up to 2048 "
-                   "triangles, wide above); default: the config's [render] accel")
+                   "triangles, wide above); default: the config's [render] accel; on the "
+                   "card bvh2 and sbvh take a tree up to 127 levels deep")
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--aov", default=None, choices=["beauty", "albedo", "normal", "depth"],
                    help="first-hit AOV instead of the beauty pass")
@@ -433,9 +424,7 @@ def main(argv=None) -> int:
                    "graph of that many samples, on the CPU a loop (values < 1 read as 1); "
                    "with --resume the chunk is halved until a launch takes about "
                    "--checkpoint-every, and checkpoints fall between launches; the turntable "
-                   "chunks each frame by it; tiles and --mesh ignore it; on the card bvh2 "
-                   "and sbvh need 1 when --spp reaches it (a render of fewer samples "
-                   "launches one at a time)")
+                   "chunks each frame by it; tiles and --mesh ignore it")
     r.add_argument("--mesh", default=None, metavar="DPxSP|auto",
                    help="sharded render, one rank per process under torchrun (pixels over "
                    "dp, sample streams over sp; --spp a multiple of sp), e.g. "

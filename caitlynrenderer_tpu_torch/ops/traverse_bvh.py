@@ -1,28 +1,89 @@
-"""Binary-BVH closest-hit and any-hit traversal on tensors (counterpart of
+"""Binary-BVH closest-hit and any-hit queries (counterpart of
 caitlynrenderer_tpu/ops/traverse_xla.py), for the "bvh2" and "sbvh"
-accelerators.
+accelerators: kernel B4.
 
-A vectorized per-ray stack machine: every ray carries its own node, stack
+`traverse_closest` and `traverse_anyhit` launch the hand-written CUDA kernel
+(csrc/traverse_bvh.cu: one thread per ray, each running its own stack) for
+CUDA tensors and run the plain PyTorch twin for CPU tensors; there is no
+fallback from one to the other.  The kernel reads nothing back to the host,
+so a CUDA graph captures it like the other kernels.
+
+The twins (`traverse_closest_plain`, `traverse_anyhit_plain`) are a
+vectorized per-ray stack machine: every ray carries its own node, stack
 pointer and stack as rows of dense tensors, and a `while` loop steps the
-whole batch with masked updates until every lane has finished.  Per step,
-an inner node slab-tests both children with the reference's acceptance
-(t_far > 0, t_far >= t_near, t_near < t_best), goes to the nearer hit child
-and pushes the other; a leaf runs a `max_leaf`-wide Möller–Trumbore block
-over its contiguous triangle range.  The reference computes this in XLA,
-not in a Pallas kernel, so it runs as plain torch ops on every device.
+whole batch with masked updates until every lane has finished, reading the
+live lane count on the host at every step.  Per step, an inner node
+slab-tests both children with the reference's acceptance (t_far > 0,
+t_far >= t_near, t_near < t_best), goes to the nearer hit child and pushes
+the other; a leaf runs a `max_leaf`-wide Möller–Trumbore block over its
+contiguous triangle range.  They are the CPU path and the oracle the kernel
+is held against on the card, bit for bit.
 
 The stack is `max_stack` deep and never clamped: a push past it raises
-ValueError (the integrator sizes it from the build first, see
-render/integrator._check_stack).
+ValueError in the twin and traps in the kernel (the integrator sizes it
+from the build first, see render/integrator._check_stack).  The kernel
+takes a stack of up to MAX_STACK (128) entries, a tree of depth 127; the
+wrapper raises above that, and the integrator refuses such a tree on the
+card before it launches anything.
+
+`launches` counts kernel launches and twin calls, so a run can show which
+path it took.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from caitlynrenderer_tpu_torch.ops import _build
 from caitlynrenderer_tpu_torch.ops.intersect import moller_trumbore
 
+SOURCE = "caitlynrenderer_tpu_torch/csrc/traverse_bvh.cu"
+REPLACES = ("caitlynrenderer_tpu/ops/traverse_xla.py:52 traverse_closest and :160 "
+            "traverse_anyhit (XLA lax.while_loop walks, not Pallas kernels)")
+
 INF = 1e9
+MAX_STACK = 128  # the deepest stack the kernel is instantiated for
+
+launches = _build.launch_counter("traverse_bvh", {"closest": "bvh2_kernelILb0E",
+                                                  "anyhit": "bvh2_kernelILb1E"})
+# Launches of the stats variant, apart from `launches`.
+stats_launches = {"closest": 0, "anyhit": 0}
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # o, d, active, bounds, meta, verts, tri_v, n, nn, nv, nt, max_leaf,
+    # max_stack, out_t, out_tri, out_u, out_v, stats, device, stream
+    "bvh_closest": (_INT, [_PTR] * 7 + [_INT] * 6 + [_PTR] * 5 + [_INT, _PTR]),
+    # o, d, t_max, active, bounds, meta, verts, tri_v, n, nn, nv, nt,
+    # max_leaf, max_stack, out_occ, stats, device, stream
+    "bvh_anyhit": (_INT, [_PTR] * 8 + [_INT] * 6 + [_PTR] * 2 + [_INT, _PTR]),
+    "bvh_error_string": (ctypes.c_char_p, [_INT]),
+}
+
+# Per-ray counts of the stats variant, in column order.
+STATS = ("inner", "tris", "stack")
+# The stats variant's flags, one per row of the table read: a node's meta
+# (the walk stood on it), a node's bounds (slab-tested as a child), a tri_v
+# row, a vertex.
+SEEN = ("meta_seen", "bounds_seen", "tri_seen", "vert_seen")
+
+
+class _Stats(ctypes.Structure):
+    """csrc/traverse_bvh.cu's Stats: the stats variant's buffers."""
+    _fields_ = [(k, ctypes.c_void_p) for k in ("t_seed", "counts") + SEEN]
+
+
+def reset_launches() -> None:
+    for counter in (launches, stats_launches):
+        for k in counter:
+            counter[k] = 0
+
+
+# --------------------------------------------------------------------------
+# Plain twins
+# --------------------------------------------------------------------------
 
 
 def _slab(o, d_inv, b):
@@ -107,13 +168,14 @@ class _Walk:
         self.ptr = torch.where(need_pop & (ptr > 0), ptr - 1, ptr)
 
 
-def traverse_closest(o, d, active, node_bounds, node_meta, verts, tri_v,
-                     max_leaf: int = 4, max_stack: int = 32):
-    """Closest hit of every active ray.  o, d: (N, 3) f32; active: (N,)
-    bool; node_bounds (Nn, 6) f32 and node_meta (Nn, 2) i32 (a FlatBVH);
-    verts (V, 3) f32 and tri_v (T, 4) i32 in the tree's leaf order.
-    Returns (t, tri, u, v): t = INF, tri = -1 on a miss; ties within a leaf
-    go to its first triangle."""
+def traverse_closest_plain(o, d, active, node_bounds, node_meta, verts, tri_v,
+                           max_leaf: int = 4, max_stack: int = 32):
+    """Plain PyTorch twin of the closest-hit kernel.  o, d: (N, 3) f32;
+    active: (N,) bool; node_bounds (Nn, 6) f32 and node_meta (Nn, 2) i32 (a
+    FlatBVH); verts (V, 3) f32 and tri_v (T, 4) i32 in the tree's leaf
+    order.  Returns (t, tri, u, v): t = INF, tri = -1 on a miss or an
+    inactive lane; ties within a leaf go to its first triangle."""
+    launches["closest_twin"] += 1
     n, dev = o.shape[0], o.device
     t = torch.full((n,), INF, dtype=torch.float32, device=dev)
     tri = torch.full((n,), -1, dtype=torch.int64, device=dev)
@@ -140,10 +202,12 @@ def traverse_closest(o, d, active, node_bounds, node_meta, verts, tri_v,
     return t, torch.where(t >= INF, -1, tri).int(), u, v
 
 
-def traverse_anyhit(o, d, t_max, active, node_bounds, node_meta, verts, tri_v,
-                    max_leaf: int = 4, max_stack: int = 32):
-    """Occlusion of every active ray by any triangle at 0 <= t < t_max
-    ((N,) f32): (N,) bool.  A lane stops at its first hit."""
+def traverse_anyhit_plain(o, d, t_max, active, node_bounds, node_meta, verts, tri_v,
+                          max_leaf: int = 4, max_stack: int = 32):
+    """Plain PyTorch twin of the any-hit kernel: occlusion of every active
+    ray by any triangle at 0 <= t < t_max ((N,) f32), (N,) bool.  A lane
+    stops at its first hit."""
+    launches["anyhit_twin"] += 1
     n, dev = o.shape[0], o.device
     occluded = torch.zeros(n, dtype=torch.bool, device=dev)
     if tri_v.shape[0] == 0:
@@ -159,3 +223,144 @@ def traverse_anyhit(o, d, t_max, active, node_bounds, node_meta, verts, tri_v,
         walk.advance(lane, left, is_inner, *hits)
         walk.ind = torch.where(occluded, -1, walk.ind)
     return occluded
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+
+
+def _check_query(o, d, active, tree, max_stack, t_max=None, t_seed=None):
+    """Validate a CUDA query; returns (n, nn, nv, nt, device)."""
+    node_bounds, node_meta, verts, tri_v = tree
+    n, dev = o.shape[0], o.device
+    f32, i32 = torch.float32, torch.int32
+    _build.check_tensor("o", o, f32, (n, 3), dev)
+    _build.check_tensor("d", d, f32, (n, 3), dev)
+    _build.check_tensor("active", active, torch.bool, (n,), dev)
+    if t_max is not None:
+        _build.check_tensor("t_max", t_max, f32, (n,), dev)
+    if t_seed is not None:
+        _build.check_tensor("t_seed", t_seed, f32, (n,), dev)
+    nn, nv, nt = (x.shape[0] if x.dim() == 2 else -1 for x in (node_bounds, verts, tri_v))
+    _build.check_tensor("node_bounds", node_bounds, f32, (nn, 6), dev)
+    _build.check_tensor("node_meta", node_meta, i32, (nn, 2), dev)
+    _build.check_tensor("verts", verts, f32, (nv, 3), dev)
+    _build.check_tensor("tri_v", tri_v, i32, (nt, 4), dev)
+    if n >= 2**31 or nn * 6 >= 2**31 or nv * 3 >= 2**31 or nt * 4 >= 2**31:
+        raise ValueError(f"too many rays ({n}), nodes ({nn}), vertices ({nv}) or triangles "
+                         f"({nt}) for the kernel's indexing")
+    if nt > 0 and nn == 0:
+        raise ValueError("a scene with triangles needs a tree: node_bounds has no rows")
+    if not 1 <= max_stack <= MAX_STACK:
+        raise ValueError(f"max_stack={max_stack}: the kernel takes 1 to {MAX_STACK} entries")
+    return n, nn, nv, nt, dev
+
+
+def _stats_buffers(n, nn, nv, nt, dev, t_seed):
+    """Zeroed outputs of the stats variant (see `traverse_closest`) and the
+    kernel's Stats over them."""
+    i32 = torch.int32
+    st = {"counts": torch.zeros((n, len(STATS)), dtype=i32, device=dev)}
+    for k, rows in zip(SEEN, (nn, nn, nt, nv)):
+        st[k] = torch.zeros((rows,), dtype=i32, device=dev)
+    seed = None if t_seed is None else t_seed.data_ptr()
+    return st, _Stats(seed, *(st[k].data_ptr() for k in ("counts",) + SEEN))
+
+
+def _stats_on_cpu(stats, t_seed, cpu):
+    """Raise for what only the CUDA stats variant takes; returns cpu."""
+    if t_seed is not None and not stats:
+        raise ValueError("t_seed seeds the stats variant's walk: give stats=True")
+    if stats and cpu:
+        raise ValueError("stats=True counts the CUDA kernel's walk: give CUDA tensors")
+    return cpu
+
+
+def _tree_ptrs(tree):
+    return [x.data_ptr() for x in tree]
+
+
+def _stats_ptr(st_arg):
+    """The kernel's Stats* argument: null runs the plain kernel."""
+    return None if st_arg is None else ctypes.addressof(st_arg)
+
+
+def traverse_closest(o, d, active, node_bounds, node_meta, verts, tri_v,
+                     max_leaf: int = 4, max_stack: int = 32, stats=False, t_seed=None):
+    """Closest hit of every active ray over the binary BVH.  Arguments and
+    result as `traverse_closest_plain`; CUDA tensors launch the kernel, on
+    the current stream, and read nothing back.
+
+    stats=True (CUDA only) launches the stats variant, the same walk, and
+    returns (t, tri, u, v, st): st["counts"] (N, 3) i32 per ray, columns
+    STATS (inner nodes visited, leaf triangles tested, the stack's
+    high-water mark); st["meta_seen"] (Nn,) i32, 1 where some ray stood on
+    the node and read its meta; st["bounds_seen"] (Nn,), 1 where some ray
+    slab-tested the node's box; st["tri_seen"] (T,), 1 where some ray read
+    the triangle's tri_v row; st["vert_seen"] (V,), 1 where some ray read
+    the vertex.
+    t_seed ((N,) f32, stats only) also rejects a child box entered after the
+    seed (relative margin 1e-5), acceptance unchanged: seeded with the
+    closest t, the oracle walk, whose counts are the work the query needs."""
+    tree = (node_bounds, node_meta, verts, tri_v)
+    if _stats_on_cpu(stats, t_seed, _build.is_cpu(o, d, active, *tree, t_seed)):
+        return traverse_closest_plain(o, d, active, *tree, max_leaf=max_leaf,
+                                      max_stack=max_stack)
+    n, nn, nv, nt, dev = _check_query(o, d, active, tree, max_stack, t_seed=t_seed)
+    st, st_arg = _stats_buffers(n, nn, nv, nt, dev, t_seed) if stats else (None, None)
+    if n == 0 or nt == 0:
+        t = torch.full((n,), INF, dtype=torch.float32, device=dev)
+        tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        zero = torch.zeros(n, dtype=torch.float32, device=dev)
+        out = (t, tri, zero, zero.clone())
+        return (*out, st) if stats else out
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    v = torch.empty(n, dtype=torch.float32, device=dev)
+    lib = _build.load("traverse_bvh", _SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.bvh_closest(
+            o.data_ptr(), d.data_ptr(), active.data_ptr(), *_tree_ptrs(tree), n, nn, nv, nt,
+            max_leaf, max_stack, t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+            _stats_ptr(st_arg), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.raise_on(rc, lib.bvh_error_string, "bvh_closest")
+    if stats:
+        stats_launches["closest"] += 1
+        return t, tri, u, v, st
+    launches["closest"] += 1
+    return t, tri, u, v
+
+
+def traverse_anyhit(o, d, t_max, active, node_bounds, node_meta, verts, tri_v,
+                    max_leaf: int = 4, max_stack: int = 32, stats=False, t_seed=None):
+    """Occlusion of every active ray by any triangle at 0 <= t < t_max
+    ((N,) f32) over the binary BVH: (N,) bool.  CUDA tensors launch the
+    kernel.  stats=True (CUDA only): returns (occ, st), st and t_seed as in
+    `traverse_closest`."""
+    tree = (node_bounds, node_meta, verts, tri_v)
+    if _stats_on_cpu(stats, t_seed, _build.is_cpu(o, d, t_max, active, *tree, t_seed)):
+        return traverse_anyhit_plain(o, d, t_max, active, *tree, max_leaf=max_leaf,
+                                     max_stack=max_stack)
+    n, nn, nv, nt, dev = _check_query(o, d, active, tree, max_stack, t_max=t_max,
+                                      t_seed=t_seed)
+    st, st_arg = _stats_buffers(n, nn, nv, nt, dev, t_seed) if stats else (None, None)
+    if n == 0 or nt == 0:
+        occ = torch.zeros(n, dtype=torch.bool, device=dev)
+        return (occ, st) if stats else occ
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = _build.load("traverse_bvh", _SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.bvh_anyhit(
+            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), active.data_ptr(), *_tree_ptrs(tree),
+            n, nn, nv, nt, max_leaf, max_stack, occ.data_ptr(), _stats_ptr(st_arg), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.raise_on(rc, lib.bvh_error_string, "bvh_anyhit")
+    if stats:
+        stats_launches["anyhit"] += 1
+        return occ, st
+    launches["anyhit"] += 1
+    return occ

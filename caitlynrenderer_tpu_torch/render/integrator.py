@@ -5,10 +5,10 @@ The whole ray batch advances bounce by bounce as dense (N, ...) tensors:
 raygen → closest hit → shade (environment on a miss, emission, NEE with a
 shadow any-hit, MIS) → scatter, with masked lanes for dead paths.  Both
 ray queries go through the scene's accelerator: ops/mt_brute under
-"brute", ops/traverse_mega under "wide" and ops/traverse_cw8 under
-"cwbvh", each of which launches its CUDA kernel for CUDA tensors, and
-ops/traverse_bvh (plain torch ops, as the reference's XLA walk) under
-"bvh2" and "sbvh".  options.traversal chooses, as in the reference:
+"brute", ops/traverse_mega under "wide", ops/traverse_cw8 under "cwbvh" and
+ops/traverse_bvh under "bvh2" and "sbvh" (the reference's XLA walk, as
+kernel B4), each of which launches its CUDA kernel for CUDA tensors.
+options.traversal chooses, as in the reference:
 "auto" takes those paths (the kernel on the card, its twin on CPU
 tensors); "pallas" insists on the hand-written kernel and raises
 ValueError for CPU tensors; "xla", for parity with the reference on CPU
@@ -60,7 +60,7 @@ from caitlynrenderer_tpu_torch.ops import bsdf
 from caitlynrenderer_tpu_torch.ops.intersect import intersect_brute, occluded_brute, refine_hit_tri
 from caitlynrenderer_tpu_torch.ops.mt_brute import brute_anyhit, brute_closest
 from caitlynrenderer_tpu_torch.ops.texture import sample_bilinear, sample_env
-from caitlynrenderer_tpu_torch.ops.traverse_bvh import traverse_anyhit, traverse_closest
+from caitlynrenderer_tpu_torch.ops.traverse_bvh import MAX_STACK, traverse_anyhit, traverse_closest
 from caitlynrenderer_tpu_torch.ops.traverse_cw8 import cw8_anyhit, cw8_closest
 from caitlynrenderer_tpu_torch.ops.traverse_cwbvh import cwbvh_anyhit, cwbvh_closest
 from caitlynrenderer_tpu_torch.ops.traverse_mega import mega_anyhit, mega_closest
@@ -122,7 +122,16 @@ def check_supported(ds: DeviceScene, options: RenderOptions) -> None:
 def _check_stack(ds: DeviceScene, options: RenderOptions) -> None:
     """Stack guard of the binary-BVH walk: a stack the build can overflow
     raises here instead of being clamped.  Size options with
-    `options._replace(max_stack=scene.required_stack(ds))`."""
+    `options._replace(max_stack=scene.required_stack(ds))`.  On the card
+    the walk (kernel B4) takes a stack of at most MAX_STACK entries, so a
+    deeper tree raises there too; the CPU walk takes any depth."""
+    if ds.node_meta.device.type == "cuda" and ds.tree_depth + 1 > MAX_STACK:
+        raise ValueError(
+            f"BVH tree depth {ds.tree_depth} needs a traversal stack of {ds.tree_depth + 1} "
+            f"slots, but the card's binary-BVH kernel takes at most {MAX_STACK} (a tree of "
+            f"depth {MAX_STACK - 1}); render this scene with accel 'wide' or 'cwbvh' on the "
+            "card, or on the CPU"
+        )
     if ds.tree_depth + 1 > options.max_stack:
         raise ValueError(
             f"BVH tree depth {ds.tree_depth} needs a traversal stack of "

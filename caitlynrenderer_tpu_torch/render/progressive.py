@@ -10,10 +10,8 @@ one launch from the host, bit for bit `spp` `render_step` calls.  The
 reference scans the samples inside one jitted launch; on the card they
 are captured once into a CUDA graph (`accumulate`, with the frame
 counter, the base key and the camera in the graph's static buffers on
-the card) and replayed with one host call.  On CPU tensors the samples
-run as a loop.  "bvh2" and "sbvh" cannot be captured (their walk reads
-its live ray count on the host every step), so on the card they raise for
-`spp > 1` and run sample by sample with `spp_per_launch=1`.
+the card) and replayed with one host call, under every accelerator.  On
+CPU tensors the samples run as a loop.
 """
 
 from __future__ import annotations
@@ -32,8 +30,6 @@ from caitlynrenderer_tpu_torch.render.integrator import check_supported, render_
 from caitlynrenderer_tpu_torch.scene import DeviceScene
 from caitlynrenderer_tpu_torch.utils import metrics
 
-# Accelerators whose walk cannot be captured into a CUDA graph.
-UNGRAPHED = ("bvh2", "sbvh")
 # Graphs kept, the least recently used dropped first.  The graphs of a
 # device share one memory pool, so together they hold about what the
 # largest of them needs, not the sum.
@@ -89,16 +85,6 @@ def render_step(ds: DeviceScene, camera: Camera, state: RenderState, width: int,
     pixel_ids = torch.arange(width * height, dtype=torch.int32, device=state.accum.device)
     radiance = render_pixels(ds, camera, key, pixel_ids, width, height, options)
     return RenderState(state.accum + radiance, state.frame_count + 1, state.base_key)
-
-
-def check_graphable(options: RenderOptions) -> None:
-    """Raise ValueError for an accelerator a CUDA graph cannot hold."""
-    if options.accel in UNGRAPHED:
-        raise ValueError(
-            f'accel "{options.accel}" cannot take several samples in one launch on the card: '
-            "its binary-BVH walk reads its live ray count on the host at every step, which "
-            "a CUDA graph cannot capture; render it one sample per launch (spp_per_launch=1, "
-            "on the command line --spp-per-launch 1)")
 
 
 def accumulate(ds: DeviceScene, camera: Camera, accum, frame, base_key, width: int,
@@ -225,15 +211,14 @@ def render_steps(ds: DeviceScene, camera: Camera, state: RenderState, width: int
     `spp` render_step calls.  On CUDA tensors with spp > 1: one replay of
     a CUDA graph of the `spp` samples, captured at the first call for this
     scene, size, options, spp, lens and device and cached (MAX_GRAPHS
-    kept); "bvh2" and "sbvh" raise ValueError there.  Otherwise a loop of
-    render_step.  `camera` is the host's (numpy) camera."""
+    kept).  Otherwise a loop of render_step.  `camera` is the host's
+    (numpy) camera."""
     dev = state.accum.device
     if dev.type != "cuda" or spp <= 1:
         for _ in range(spp):
             state = render_step(ds, camera, state, width, height, options)
         return state
     check_supported(ds, options)
-    check_graphable(options)
     lens = has_lens(camera)
     key = (id(ds), width, height, options, spp, lens, str(dev))
     graph = _graphs.get(key)

@@ -309,23 +309,32 @@ def one_leaf_bvh(num_triangles: int) -> FlatBVH:
 
 
 def upload_scene(scene_np: SceneArrays, accel: str, device, max_leaf: int = 4,
-                 wide_group_tris=None) -> DeviceScene:
+                 wide_group_tris=None, bvh: FlatBVH | None = None) -> DeviceScene:
     """Validate the scene, build `accel` and move everything to `device` (a
     torch.device or name) with the tables the integrator reads every
     bounce.  `accel` is one of ACCELS, as in the reference: max_leaf is the
     binary BVH's leaf width (at most 3 under "cwbvh", whose leaves hold at
-    most 3 triangles) and wide_group_tris the wide group size."""
+    most 3 triangles) and wide_group_tris the wide group size.  `bvh`, if
+    given, is the binary tree this call would build (`build_sbvh` under
+    "sbvh", else `build_bvh`, with this max_leaf), built ahead, for example
+    in another process; it is used in place of the build."""
     if accel not in ACCELS:
         raise ValueError(f"unknown accel {accel!r} (expected one of {'/'.join(ACCELS)})")
     validate_scene(scene_np)
     wide, cw = empty_wide_arrays(), empty_cw_arrays()
     if accel == "brute" or scene_np.num_triangles == 0:
+        if bvh is not None:
+            raise ValueError(f"accel {accel!r} on {scene_np.num_triangles} triangles builds no tree")
         bvh, ordered = one_leaf_bvh(scene_np.num_triangles), scene_np
     else:
         if accel == "cwbvh":
             max_leaf = min(max_leaf, 3)
-        build = build_sbvh if accel == "sbvh" else build_bvh
-        bvh = build(scene_np.vertices, scene_np.tri_v, max_leaf=max_leaf)
+        if bvh is None:
+            build = build_sbvh if accel == "sbvh" else build_bvh
+            bvh = build(scene_np.vertices, scene_np.tri_v, max_leaf=max_leaf)
+        elif len(bvh.tri_order) != scene_np.num_triangles:
+            raise ValueError(f"the tree given orders {len(bvh.tri_order)} triangles, the scene "
+                             f"has {scene_np.num_triangles}")
         ordered = reorder_scene(scene_np, bvh)
         if accel == "wide":
             wide = _wide_arrays(ordered, bvh,

@@ -5,9 +5,10 @@
 
 Phases (any failure exits non-zero; no phase's exception is caught):
   1. require CUDA; print the card's name and power limit (nvidia-smi)
-  2. build csrc/mt_brute.cu (B1), csrc/traverse_mega.cu (B2) and
-     csrc/traverse_cw8.cu (B3) from this checkout, one nvcc each, started
-     together; print ptxas's lines (registers, stack, spills)
+  2. build csrc/mt_brute.cu (B1), csrc/traverse_mega.cu (B2),
+     csrc/traverse_cw8.cu (B3) and csrc/traverse_bvh.cu (B4) from this
+     checkout, one nvcc each, started together; print ptxas's lines
+     (registers, stack, spills)
   3. kernel vs plain PyTorch twin on the card: cornell primary, bounce
      and shadow rays at 700x700, 65536 rays x the 2048-triangle soup (4 lanes per
      ray), an edge-case set (ragged N, inactive lanes, det = 0 padding rows,
@@ -75,10 +76,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      within 1e-6 relative; on every set B3's stats variant, plain and
      seeded with the closest t, returns the plain launch's answers.
  13. B3 vs B1 at grid1m: phase 8's rays and contract
- 14. golden through B3 ("cwbvh", 8 samples a launch), and through "bvh2"
-     and "sbvh" (plain torch walk, no kernel, one sample a launch: their
-     walk cannot be captured): cornell 64x64, 48 spp, within the golden's
-     bounds; for "cwbvh" B3 launched, B1, B2 and the twins not
+ 14. golden through B3 ("cwbvh") and B4 ("bvh2" and "sbvh"), 8 samples a
+     launch (render_image's CUDA graph replays): cornell 64x64, 48 spp,
+     within the golden's bounds; the path's kernel launched (48 samples
+     and each capture's warm-up sample) x 3 a query, its twin and the
+     other kernels not
  15. the cwbvh main path on grid100k and grid1m, as phase 10, B3's share
      from the profiler
  16. B3 vs twin times at grid100k (65536 primary and bounce rays) and B3 vs
@@ -173,18 +175,39 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      its eager render bit for bit; (c) `cli render scenes/cornell.toml
      --spp 64 --spp-per-launch 64` at 700x700 in a subprocess (one launch
      through the config's "wide"), its PNG equal to the same render made
-     eagerly in this process, its progress records present; (d)
-     render_steps of 4 under "bvh2" on the card raises ValueError naming
-     --spp-per-launch 1, nothing launched; (e) the cornell at 1920x1080
+     eagerly in this process, its progress records present; (d) as (a)
+     through B4: "bvh2" and "sbvh" on the 700x700 cornell and "bvh2" on
+     grid100k; (e) the cornell at 1920x1080
      in launches of 4, 2 and 2 samples (the halving of the CLI's --resume
      loop) through two graphs that share one memory pool, equal bit for
      bit to 8 eager samples, with the pool's bytes after each capture;
      the second graph grows the pool by at most a tenth.
      Its numbers are also printed
      as one {"phase20": ...} JSON line before the kernels' line.
-About 5 minutes on one H100, builds included.  B3's stats variant
-(`stats=True`) is checked and used for counts and bounds only; its launches
-are counted apart (`traverse_cw8.stats_launches`).  The line before the last is
+ 21. B4, the binary-BVH walk (ops/traverse_bvh.py, "bvh2" and "sbvh"):
+     (a) the main path as phase 10 under "bvh2" and "sbvh" on grid100k and
+     grid1m (256x256, 4 bounces, one launch of 16 spp after a warm-up
+     launch; grid1m's SBVH is built on the host in a process of its own
+     while phases 2-20 run): upload seconds, ms/frame, the eager sample's
+     split, one eager frame through the twin walk (the card's path before
+     B4) and B4's profiler device time beside the graph's frame; (b) B4 against
+     its twin, t, tri, u, v bit for bit and occlusion on every ray: the
+     cornell 700x700 primary, bounce and shadow rays, (a)'s four scenes'
+     65536 primary rays and the integrator's bounce rays from their hits,
+     an edge set (ragged N, ~10 % inactive lanes, rays at vertices and
+     along edges, axis-parallel rays with ±0 components in the planes of
+     the box faces) at max_leaf 4 and 2 (below the build's leaf width), an
+     all-dead batch and an empty scene; on every set B4's stats variant,
+     plain and seeded with the closest t, returns the plain launch's
+     answers; (c) B4 and its twin timed on the cornell primary rays and
+     (a)'s ray sets, beside B4's bound (`bvh_bound`, from the stats
+     variant's oracle walk) and its walk's work over the bound.  Its
+     numbers are also printed as one {"phase21": ...} JSON line before the
+     kernels' line.
+About 6 minutes on one H100, builds included.  B3's and B4's stats
+variants (`stats=True`) are checked and used for counts and bounds only;
+their launches are counted apart (`traverse_cw8.stats_launches`,
+`traverse_bvh.stats_launches`).  The line before the last is
 the kernels' JSON record, each kernel with its time, its plain twin's, and
 its bound (the larger of its bytes over 3.35 TB/s and its FP32 operations
 over 67 TFLOP/s, the H100 SXM's published peaks, counted from this run's
@@ -721,36 +744,73 @@ def write_textured_scene(directory):
 # The kernel module and kernel name each accelerator's path runs.
 PATH_KERNEL = {"brute": ("mt_brute", "mt_brute_kernel", "B1"),
                "wide": ("traverse_mega", "mega_kernel", "B2"),
-               "cwbvh": ("traverse_cw8", "cw8_kernel", "B3")}
+               "cwbvh": ("traverse_cw8", "cw8_kernel", "B3"),
+               "bvh2": ("traverse_bvh", "bvh2_kernel", "B4"),
+               "sbvh": ("traverse_bvh", "bvh2_kernel", "B4")}
 
 
-def main_path(label, scene, camera, options, dev, spp, split_stages=True):
+def kernel_modules():
+    """{module name: module} of the four kernel modules."""
+    from caitlynrenderer_tpu_torch.ops import mt_brute, traverse_bvh, traverse_cw8, traverse_mega
+
+    return {"mt_brute": mt_brute, "traverse_mega": traverse_mega, "traverse_cw8": traverse_cw8,
+            "traverse_bvh": traverse_bvh}
+
+
+@contextlib.contextmanager
+def twin_walk():
+    """The binary walk as the card ran it before B4: the integrator's
+    "bvh2"/"sbvh" queries go to the plain twins, which read the host at
+    every step."""
+    from caitlynrenderer_tpu_torch.ops import traverse_bvh as tb
+    from caitlynrenderer_tpu_torch.render import integrator
+
+    saved = integrator.traverse_closest, integrator.traverse_anyhit
+    integrator.traverse_closest = tb.traverse_closest_plain
+    integrator.traverse_anyhit = tb.traverse_anyhit_plain
+    try:
+        yield
+    finally:
+        integrator.traverse_closest, integrator.traverse_anyhit = saved
+
+
+def main_path(label, scene, camera, options, dev, spp, split_stages=True, prebuilt=None):
     """upload_scene -> render_steps -> resolve, one launch of `spp` samples
     (a CUDA graph's replay) timed after a warm-up launch of the same length
-    (the capture), through the "brute", "wide" or "cwbvh" kernel; with
+    (the capture), through the accelerator's kernel (B1, B2, B3, or B4
+    under "bvh2"/"sbvh", whose stack is sized by required_stack); with
     `split_stages`, then the split of an eager sample between its stages.
     Returns the launch counts of the warm-up and timed run's kernels, by
-    module, and the upload."""
+    module, the upload, and the numbers (upload_s, ms_per_frame,
+    rays_per_sec; with the split, each stage's eager ms, the kernel's and
+    every kernel's profiler device ms per sample, and under B4 one eager
+    frame through the twin walk).  prebuilt: (FlatBVH, seconds) of the
+    binary tree upload_scene would build, built ahead (SbvhBuild), handed
+    to upload_scene; its seconds count in the upload's."""
     from caitlynrenderer_tpu_torch.accel.native import native_available
     from caitlynrenderer_tpu_torch.core.camera import generate_rays
-    from caitlynrenderer_tpu_torch.ops import mt_brute, traverse_cw8, traverse_mega
     from caitlynrenderer_tpu_torch.render import progressive, sampling
     from caitlynrenderer_tpu_torch.render.integrator import trace_paths
-    from caitlynrenderer_tpu_torch.scene import upload_scene
+    from caitlynrenderer_tpu_torch.scene import required_stack, upload_scene
 
-    modules = {"mt_brute": mt_brute, "traverse_mega": traverse_mega,
-               "traverse_cw8": traverse_cw8}
+    modules = kernel_modules()
     name, kernel, tag = PATH_KERNEL[options.accel]
     w, h, depth = options.width, options.height, options.max_depth
     n = w * h
+    tree, build_s = prebuilt or (None, 0.0)
     t0 = time.perf_counter()
-    ds = upload_scene(scene, options.accel, dev)
+    ds = upload_scene(scene, options.accel, dev, bvh=tree)
     torch.cuda.synchronize()
-    upload_s = time.perf_counter() - t0
+    upload_s = build_s + time.perf_counter() - t0
+    binary = options.accel in ("bvh2", "sbvh")
+    if binary:
+        options = options._replace(max_stack=required_stack(ds))
     layout = {"brute": "a brute-force slab",
               "wide": f"{ds.wb_mega.shape[0]} groups of {ds.wb_mega.shape[2] // 3} columns",
               "cwbvh": f"{ds.cw_nodes.shape[0]} node8s of depth {ds.cw_depth}, "
-                       f"{ds.cw_planes.shape[0]} windows"}[options.accel]
+                       f"{ds.cw_planes.shape[0]} windows",
+              "bvh2": f"{ds.node_meta.shape[0]} nodes of depth {ds.tree_depth}",
+              "sbvh": f"{ds.node_meta.shape[0]} nodes of depth {ds.tree_depth}"}[options.accel]
     print(f"  {label}: {scene.num_triangles} triangles, {layout}; upload + build "
           f"{upload_s:.3f} s (native BVH build: {native_available()})", flush=True)
 
@@ -789,8 +849,10 @@ def main_path(label, scene, camera, options, dev, spp, split_stages=True):
           f"{rays_per_sample * spp / elapsed:.1f} ms_per_frame {elapsed / spp * 1e3:.3f} "
           f"alive_per_bounce {alive_per_bounce} mean pixel {float(img.mean()):.4f} "
           f"launches {launches}", flush=True)
+    rec = {"upload_s": upload_s, "ms_per_frame": elapsed / spp * 1e3,
+           "rays_per_sec": rays_per_sample * spp / elapsed}
     if not split_stages:
-        return launches, ds
+        return launches, ds, rec
 
     # Where an eager sample's time goes: CUDA events around each stage, then
     # the kernel's device time from a profiler trace of two eager samples.
@@ -803,7 +865,9 @@ def main_path(label, scene, camera, options, dev, spp, split_stages=True):
         "progressive.render_step": lambda: progressive.render_step(
             ds, camera, state, w, h, options),
     }
-    split = {k: event_ms(f, 5, host_ahead=False) for k, f in stages.items()}  # host included
+    # host included; an eager binary walk syncs the host every step, so once
+    reps = 1 if binary else 5
+    split = {k: event_ms(f, reps, host_ahead=False) for k, f in stages.items()}
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -826,8 +890,16 @@ def main_path(label, scene, camera, options, dev, spp, split_stages=True):
     print(f"  {label} integrator less {tag}: {split['integrator.trace_paths'] - kernel_ms:.3f} "
           f"ms per sample ({tag} {kernel_ms:.3f}); every kernel of a sample on the card "
           f"(profiler) {busy_ms:.3f} ms, {busy_ms / split['progressive.render_step']:.1%} of "
-          "render_step", flush=True)
-    return launches, ds
+          f"render_step; {tag}'s share of the device's time {kernel_ms / max(busy_ms, 1e-9):.1%}",
+          flush=True)
+    rec.update({"eager_ms": split, "kernel_device_ms": kernel_ms, "device_busy_ms": busy_ms})
+    if binary:
+        with twin_walk():
+            rec["eager_twin_walk_ms"] = event_ms(lambda: progressive.render_step(
+                ds, camera, state, w, h, options), 1, host_ahead=False)
+        print(f"  {label} one eager frame through the twin walk (the card's path before B4): "
+              f"{rec['eager_twin_walk_ms']:.3f} ms", flush=True)
+    return launches, ds, rec
 
 
 GRAD_STEPS = 150
@@ -1567,6 +1639,10 @@ def phase19(dev, setup, camera, grid, grid_cam, g3, go, gd, gact, guni, b3o, b3d
     return rec, totals
 
 
+# Phase 21 (a)'s main paths under B4: (label, scene, accel).
+BINARY_MAIN_PATHS = (("grid100k bvh2", "grid100k", "bvh2"), ("grid1m bvh2", "grid1m", "bvh2"),
+                     ("grid100k sbvh", "grid100k", "sbvh"), ("grid1m sbvh", "grid1m", "sbvh"))
+
 # Phase 20: samples per launch (render/progressive.py's CUDA graphs).
 GRAPH_SPP = 16  # samples a replay of phase 20's graphs
 
@@ -1603,23 +1679,23 @@ class CaptureRecords(logging.Handler):
         self.logger.setLevel(self.level)
 
 
-def phase20(dev, smi, runs, cfg, base_dir):
-    """Phase 20 (a)-(d).  runs: [(label, upload, camera, options)] for (a);
-    the first is the cornell demo through B1, whose graph (b) reuses.
-    Returns (record, kernel launches of (a) and (b) by module)."""
+def phase20(dev, smi, runs, binary_runs, cfg, base_dir):
+    """Phase 20 (a)-(e).  runs: [(label, upload, camera, options)] for (a);
+    the first is the cornell demo through B1, whose graph (b) reuses;
+    binary_runs likewise for (d), under "bvh2"/"sbvh" (B4).  Returns
+    (record, kernel launches of (a), (b), (d) and (e) by module)."""
     from caitlynrenderer_tpu_torch.cli import render_setup, turntable_camera
     from caitlynrenderer_tpu_torch.io.image import load_png, save_png
-    from caitlynrenderer_tpu_torch.ops import mt_brute as mt
-    from caitlynrenderer_tpu_torch.ops import traverse_cw8 as cw8
-    from caitlynrenderer_tpu_torch.ops import traverse_mega as mega
     from caitlynrenderer_tpu_torch.render import progressive
     from caitlynrenderer_tpu_torch.scene import required_stack, upload_scene
     from caitlynrenderer_tpu_torch.utils import config
 
     t20 = time.perf_counter()
-    modules = {"mt_brute": mt, "traverse_mega": mega, "traverse_cw8": cw8}
+    modules = kernel_modules()
+    mt = modules["mt_brute"]
     totals = {k: {"closest": 0, "anyhit": 0} for k in modules}
-    rec = {"device": smi, "spp_per_launch": GRAPH_SPP, "a_graph_vs_eager": {}}
+    rec = {"device": smi, "spp_per_launch": GRAPH_SPP, "a_graph_vs_eager": {},
+           "d_binary_graph_vs_eager": {}}
 
     def reset():
         for m in modules.values():
@@ -1632,8 +1708,9 @@ def phase20(dev, smi, runs, cfg, base_dir):
             st = progressive.render_step(ds, camera, st, w, h, options)
         return st
 
-    # (a) 2 replays of a graph of 16 samples against 32 eager samples.
-    for label, ds, camera, options in runs:
+    def graph_vs_eager(tag, label, ds, camera, options):
+        """2 replays of a graph of 16 samples against 32 eager samples, bit
+        for bit; both paths' ms/frame, the capture's numbers."""
         name = PATH_KERNEL[options.accel][0]
         w, h, depth = options.width, options.height, options.max_depth
         eager(ds, camera, options, 1)  # the eager path warm
@@ -1656,7 +1733,7 @@ def phase20(dev, smi, runs, cfg, base_dir):
         st = progressive.render_steps(ds, camera, st, w, h, options, GRAPH_SPP)
         torch.cuda.synchronize()
         check(st.frame_count == 2 * GRAPH_SPP and torch.equal(st.accum, want.accum),
-              f"(a) {label}: two replays of {GRAPH_SPP} samples differ from "
+              f"({tag}) {label}: two replays of {GRAPH_SPP} samples differ from "
               f"{2 * GRAPH_SPP} eager samples")
         t0 = time.perf_counter()
         for _ in range(2):
@@ -1665,8 +1742,8 @@ def phase20(dev, smi, runs, cfg, base_dir):
         graph_ms = (time.perf_counter() - t0) / (2 * GRAPH_SPP) * 1e3
         check(progressive.graph_counts == {"captures": counts["captures"] + 1,
                                            "replays": counts["replays"] + 4},
-              f"(a) {label}: graphs {progressive.graph_counts}, before {counts}")
-        check(len(captured.rows) == 1, f"(a) {label}: capture records {captured.rows}")
+              f"({tag}) {label}: graphs {progressive.graph_counts}, before {counts}")
+        check(len(captured.rows) == 1, f"({tag}) {label}: capture records {captured.rows}")
         g = captured.rows[0]
         per_replay = g["launches"][name]
         check(g["nodes"] > 0 and g["spp"] == GRAPH_SPP
@@ -1674,13 +1751,13 @@ def phase20(dev, smi, runs, cfg, base_dir):
               and per_replay["closest"] == per_replay["anyhit"] == depth * GRAPH_SPP
               and all(v == 0 for k, r in g["launches"].items() for q, v in r.items()
                       if k != name or q.endswith("_twin")),
-              f"(a) {label}: the graph holds {g}")
+              f"({tag}) {label}: the graph holds {g}")
         launches = {k: dict(m.launches) for k, m in modules.items()}
         samples = 2 * GRAPH_SPP + 1 + 4 * GRAPH_SPP  # eager, the warm-up, 4 replays
         check(launches[name]["closest"] == launches[name]["anyhit"] == depth * samples,
-              f"(a) {label}: launches {launches}")
+              f"({tag}) {label}: launches {launches}")
         check(all(v == 0 for k, r in launches.items() for q, v in r.items()
-                  if k != name or q.endswith("_twin")), f"(a) {label}: another path ran: "
+                  if k != name or q.endswith("_twin")), f"({tag}) {label}: another path ran: "
               f"{launches}")
         for q in ("closest", "anyhit"):
             totals[name][q] += launches[name][q]
@@ -1690,14 +1767,18 @@ def phase20(dev, smi, runs, cfg, base_dir):
                "instantiate_s": g["instantiate_s"], "nodes": nodes,
                "nodes_per_sample": nodes / GRAPH_SPP, "pool_bytes": graph_pool_bytes(),
                "peak_bytes_first_launch": peak, "launches_per_replay": per_replay}
-        rec["a_graph_vs_eager"][label] = row
-        print(f"  (a) {label}: eager {eager_ms:.3f} ms/frame, graph {graph_ms:.3f} "
+        print(f"  ({tag}) {label}: eager {eager_ms:.3f} ms/frame, graph {graph_ms:.3f} "
               f"({eager_ms / graph_ms:.2f}x); first launch {first_s:.3f} s (capture "
               f"{g['capture_s']:.3f} s, instantiate {g['instantiate_s']:.3f} s); {nodes} nodes "
               f"({nodes / GRAPH_SPP:.1f} a sample); graph pool {row['pool_bytes'] / 2**20:.1f} "
               f"MiB, peak over the first launch {peak / 2**20:.1f} MiB; kernel nodes of "
               f"{name}, which a replay adds: {per_replay}; 2 replays equal {2 * GRAPH_SPP} "
               "eager samples bit for bit", flush=True)
+        return row
+
+    # (a) 2 replays of a graph of 16 samples against 32 eager samples.
+    for label, ds, camera, options in runs:
+        rec["a_graph_vs_eager"][label] = graph_vs_eager("a", label, ds, camera, options)
 
     # (b) a turntable of three orbit cameras through (a)'s first graph, each
     # frame equal to its eager render.
@@ -1761,26 +1842,9 @@ def phase20(dev, smi, runs, cfg, base_dir):
           f"{capture[0]['capture_s']:.3f} s, instantiate {capture[0]['instantiate_s']:.3f} s; "
           "its PNG equal to the eager render", flush=True)
 
-    # (d) bvh2 refuses samples per launch on the card, launching nothing.
-    sc, cam, opts = render_setup(cfg, base_dir, width=64, height=64, accel="bvh2")
-    bds = upload_scene(sc, "bvh2", dev, max_leaf=opts.max_leaf)
-    opts = opts._replace(max_stack=required_stack(bds))
-    reset()
-    counts = dict(progressive.graph_counts)
-    try:
-        progressive.render_steps(bds, cam, progressive.init_state(64, 64, 0, dev), 64, 64,
-                                 opts, 4)
-        refused = None
-    except ValueError as e:  # the refusal this phase checks for
-        refused = str(e)
-    check(refused is not None and "--spp-per-launch 1" in refused,
-          f"(d) bvh2 was not refused: {refused}")
-    check(progressive.graph_counts == counts and all(
-        v == 0 for m in modules.values() for v in m.launches.values()),
-        "(d) the refused call launched something")
-    rec["d_bvh2"] = {"refused": refused}
-    print(f"  (d) bvh2, render_steps of 4 on the card: ValueError ({refused[:60]}...), nothing "
-          "launched", flush=True)
+    # (d) the same under "bvh2" and "sbvh": B4 in the graph.
+    for label, ds, camera, options in binary_runs:
+        rec["d_binary_graph_vs_eager"][label] = graph_vs_eager("d", label, ds, camera, options)
 
     # (e) the cornell at 1920x1080 in launches of 4, 2 and 2 samples (the
     # --resume loop's halving) through two graphs sharing one pool, against
@@ -1816,7 +1880,271 @@ def phase20(dev, smi, runs, cfg, base_dir):
     return rec, totals
 
 
+# Phase 21: kernel B4, the binary-BVH walk (ops/traverse_bvh.py).
+
+SBVH_BUILD = """\
+import sys, time
+import numpy as np
+from caitlynrenderer_tpu_torch.bench import bench_scene
+from caitlynrenderer_tpu_torch.accel.sbvh import build_sbvh
+scene = bench_scene("grid1m")[0]
+t0 = time.perf_counter()
+bvh = build_sbvh(scene.vertices, scene.tri_v, max_leaf=4)
+np.savez(sys.argv[1], seconds=time.perf_counter() - t0, node_bounds=bvh.node_bounds,
+         node_meta=bvh.node_meta, tri_order=bvh.tri_order)
+"""
+
+
+class SbvhBuild:
+    """grid1m's SBVH (numpy, on the host's CPU) built in a process of its
+    own while the card runs the earlier phases, as upload_scene's "sbvh"
+    branch builds it; `start` launches it, `tree` waits for it, and leaving
+    the `with` block stops it."""
+
+    def __enter__(self):
+        self.tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sbvh_")
+        self.path = os.path.join(self.tmp.name, "sbvh.npz")
+        self.proc = None
+        return self
+
+    def start(self):
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+        self.proc = subprocess.Popen([sys.executable, "-c", SBVH_BUILD, self.path], cwd=ROOT,
+                                     env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True)
+
+    def tree(self):
+        """(FlatBVH, the build's seconds on the host), for main_path's
+        `prebuilt`."""
+        from caitlynrenderer_tpu_torch.accel.bvh import FlatBVH
+
+        out, _ = self.proc.communicate(timeout=600)
+        check(self.proc.returncode == 0, f"the SBVH build of grid1m failed: {out[-2000:]}")
+        z = np.load(self.path)
+        print(f"  grid1m sbvh: built on the host in {float(z['seconds']):.3f} s, in a process "
+              "of its own during the earlier phases", flush=True)
+        return FlatBVH(z["node_bounds"], z["node_meta"], z["tri_order"]), float(z["seconds"])
+
+    def __exit__(self, *exc):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.tmp.cleanup()
+
+
+def axis_rays(ds, rng, n, cuda):
+    """Axis-parallel rays (±0 in the two zero components, so d_inv = ±inf)
+    at random points inside the scene's triangles, from 0.5-3 units off,
+    the origin on the target's two other coordinates: on the cornell's
+    axis-aligned walls and boxes such a ray runs in a box face's plane,
+    where (face - o) * d_inv = 0 * inf = NaN in the slab test."""
+    verts = ds.scene.vertices.cpu().numpy()
+    tv = ds.scene.tri_v.cpu().numpy()
+    k = rng.integers(0, tv.shape[0], n)
+    b1, b2 = rng.uniform(0.1, 0.45, n), rng.uniform(0.1, 0.45, n)
+    v0, v1, v2 = (verts[tv[k, j]] for j in range(3))
+    target = v0 + b1[:, None] * (v1 - v0) + b2[:, None] * (v2 - v0)
+    along = np.arange(3)[None, :] == rng.integers(0, 3, n)[:, None]
+    sign = rng.choice(np.array([-1.0, 1.0], np.float32), n)[:, None]
+    zero = np.where(rng.random((n, 3)) < 0.5, np.float32(-0.0), np.float32(0.0))
+    d = np.where(along, sign, zero).astype(np.float32)
+    o = np.where(along, target - d * rng.uniform(0.5, 3.0, n)[:, None], target)
+    return cuda(o), cuda(d)
+
+
+def bvh_stats(tb, qo, qd, qa, tree, t_max, kw):
+    """B4's stats variant on one ray set, closest and any-hit, each as the
+    timed walk and as the oracle walk seeded with the closest t; checks
+    that all four return the plain launch's answers.  Returns {"closest",
+    "anyhit", "closest_oracle", "anyhit_oracle": st}."""
+    want = tb.traverse_closest(qo, qd, qa, *tree, **kw)
+    occ = tb.traverse_anyhit(qo, qd, t_max, qa, *tree, **kw)
+    out = {}
+    for tag, seed in (("", None), ("_oracle", want[0])):
+        *got, out["closest" + tag] = tb.traverse_closest(qo, qd, qa, *tree, **kw, stats=True,
+                                                         t_seed=seed)
+        occs, out["anyhit" + tag] = tb.traverse_anyhit(qo, qd, t_max, qa, *tree, **kw,
+                                                       stats=True, t_seed=seed)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(occs, occ),
+              f"B4's stats variant{' (oracle walk)' if seed is not None else ''} differs from "
+              "the plain launch")
+    return out
+
+
+# Bytes of one row of each table B4 reads, by its stats variant's flag: a
+# node's meta (left, count), a node's bounds, a tri_v row, a vertex.
+BVH_ROW_BYTES = {"meta_seen": 8, "bounds_seen": 24, "tri_seen": 16, "vert_seen": 12}
+
+
+def bvh_bound(st, anyhit):
+    """B4's work at the bound's rates from its stats variant's counts `st`:
+    given the oracle walk's (children culled against the known closest t,
+    acceptance unchanged), B4's bound, the work the query needs; given the
+    timed walk's own, the work that walk did.  Operations: BOX_OPS for each
+    of the two child boxes of an inner node visited, MT_OPS per leaf
+    triangle tested.  Bytes: rays in and results out, and each distinct
+    row read, once: a node's meta where the walk stood on it, its bounds
+    where it was slab-tested as a child, a triangle's tri_v row, and each
+    vertex (shared by ~6 triangles of a grid) once (BVH_ROW_BYTES)."""
+    inner, tris = (float(x) for x in st["counts"][:, 0:2].double().sum(dim=0))
+    n = st["counts"].shape[0]
+    nbytes = n * (24 + 1 + (4 + 1 if anyhit else 16)) + sum(
+        b * int(st[k].sum()) for k, b in BVH_ROW_BYTES.items())
+    return bound(nbytes, 2 * inner * BOX_OPS + tris * MT_OPS)
+
+
+def compare_bvh(label, tb, o, d, active, tree, t_max, kw):
+    """B4 vs its twin on one input: t, tri, u, v equal bit for bit and
+    occlusion on every ray; the stats variant, as the timed walk and as
+    the oracle walk, equal to the plain launch.  Returns the largest |dt|
+    and the occlusion mismatch (0 or 1)."""
+    got = tb.traverse_closest(o, d, active, *tree, **kw)
+    want = tb.traverse_closest_plain(o, d, active, *tree, **kw)
+    occ = tb.traverse_anyhit(o, d, t_max, active, *tree, **kw)
+    occ_t = tb.traverse_anyhit_plain(o, d, t_max, active, *tree, **kw)
+    torch.cuda.synchronize()
+    bits = {k: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            for k, a, b in zip(("t", "tri", "u", "v"), got, want)}
+    bits["occluded"] = int((occ != occ_t).sum())
+    worst = float((got[0] - want[0]).abs().max()) if o.shape[0] else 0.0
+    axis = int(((d == 0).sum(dim=1) == 2).sum())
+    print(f"  {label}: rays {o.shape[0]} ({int(active.sum())} live, {axis} axis-parallel), "
+          f"{tree[1].shape[0]} nodes, max_leaf {kw['max_leaf']}, stack {kw['max_stack']}: hits "
+          f"{int((want[1] >= 0).sum())} occluded {int(occ_t.sum())} | bit mismatches {bits}",
+          flush=True)
+    check(all(v == 0 for v in bits.values()), f"{label}: B4 and its twin differ: {bits}")
+    if tree[3].shape[0] and o.shape[0]:
+        bvh_stats(tb, o, d, active, tree, t_max, kw)
+    return worst, float(bits["occluded"] > 0)
+
+
+def phase21(dev, smi, scene, camera, o, d, uni, grid, grid1m, grid_cam, go, gd, gact, guni,
+            cuda, sbvh_grid1m):
+    """Phase 21 (a)-(c).  Returns (record, B4 launches of (a)'s main
+    paths, B4's largest |dt| and occlusion mismatch against the twin, and
+    its times and bounds at grid100k's primary rays for the kernels'
+    line)."""
+    from caitlynrenderer_tpu_torch.core.types import RenderOptions
+    from caitlynrenderer_tpu_torch.ops import traverse_bvh as tb
+    from caitlynrenderer_tpu_torch.scene import required_stack, scene_families, upload_scene
+
+    t21 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    rec = {"device": smi, "a_main_path": {}, "c_times": {}}
+    launches = {"closest": 0, "anyhit": 0}
+
+    def tree(ds):
+        return ds.node_bounds, ds.node_meta, ds.scene.vertices, ds.scene.tri_v
+
+    def kw(ds, max_leaf=4):
+        return {"max_leaf": max_leaf, "max_stack": required_stack(ds)}
+
+    # (a) The main path at full size through a graph, and its eager split.
+    uploads = {}
+    for name, sc, accel in BINARY_MAIN_PATHS:
+        sc = {"grid100k": grid, "grid1m": grid1m}[sc]
+        opts = RenderOptions(width=BENCH, height=BENCH, max_depth=BENCH_DEPTH, accel=accel,
+                             families=scene_families(sc))
+        prebuilt = sbvh_grid1m.tree() if name == "grid1m sbvh" else None
+        runs, uploads[name], r = main_path(name, sc, grid_cam, opts, dev, MAIN_SPP,
+                                           prebuilt=prebuilt)
+        for q in launches:
+            launches[q] += runs["traverse_bvh"][q]
+        r["b4_share_of_graph_frame"] = r["kernel_device_ms"] / r["ms_per_frame"]
+        rec["a_main_path"][name] = r
+        print(f"  {name}: graph {r['ms_per_frame']:.3f} ms/frame, eager render_step "
+              f"{r['eager_ms']['progressive.render_step']:.3f} ms "
+              f"({r['eager_ms']['progressive.render_step'] / r['ms_per_frame']:.1f}x), through "
+              f"the twin walk {r['eager_twin_walk_ms']:.3f} ms "
+              f"({r['eager_twin_walk_ms'] / r['ms_per_frame']:.1f}x); upload "
+              f"{r['upload_s']:.3f} s; B4 {r['kernel_device_ms']:.3f} ms a sample on the device, "
+              f"{r['b4_share_of_graph_frame']:.1%} of the graph frame", flush=True)
+
+    # (b) B4 against its twin, bit for bit.
+    n, nb = o.shape[0], go.shape[0]
+    cds = upload_scene(scene, "bvh2", dev)
+    ck = kw(cds)
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    results = [compare_bvh(f"cornell {DEMO}x{DEMO} primary", tb, o, d, act, tree(cds),
+                           cuda(rng.uniform(0, 20, n)), ck)]
+    tri = tb.traverse_closest(o, d, act, *tree(cds), **ck)[1]
+    results.append(compare_bvh("cornell bounce", tb, *bounce_rays(cds, o, d, tri, uni), tree(cds),
+                               cuda(rng.uniform(0, 8, n)), ck))
+    shadow = shadow_rays(cds, o, d, tri, uni)
+    results.append(compare_bvh("cornell shadow", tb, *shadow[:3], tree(cds), shadow[3], ck))
+    sets = {f"cornell {DEMO}x{DEMO} primary bvh2": (o, d, act, cds)}
+    for name, ds in uploads.items():
+        gk = kw(ds)
+        results.append(compare_bvh(f"{name} primary", tb, go, gd, gact, tree(ds),
+                                   cuda(rng.uniform(0, 20, nb)), gk))
+        tri = tb.traverse_closest(go, gd, gact, *tree(ds), **gk)[1]
+        bo, bd, ba = bounce_rays(ds, go, gd, tri, guni)
+        results.append(compare_bvh(f"{name} bounce", tb, bo, bd, ba, tree(ds),
+                                   cuda(rng.uniform(0, 8, nb)), gk))
+        sets[f"{name} primary"] = (go, gd, gact, ds)
+        sets[f"{name} bounce"] = (bo, bd, ba, ds)
+    # The edge set on the cornell: ragged N, ~10 % inactive lanes, rays at
+    # vertices and edge midpoints, along edges and axis-aligned (edge_rays),
+    # and axis-parallel rays with ±0 components in the planes of box faces;
+    # at the build's leaf width 4 and at 2, below it; an all-dead batch; an
+    # empty scene.
+    ne = 3001
+    eo, ed = edge_rays(cds, camera, rng, ne)
+    ao, ad = axis_rays(cds, rng, ne, cuda)
+    eo, ed = torch.cat([cuda(eo), ao]).contiguous(), torch.cat([cuda(ed), ad]).contiguous()
+    ea = cuda(rng.random(2 * ne) < 0.9, torch.bool)
+    et = cuda(rng.uniform(0, 30, 2 * ne))
+    check(int(cds.node_meta[:, 1].max()) > 2, "the cornell's leaves are no wider than 2")
+    results.append(compare_bvh("edge set", tb, eo, ed, ea, tree(cds), et, ck))
+    results.append(compare_bvh("edge set, max_leaf 2", tb, eo, ed, ea, tree(cds), et,
+                               kw(cds, 2)))
+    results.append(compare_bvh("all dead", tb, eo, ed, torch.zeros_like(ea), tree(cds), et, ck))
+    empty = upload_scene(scene._replace(tri_v=scene.tri_v[:0], tri_vn=scene.tri_vn[:0],
+                                        tri_vt=scene.tri_vt[:0]), "bvh2", dev)
+    results.append(compare_bvh("empty scene", tb, eo, ed, ea, tree(empty), et, kw(empty)))
+    err = {"closest": max(r[0] for r in results), "anyhit": max(r[1] for r in results)}
+
+    # (c) B4 and its twin timed, beside the bound from the oracle walk.
+    row = None
+    for label, (qo, qd, qa, ds) in sets.items():
+        qk, qt = kw(ds), tree(ds)
+        tmax = torch.full((qo.shape[0],), 20.0, device=dev)
+        r = {"closest": event_ms(lambda: tb.traverse_closest(qo, qd, qa, *qt, **qk), 20),
+             "anyhit": event_ms(lambda: tb.traverse_anyhit(qo, qd, tmax, qa, *qt, **qk), 20),
+             # the twin reads the host every step: timed as a caller issues it
+             "closest_plain": event_ms(lambda: tb.traverse_closest_plain(qo, qd, qa, *qt, **qk),
+                                       2, host_ahead=False),
+             "anyhit_plain": event_ms(lambda: tb.traverse_anyhit_plain(qo, qd, tmax, qa, *qt,
+                                                                       **qk), 2,
+                                      host_ahead=False)}
+        st = bvh_stats(tb, qo, qd, qa, qt, tmax, qk)
+        bounds = {q: bvh_bound(st[q + "_oracle"], q == "anyhit") for q in ("closest", "anyhit")}
+        walk = {q: bvh_bound(st[q], q == "anyhit") for q in ("closest", "anyhit")}
+        rec["c_times"][label] = {"rays": qo.shape[0], "live": int(qa.sum()), "ms": r,
+                                 "bound": bounds, "walk": walk}
+        if label == "grid100k bvh2 primary":
+            row = rec["c_times"][label]
+        print(f"  {label}, {qo.shape[0]} rays ({int(qa.sum())} live), {qt[1].shape[0]} nodes: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in r.items()) + "; bound " + ", ".join(
+                  f"{q} {bounds[q][0]:.4f} ms by {bounds[q][1]} ({bounds[q][0] / r[q]:.1%}), walk "
+                  f"{walk[q][0] / bounds[q][0]:.2f}x it" for q in bounds), flush=True)
+        for q in ("closest", "anyhit"):
+            print(f"    B4 stats, {q}: walk {stats_line(st[q], tb.STATS)} | oracle walk "
+                  f"{stats_line(st[q + '_oracle'], tb.STATS)} | rows read (walk / oracle): "
+                  + ", ".join(f"{k} {int(st[q][k].sum())} / {int(st[q + '_oracle'][k].sum())}"
+                              for k in tb.SEEN), flush=True)
+    rec["seconds"] = time.perf_counter() - t21
+    print(f"  phase 21: {rec['seconds']:.3f} s", flush=True)
+    return rec, launches, err, row
+
+
 def main():
+    with SbvhBuild() as sbvh_grid1m:
+        return run(sbvh_grid1m)
+
+
+def run(sbvh_grid1m):
     # -------------------------------------------------------------- phase 1
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1836,6 +2164,7 @@ def main():
     from caitlynrenderer_tpu_torch.device import get_device
     from caitlynrenderer_tpu_torch.ops import _build
     from caitlynrenderer_tpu_torch.ops import mt_brute as mt
+    from caitlynrenderer_tpu_torch.ops import traverse_bvh as tb
     from caitlynrenderer_tpu_torch.ops import traverse_cw8 as cw8
     from caitlynrenderer_tpu_torch.ops import traverse_mega as mega
     from caitlynrenderer_tpu_torch.bench import bench_scene
@@ -1845,10 +2174,11 @@ def main():
     from caitlynrenderer_tpu_torch.scene import required_stack, scene_families, upload_scene
 
     dev = get_device("cuda")
+    sbvh_grid1m.start()  # phase 21's SBVH of grid1m, on the host meanwhile
 
     # -------------------------------------------------------------- phase 2
     phase("2 build")
-    names = ("mt_brute", "traverse_mega", "traverse_cw8")
+    names = ("mt_brute", "traverse_mega", "traverse_cw8", "traverse_bvh")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc each, all at once
         infos = list(pool.map(lambda name: _build.build(name, force=True), names))
     for info in infos:
@@ -2180,7 +2510,7 @@ def main():
     for label, sc in (("grid100k", grid), ("grid1m", grid1m)):
         opts = RenderOptions(width=BENCH, height=BENCH, max_depth=BENCH_DEPTH, accel="wide",
                              families=scene_families(sc))
-        runs, _ = main_path(label, sc, grid_cam, opts, dev, MAIN_SPP)
+        runs, *_ = main_path(label, sc, grid_cam, opts, dev, MAIN_SPP)
         for q in mega_launches:
             mega_launches[q] += runs["traverse_mega"][q]
 
@@ -2302,32 +2632,34 @@ def main():
                 f"depth {m3.cw_depth})", t3, tri3, occ3, t1, tri1, occ1, mtmax, m3.tris9, m3.tris9)
 
     # ------------------------------------------------------------- phase 14
-    phase("14 golden through B3, bvh2 and sbvh")
+    phase("14 golden through B3 and B4 (cwbvh, bvh2, sbvh)")
+    b4_launches = {"closest": 0, "anyhit": 0}
     for accel in ("cwbvh", "bvh2", "sbvh"):
         _, _, options = setup(64, 64)
         ads = upload_scene(scene, accel, dev)
         options = options._replace(accel=accel, max_stack=required_stack(ads))
-        mt.reset_launches()
-        mega.reset_launches()
-        cw8.reset_launches()
+        for m in (mt, mega, cw8, tb):
+            m.reset_launches()
         captures = progressive.graph_counts["captures"]
-        # bvh2 and sbvh cannot be captured: one sample a launch.
-        img, _ = progressive.render_image(ads, camera, options, spp=48, seed=0,
-                                          spp_per_launch=8 if accel == "cwbvh" else 1)
+        # render_image's default: 8 samples a launch, a CUDA graph's replay.
+        img, _ = progressive.render_image(ads, camera, options, spp=48, seed=0)
         img = img.cpu().numpy()
         gerr = np.abs(img - golden)
-        print(f"  {accel} vs golden: mean {gerr.mean():.3e} max {gerr.max():.3e}; B3 launches "
-              f"{cw8.launches}, B2 {mega.launches}, B1 {mt.launches}", flush=True)
+        print(f"  {accel} vs golden: mean {gerr.mean():.3e} max {gerr.max():.3e}; B4 launches "
+              f"{tb.launches}, B3 {cw8.launches}, B2 {mega.launches}, B1 {mt.launches}",
+              flush=True)
         check(gerr.mean() < 2e-3 and gerr.max() < 0.06, f"golden through {accel} out of bounds")
         check(img[32, 4, 0] > img[32, 4, 1] and img[32, 60, 1] > img[32, 60, 0],
               f"{accel}: walls are not red / green dominant")
-        want = (48 + progressive.graph_counts["captures"] - captures) * 3 if accel == "cwbvh" else 0
-        check(cw8.launches["closest"] == want and cw8.launches["anyhit"] == want,
-              f"{accel}: B3 launches {cw8.launches}")
-        check(cw8.launches["closest_twin"] == 0 and cw8.launches["anyhit_twin"] == 0,
-              f"{accel}: the B3 twin ran on the card's path")
-        check(all(v == 0 for m in (mt, mega) for v in m.launches.values()),
-              f"{accel}: B1, B2 or their twins ran")
+        want = (48 + progressive.graph_counts["captures"] - captures) * 3
+        mine = cw8 if accel == "cwbvh" else tb
+        check(mine.launches == {"closest": want, "anyhit": want, "closest_twin": 0,
+                                "anyhit_twin": 0}, f"{accel}: launches {mine.launches}")
+        check(all(v == 0 for m in (mt, mega, cw8, tb) if m is not mine
+                  for v in m.launches.values()), f"{accel}: another kernel or twin ran")
+        if mine is tb:
+            for q in b4_launches:
+                b4_launches[q] += tb.launches[q]
 
     # ------------------------------------------------------------- phase 15
     phase("15 cwbvh main path on the large scenes")
@@ -2335,7 +2667,7 @@ def main():
     for label, sc in (("grid100k", grid), ("grid1m", grid1m)):
         opts = RenderOptions(width=BENCH, height=BENCH, max_depth=BENCH_DEPTH, accel="cwbvh",
                              families=scene_families(sc))
-        runs, _ = main_path(f"{label} cwbvh", sc, grid_cam, opts, dev, MAIN_SPP)
+        runs, *_ = main_path(f"{label} cwbvh", sc, grid_cam, opts, dev, MAIN_SPP)
         for q in cw_launches:
             cw_launches[q] += runs["traverse_cw8"][q]
 
@@ -2386,7 +2718,7 @@ def main():
         sc, cam, opts = render_setup(c, base_dir, width=size, height=size, max_depth=depth, **over)
         check(opts.accel == ("brute" if "floor" in label else "wide"),
               f"{label}: accel {opts.accel}")
-        runs, _ = main_path(label, sc, cam, opts, dev, MAIN_SPP,
+        runs, *_ = main_path(label, sc, cam, opts, dev, MAIN_SPP,
                             split_stages=label in ("cornell diffuse floor",
                                                    "cornell disney floor"))
         if opts.accel == "brute":
@@ -2563,23 +2895,41 @@ def main():
     _, _, demo_opts = setup(DEMO, DEMO)
     grid_opts = {accel: RenderOptions(width=BENCH, height=BENCH, max_depth=BENCH_DEPTH,
                                       accel=accel, families=scene_families(grid))
-                 for accel in ("wide", "cwbvh")}
+                 for accel in ("wide", "cwbvh", "bvh2")}
+    binary_runs = []
+    for accel in ("bvh2", "sbvh"):
+        bds = upload_scene(scene, accel, dev)
+        binary_runs.append((f"cornell {DEMO}x{DEMO} {accel} (B4)", bds, camera,
+                            demo_opts._replace(accel=accel, max_stack=required_stack(bds))))
+    g4 = upload_scene(grid, "bvh2", dev)
+    binary_runs.append((f"grid100k {BENCH}x{BENCH} bvh2 (B4)", g4, grid_cam,
+                        grid_opts["bvh2"]._replace(max_stack=required_stack(g4))))
     rec20, runs20 = phase20(dev, smi, [
         (f"cornell {DEMO}x{DEMO} brute (B1)", ds_main, camera, demo_opts),
         (f"grid100k {BENCH}x{BENCH} wide (B2)", gds, grid_cam, grid_opts["wide"]),
         (f"grid100k {BENCH}x{BENCH} cwbvh (B3)", g3, grid_cam, grid_opts["cwbvh"]),
         (f"grid1m {BENCH}x{BENCH} wide (B2)", mds, grid_cam,
          grid_opts["wide"]._replace(families=scene_families(grid1m))),
-    ], cfg, os.path.dirname(CORNELL_TOML))
+    ], binary_runs, cfg, os.path.dirname(CORNELL_TOML))
+    del binary_runs, g4
     for q in ("closest", "anyhit"):
         launches[q] += runs20["mt_brute"][q]
         mega_launches[q] += runs20["traverse_mega"][q]
         cw_launches[q] += runs20["traverse_cw8"][q]
+        b4_launches[q] += runs20["traverse_bvh"][q]
     print(json.dumps({"phase20": rec20}))
 
+    # ------------------------------------------------------------- phase 21
+    phase("21 B4: the binary walk")
+    rec21, runs21, err_b4, b4_row = phase21(dev, smi, scene, camera, o, d, uni, grid, grid1m,
+                                            grid_cam, go, gd, gact, guni, cuda, sbvh_grid1m)
+    for q in ("closest", "anyhit"):
+        b4_launches[q] += runs21[q]
+    print(json.dumps({"phase21": rec21}))
+
     # Bounds at the shapes each row's time was taken at: B1 on the 700x700
-    # cornell primary rays (closest) and their shadow rays (any-hit), B2 and
-    # B3 on grid100k's 65536 primary rays.
+    # cornell primary rays (closest) and their shadow rays (any-hit), B2, B3
+    # and B4 (bvh2) on grid100k's 65536 primary rays.
     b23_bounds = b2_sets[("grid100k", "primary")]["bound"]
 
     def kernel_row(name, mod, q, n_launch, err_q, ms, plain_ms, bnd):
@@ -2599,6 +2949,9 @@ def main():
     ] + [
         kernel_row("cw8", cw8, q, cw_launches[q], err_b3[q], b3_times[q],
                    b3_times[f"{q}_plain"], b23_bounds[f"B3 {q}"]) for q in ("closest", "anyhit")
+    ] + [
+        kernel_row("bvh", tb, q, b4_launches[q], err_b4[q], b4_row["ms"][q],
+                   b4_row["ms"][f"{q}_plain"], b4_row["bound"][q]) for q in ("closest", "anyhit")
     ]}
     loaded = sorted(k for k in sys.modules
                     if any(k == f or k.startswith(f + ".") for f in FORBIDDEN))

@@ -1,7 +1,8 @@
 """CUDA tier: the hand-written kernels (mt_brute, traverse_mega,
-traverse_cw8) against their plain PyTorch twins on the card, their stats
-variants against the plain launches, the golden render through each, and
-one value and grad on the card against the CPU.
+traverse_cw8, traverse_bvh) against their plain PyTorch twins on the card,
+their stats variants against the plain launches, the golden render through
+each, CUDA graphs against eager samples, and one value and grad on the card
+against the CPU.
 
 Marked `cuda`; every test skips (inside the fixture, never at import)
 when torch sees no CUDA device.  Run on an NVIDIA card with
@@ -9,7 +10,7 @@ when torch sees no CUDA device.  Run on an NVIDIA card with
 builds its csrc/*.cu with nvcc (a few seconds).  Tolerance: tri, group and
 occlusion equal on every ray, t/u/v within 1e-6 relative (kernel and twin
 evaluate the same float32 expressions, neither contracts into FMAs); B3's
-window equal on every ray too.
+window equal on every ray too; B4's t, u and v bit for bit.
 """
 
 import os
@@ -24,10 +25,16 @@ from caitlynrenderer_tpu.utils import config
 from caitlynrenderer_tpu_torch.bench import bench_scene
 from caitlynrenderer_tpu_torch.core import math as cm
 from caitlynrenderer_tpu_torch.core.camera import generate_rays
-from caitlynrenderer_tpu_torch.ops import mt_brute, traverse_cw8, traverse_mega
+from caitlynrenderer_tpu_torch.ops import mt_brute, traverse_bvh, traverse_cw8, traverse_mega
 from caitlynrenderer_tpu_torch.ops.intersect import pack_tris
 from caitlynrenderer_tpu_torch.render import progressive, sampling
-from caitlynrenderer_tpu_torch.scene import WIDE_FIELDS, scene_families, upload_scene
+from caitlynrenderer_tpu_torch.scene import (
+    WIDE_FIELDS,
+    required_stack,
+    scene_families,
+    upload_scene,
+)
+from test_torch_bvh_kernel import _rays as axis_parallel_rays
 from test_torch_mt_cull import CASES as CULL_CASES, _case as cull_case
 
 pytestmark = pytest.mark.cuda
@@ -412,21 +419,20 @@ def test_golden_render_through_tree_accels_on_cuda(accel, dev, cornell):
     scene, camera = cornell
     options = RenderOptions(width=64, height=64, max_depth=3, accel=accel,
                             families=scene_families(scene))
-    mt_brute.reset_launches()
-    traverse_mega.reset_launches()
-    traverse_cw8.reset_launches()
+    mods = (mt_brute, traverse_mega, traverse_cw8, traverse_bvh)
+    for m in mods:
+        m.reset_launches()
     captures = progressive.graph_counts["captures"]
-    # bvh2 and sbvh cannot be captured: one sample a launch.
+    # render_image's default: 8 samples a launch, a CUDA graph's replay.
     img, _ = progressive.render_image(upload_scene(scene, accel, dev), camera, options,
-                                      spp=48, seed=0,
-                                      spp_per_launch=8 if accel == "cwbvh" else 1)
+                                      spp=48, seed=0)
     img = img.cpu().numpy()
     # A capture runs one warm-up sample.
     samples = 48 + progressive.graph_counts["captures"] - captures
-    expect = {"closest": samples * 3, "anyhit": samples * 3} if accel == "cwbvh" else {}
-    assert {k: v for k, v in traverse_cw8.launches.items() if v} == expect
-    assert all(v == 0 for v in mt_brute.launches.values())
-    assert all(v == 0 for v in traverse_mega.launches.values())
+    mine = traverse_cw8 if accel == "cwbvh" else traverse_bvh
+    assert {k: v for k, v in mine.launches.items() if v} == {"closest": samples * 3,
+                                                             "anyhit": samples * 3}
+    assert all(v == 0 for m in mods if m is not mine for v in m.launches.values())
     err = np.abs(img - np.load(GOLDEN)["img"])
     assert err.mean() < 2e-3, err.mean()
     assert err.max() < 0.06, err.max()
@@ -468,19 +474,20 @@ def test_xla_traversal_raises_on_cuda(accel, dev, cornell):
     assert all(v == 0 for v in traverse_cw8.launches.values())
 
 
-@pytest.mark.parametrize("accel", ["brute", "wide", "cwbvh"])
+@pytest.mark.parametrize("accel", ["brute", "wide", "cwbvh", "bvh2", "sbvh"])
 def test_graph_equals_eager_on_cuda(accel, dev, cornell):
     """render_steps of 4 samples, replayed twice from one CUDA graph, ≡ 8
-    eager render_step calls bit for bit, through B1, B2 and B3; each
-    replay adds the graph's 3 + 3 launches a sample, the capture one
-    warm-up sample, and no twin runs.  A second camera through the same
-    graph ≡ its eager render too."""
+    eager render_step calls bit for bit, through B1, B2, B3 and B4 (bvh2
+    and sbvh); each replay adds the graph's 3 + 3 launches a sample, the
+    capture one warm-up sample, and no twin runs.  A second camera through
+    the same graph ≡ its eager render too."""
     scene, camera = cornell
     options = RenderOptions(width=48, height=40, max_depth=3, accel=accel,
                             families=scene_families(scene))
     ds = upload_scene(scene, accel, dev)
     w, h = options.width, options.height
-    mods = {"brute": mt_brute, "wide": traverse_mega, "cwbvh": traverse_cw8}
+    mods = {"brute": mt_brute, "wide": traverse_mega, "cwbvh": traverse_cw8,
+            "bvh2": traverse_bvh, "sbvh": traverse_bvh}
     for m in mods.values():
         m.reset_launches()
     eager = progressive.init_state(w, h, 3, dev)
@@ -497,7 +504,7 @@ def test_graph_equals_eager_on_cuda(accel, dev, cornell):
     run = mods[accel].launches
     assert run["closest"] == run["anyhit"] == 3 * (8 + 8 + 1)
     assert run["closest_twin"] == run["anyhit_twin"] == 0
-    assert all(v == 0 for k, m in mods.items() if k != accel for v in m.launches.values())
+    assert all(v == 0 for m in mods.values() if m is not mods[accel] for v in m.launches.values())
 
     moved = camera._replace(position=camera.position + np.float32(0.3))
     want = progressive.init_state(w, h, 3, dev)
@@ -538,15 +545,73 @@ def test_graph_on_a_card_that_is_not_current(dev, cornell):
     progressive.clear_graphs()
 
 
-@pytest.mark.parametrize("accel", ["bvh2", "sbvh"])
-def test_binary_bvh_refuses_a_graph_on_cuda(accel, dev, cornell):
-    scene, camera = cornell
-    options = RenderOptions(width=16, height=16, max_depth=2, accel=accel,
-                            families=scene_families(scene))
-    for m in (mt_brute, traverse_mega, traverse_cw8):
-        m.reset_launches()
-    with pytest.raises(ValueError, match="--spp-per-launch 1"):
-        progressive.render_steps(upload_scene(scene, accel, dev), camera,
-                                 progressive.init_state(16, 16, 0, dev), 16, 16, options, 4)
-    assert all(v == 0 for m in (mt_brute, traverse_mega, traverse_cw8)
-               for v in m.launches.values())
+def _bvh(ds):
+    return ds.node_bounds, ds.node_meta, ds.scene.vertices, ds.scene.tri_v
+
+
+def _bvh_case(case, dev, cornell):
+    """(DeviceScene, o, d, active, t_max) of a B4 case: the cornell's rays
+    from inside the box and axis-parallel rays with ±0 components in the
+    planes of its walls (tests/test_torch_bvh_kernel.py's `_rays`), or
+    every 4th of grid100k's 65,536 bench-camera primary rays."""
+    name, accel = case
+    if name == "cornell":
+        ds = upload_scene(cornell[0], accel, dev)
+        o, d, active, t_max = _rays(dev, 20_000, 0.1, 5.4, 21)
+        ao, ad, aa, at = (torch.as_tensor(x, device=dev) for x in axis_parallel_rays(ds, 3001, 5))
+        return (ds, torch.cat([o, ao]).contiguous(), torch.cat([d, ad]).contiguous(),
+                torch.cat([active, aa]).contiguous(), torch.cat([t_max, at]).contiguous())
+    scene, camera = bench_scene("grid100k")
+    ds = upload_scene(scene, accel, dev)
+    uni = sampling.pixel_uniforms(sampling.sample_key(sampling.prng_key(0), 0),
+                                  torch.arange(256 * 256, dtype=torch.int32, device=dev), 4)
+    o, d = (x[::4].contiguous() for x in generate_rays(camera, 256, 256, uni))
+    n = o.shape[0]
+    t_max = torch.tensor(np.random.default_rng(22).uniform(0, 20, n), dtype=torch.float32,
+                         device=dev)
+    return ds, o, d, torch.ones(n, dtype=torch.bool, device=dev), t_max
+
+
+@pytest.mark.parametrize("case,max_leaf", [(("cornell", "bvh2"), 4), (("cornell", "sbvh"), 2),
+                                           (("grid100k", "bvh2"), 4)])
+def test_bvh_kernel_matches_twin(case, max_leaf, dev, cornell):
+    """B4 ≡ its twin bit for bit (t, tri, u, v, occlusion), at the build's
+    leaf width and below it; its stats variant, as the timed walk and as
+    the oracle walk seeded with the closest t, returns the same answers,
+    and its counts hold together."""
+    ds, o, d, active, t_max = _bvh_case(case, dev, cornell)
+    kw = {"max_leaf": max_leaf, "max_stack": required_stack(ds)}
+    traverse_bvh.reset_launches()
+    got = traverse_bvh.traverse_closest(o, d, active, *_bvh(ds), **kw)
+    want = traverse_bvh.traverse_closest_plain(o, d, active, *_bvh(ds), **kw)
+    occ = traverse_bvh.traverse_anyhit(o, d, t_max, active, *_bvh(ds), **kw)
+    occ_t = traverse_bvh.traverse_anyhit_plain(o, d, t_max, active, *_bvh(ds), **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(occ, occ_t)
+    assert int((want[1] >= 0).sum()) > 0 and int(occ_t.sum()) > 0
+    assert traverse_bvh.launches == {"closest": 1, "anyhit": 1, "closest_twin": 1,
+                                     "anyhit_twin": 1}
+    rows = {"meta_seen": ds.node_meta.shape[0], "bounds_seen": ds.node_meta.shape[0],
+            "tri_seen": ds.scene.tri_v.shape[0], "vert_seen": ds.scene.vertices.shape[0]}
+    for seed in (None, got[0]):
+        *stat_out, st = traverse_bvh.traverse_closest(o, d, active, *_bvh(ds), **kw, stats=True,
+                                                      t_seed=seed)
+        occs, sta = traverse_bvh.traverse_anyhit(o, d, t_max, active, *_bvh(ds), **kw,
+                                                 stats=True, t_seed=seed)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(stat_out, got)) and torch.equal(occs, occ)
+        for s in (st, sta):
+            inner, tris, stack = s["counts"].long().unbind(1)
+            assert s["counts"].shape == (o.shape[0], len(traverse_bvh.STATS))
+            assert int(stack.max()) <= kw["max_stack"] and bool((stack <= inner).all())
+            for k, n_rows in rows.items():
+                assert s[k].shape == (n_rows,) and int(s[k].sum()) <= n_rows
+            # The root's meta is read, never its bounds; every node stood on
+            # past the root was slab-tested first; the triangles tested read
+            # at most three vertices each.
+            assert int(s["meta_seen"][0]) == 1 and int(s["bounds_seen"][0]) == 0
+            assert bool((s["meta_seen"][1:] <= s["bounds_seen"][1:]).all())
+            assert 0 < int(s["vert_seen"].sum()) <= 3 * int(s["tri_seen"].sum())
+        assert bool((st["counts"][got[1] >= 0, 1] > 0).all())  # a hit was tested
+    assert traverse_bvh.stats_launches == {"closest": 2, "anyhit": 2}

@@ -8,16 +8,16 @@ every branch of the integrator must run without a host read.  Here:
   * a camera of tensors ≡ the numpy camera's rays, bit for bit;
   * `progressive.accumulate` (the captured body) on CPU tensors ≡ the
     render_step loop, bit for bit (the same float32 operations in the same
-    order), on brute, wide and cwbvh with the Lambert, Disney, glass and
-    mirror families, Russian roulette, the env map and the AOVs; and the
-    same body under a guard that makes every host read of a tensor, and
-    every tensor made from host data, raise (lifted inside the kernels'
-    twins, which stand for the kernels here);
+    order), on brute, wide, cwbvh, bvh2 and sbvh with the Lambert, Disney,
+    glass and mirror families, Russian roulette, the env map and the AOVs;
+    and the same body under a guard that makes every host read of a
+    tensor, and every tensor made from host data, raise (lifted inside the
+    kernels' twins, which stand for the kernels here: the binary walk's
+    twin reads its live lane count on the host, its kernel B4 does not);
   * render_image's chunking ≡ the reference's, and its image within the
     render tests' parity tolerance (mean |d| < 1e-3, max < 0.06);
-  * "bvh2" and "sbvh" refused for more than one sample a launch on the
-    card, with nothing launched (a stand-in scene that says cuda:0), and
-    the CLI refusing them only where a launch would carry several samples;
+  * the CLI under "bvh2" and "sbvh" launching the samples in the
+    reference CLI's chunks, main loop and turntable;
   * the launch counters' registry, and the count of a graph's kernel
     nodes by mangled name that a replay adds to them.
 The graph itself runs on the card: tests/test_torch_cuda.py and
@@ -26,7 +26,6 @@ chip_smoke.py's phase 20.
 
 import contextlib
 import os
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +37,7 @@ import torch
 # workers from oversubscribing the CPU.
 torch.set_num_threads(1)
 
+from caitlynrenderer_tpu import cli as j_cli
 from caitlynrenderer_tpu.core.types import RenderOptions as j_RenderOptions
 from caitlynrenderer_tpu.render import progressive as j_progressive
 from caitlynrenderer_tpu.render import sampling as j_sampling
@@ -50,8 +50,8 @@ from caitlynrenderer_tpu_torch.core.camera import (
     generate_rays,
     has_lens,
 )
-from caitlynrenderer_tpu_torch.core.types import RenderOptions, make_camera
-from caitlynrenderer_tpu_torch.ops import _build, mt_brute, traverse_cw8, traverse_mega
+from caitlynrenderer_tpu_torch.core.types import make_camera
+from caitlynrenderer_tpu_torch.ops import _build, mt_brute, traverse_bvh, traverse_cw8, traverse_mega
 from caitlynrenderer_tpu_torch.render import progressive, sampling
 from caitlynrenderer_tpu_torch.render.integrator import render_sample
 from caitlynrenderer_tpu_torch.scene import upload_scene
@@ -135,6 +135,8 @@ BODY_CASES = {
     "cwbvh lambert": ("cwbvh", {}, {}, {}),
     "cwbvh glass": ("cwbvh", {"floor": "glass"}, {}, {}),
     "cwbvh aov albedo": ("cwbvh", {}, {}, {"aov": "albedo"}),
+    "bvh2 lambert": ("bvh2", {}, {}, {}),
+    "sbvh disney": ("sbvh", {"floor": "disney"}, {}, {}),
 }
 
 
@@ -187,7 +189,8 @@ _HOST_READS = ("item", "tolist", "__bool__", "__int__", "__float__", "__index__"
 # the host, so the guard is lifted inside them.
 _TWINS = ((mt_brute, "brute_closest_plain"), (mt_brute, "brute_anyhit_plain"),
           (traverse_mega, "mega_closest_plain"), (traverse_mega, "mega_anyhit_plain"),
-          (traverse_cw8, "cw8_closest_plain"), (traverse_cw8, "cw8_anyhit_plain"))
+          (traverse_cw8, "cw8_closest_plain"), (traverse_cw8, "cw8_anyhit_plain"),
+          (traverse_bvh, "traverse_closest_plain"), (traverse_bvh, "traverse_anyhit_plain"))
 
 
 class HostSyncGuard:
@@ -292,93 +295,65 @@ def test_render_image_chunks_as_the_reference(spl, monkeypatch):
     assert err.max() < 0.06, err.max()
 
 
-def _cuda_stand_in(accel):
-    """A scene and a state whose tensors say they lie on cuda:0, for the
-    checks that run before anything is launched."""
-    cuda = torch.device("cuda", 0)
-    ds = SimpleNamespace(accel=accel, tris9=SimpleNamespace(device=cuda, shape=(36, 9)))
-    state = progressive.RenderState(SimpleNamespace(device=cuda), 0, (0, 7))
-    return ds, state
+def _chunk_spy(module, record, *, steps_only=False):
+    """Wrappers of module.render_steps and render_step (a launch of one)
+    that append each launch's sample count to `record`; with steps_only
+    they advance the frame count and render nothing."""
+    real_steps, real_step = module.render_steps, module.render_step
+
+    def steps(ds, camera, state, w, h, options, n):
+        record.append(int(n))
+        if steps_only:
+            return state._replace(frame_count=state.frame_count + n)
+        return real_steps(ds, camera, state, w, h, options, n)
+
+    def step(ds, camera, state, w, h, options):
+        record.append(1)
+        if steps_only:
+            return state._replace(frame_count=state.frame_count + 1)
+        return real_step(ds, camera, state, w, h, options)
+
+    return steps, step
 
 
 @pytest.mark.parametrize("accel", ["bvh2", "sbvh"])
-def test_binary_bvh_refuses_samples_per_launch_on_cuda(accel):
-    """On the card, render_steps of several samples under "bvh2"/"sbvh"
-    raises ValueError naming the accel and --spp-per-launch 1; nothing is
-    launched and no graph is captured."""
-    ds, state = _cuda_stand_in(accel)
-    options = RenderOptions(width=4, height=4, max_depth=2, accel=accel)
-    for m in (mt_brute, traverse_mega, traverse_cw8):
-        m.reset_launches()
-    counts = dict(progressive.graph_counts)
-    with pytest.raises(ValueError, match=f'"{accel}".*--spp-per-launch 1'):
-        progressive.render_steps(ds, make_camera([0, 0, 5], [0, 0, 0]), state, 4, 4, options, 4)
-    assert progressive.graph_counts == counts
-    assert all(v == 0 for m in (mt_brute, traverse_mega, traverse_cw8)
-               for v in m.launches.values())
-
-
-@pytest.mark.parametrize("accel", ["brute", "wide", "cwbvh", "bvh2", "sbvh"])
-def test_check_graphable(accel):
-    options = RenderOptions(accel=accel)
-    if accel in ("bvh2", "sbvh"):
-        with pytest.raises(ValueError, match="one sample per launch"):
-            progressive.check_graphable(options)
-    else:
-        progressive.check_graphable(options)
-
-
-class _SaysCuda:
-    """A CPU scene whose `device` says cuda:0, for the CLI's check."""
-
-    device = torch.device("cuda", 0)
-
-    def __init__(self, ds):
-        self._ds = ds
-
-    def __getattr__(self, name):
-        return getattr(self._ds, name)
-
-
-@pytest.mark.parametrize("accel", ["bvh2", "sbvh"])
-@pytest.mark.parametrize("extra,refused", [
-    ([], False),  # --spp 8 under the default 64 a launch: one at a time
-    (["--spp", "64"], True),
-    (["--spp", "64", "--spp-per-launch", "1"], False),
-    (["--turntable", "1"], True),  # a frame of 8 samples in one launch
-    (["--turntable", "1", "--spp-per-launch", "1"], False),
+@pytest.mark.parametrize("extra,launches", [
+    ([], [1] * 8),  # --spp 8 under the default 64 a launch: one at a time
+    (["--spp", "64"], [64]),
+    (["--spp", "64", "--spp-per-launch", "1"], [1] * 64),
+    (["--turntable", "2"], [8, 8]),  # each frame's 8 samples in one launch
+    (["--turntable", "2", "--spp-per-launch", "1"], [1] * 16),
 ])
-def test_cli_refuses_binary_bvh_only_for_several_samples_a_launch(tmp_path, monkeypatch,
-                                                                  accel, extra, refused):
-    """cli render --accel bvh2|sbvh on a scene that says cuda:0: it renders
-    unless a launch would carry several samples, and then raises before
-    anything is rendered."""
-    real = cli._upload
-
-    def upload(*args, **kwargs):
-        device, ds, camera, options = real(*args, **kwargs)
-        return device, _SaysCuda(ds), camera, options
-
-    monkeypatch.setattr(cli, "_upload", upload)
-    steps = []
-    step = progressive.render_step
-    monkeypatch.setattr(progressive, "render_step", lambda *a: steps.append(1) or step(*a))
-    argv = ["render", TOML, "--accel", accel, "--device", "cpu", "--width", "6", "--height",
-            "4", "--depth", "1", "--spp", "8", "-o", str(tmp_path / "out.png"), *extra]
-    if refused:
-        with pytest.raises(ValueError, match=f'"{accel}".*--spp-per-launch 1'):
-            cli.main(argv)
-        assert steps == []
-    else:
-        assert cli.main(argv) == 0
-        assert len(steps) == (64 if "64" in extra else 8)
+def test_cli_renders_binary_bvh_in_the_reference_chunks(tmp_path, monkeypatch, accel, extra,
+                                                        launches):
+    """cli render --accel bvh2|sbvh renders every case, launching its
+    samples in the chunks the reference CLI launches on the same argv (the
+    main loop's --spp-per-launch chunks with a tail of single samples, the
+    turntable's min(spl, samples left) a frame); the reference's launches
+    are counted with its samples stubbed out, the port's render."""
+    seen = {"port": [], "ref": []}
+    # The port's CLI launches through render_steps only (which loops
+    # render_step on CPU tensors).
+    monkeypatch.setattr(progressive, "render_steps", _chunk_spy(progressive, seen["port"])[0])
+    steps, step = _chunk_spy(j_progressive, seen["ref"], steps_only=True)
+    monkeypatch.setattr(j_progressive, "render_steps", steps)
+    monkeypatch.setattr(j_progressive, "render_step", step)
+    argv = ["render", TOML, "--accel", accel, "--width", "6", "--height", "4", "--depth", "1",
+            "--spp", "8", *extra]
+    out = tmp_path / "out.png"
+    assert cli.main([*argv, "--device", "cpu", "-o", str(out)]) == 0
+    assert j_cli.main([*argv, "-o", str(tmp_path / "ref.png")]) == 0
+    assert seen["port"] == seen["ref"] == launches
+    frames = [tmp_path / f"out_{k:03d}.png" for k in range(2)] if "--turntable" in extra else [out]
+    assert all(f.exists() for f in frames)
 
 
 def test_launch_counters_are_registered():
     """Each kernel module's counter is registered under its name, with a
     twin key for each kernel key; a snapshot, a reset to it and an added
     replay act on the wrappers' own dicts."""
-    mods = {"mt_brute": mt_brute, "traverse_mega": traverse_mega, "traverse_cw8": traverse_cw8}
+    mods = {"mt_brute": mt_brute, "traverse_mega": traverse_mega, "traverse_cw8": traverse_cw8,
+            "traverse_bvh": traverse_bvh}
     for name, mod in mods.items():
         counts, kernels = _build.COUNTERS[name]
         assert counts is mod.launches

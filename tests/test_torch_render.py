@@ -390,9 +390,20 @@ def test_cli_accel_from_config_unless_given(flags, accel, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("poison", [False, True])
-def test_cli_debug_checks(poison, tmp_path, monkeypatch, capsys):
-    """--debug-checks passes on cornell, and on a scene whose light emits
-    NaN raises a ValueError that names the first bad pixel and channel."""
+def test_cli_debug_checks(poison, tmp_path, monkeypatch, capsys, caplog):
+    """--debug-checks passes on cornell and logs the reference's
+    `debug_checks` record ({"finite": true}), and on a scene whose light
+    emits NaN raises a ValueError that names the first bad pixel and
+    channel, logging no such record."""
+    import json
+    import logging
+
+    caplog.set_level(logging.INFO, logger="caitlynrenderer_tpu_torch")
+
+    def records():
+        return [json.loads(r.getMessage().split(" ", 1)[1]) for r in caplog.records
+                if r.getMessage().startswith("debug_checks ")]
+
     if poison:
         setup = cli.render_setup
 
@@ -406,9 +417,11 @@ def test_cli_debug_checks(poison, tmp_path, monkeypatch, capsys):
         monkeypatch.setattr(cli, "render_setup", nan_light)
         with pytest.raises(ValueError, match=r"non-finite radiance .* at pixel \d+ .* channel \d"):
             _cli(TOML, tmp_path, "--debug-checks")
+        assert records() == []
     else:
         rc, out = _cli(TOML, tmp_path, "--debug-checks")
         assert rc == 0 and out.exists() and "radiance is finite" in capsys.readouterr().out
+        assert records() == [{"finite": True}]
 
 
 @pytest.mark.parametrize("change", ["accel"])
