@@ -100,6 +100,15 @@ def _refuse(flags) -> None:
         raise ValueError(f"not carried by this render path: {'; '.join(given)}")
 
 
+def _turntable_frames(args):
+    """--turntable's frame count where the render is a turntable (N > 1, as
+    the reference's `if args.turntable > 1`), else None: --turntable 1 is a
+    still image at -o.  Raises for N < 1."""
+    if args.turntable is not None and args.turntable < 1:
+        raise ValueError(f"--turntable must be at least 1, not {args.turntable}")
+    return args.turntable if args.turntable is not None and args.turntable > 1 else None
+
+
 def cmd_render(args) -> int:
     if args.mesh is not None:
         return _render_mesh(args)
@@ -116,9 +125,8 @@ def cmd_render(args) -> int:
     spp = args.spp or options.max_samples
     spl = max(1, args.spp_per_launch)
     tiled = options.num_tiles_x * options.num_tiles_y > 1
-    if args.turntable is not None:
-        if args.turntable < 1:
-            raise ValueError(f"--turntable must be at least 1, not {args.turntable}")
+    frames = _turntable_frames(args)
+    if frames is not None:
         _refuse({"--turntable with --resume": args.resume,
                  "--turntable with [render] num_tiles_x/num_tiles_y": tiled})
     elif tiled:
@@ -136,7 +144,7 @@ def cmd_render(args) -> int:
         print("debug checks: the first sample's radiance is finite")
 
     t0 = time.perf_counter()
-    if args.turntable is not None:
+    if frames is not None:
         # The camera moves every frame, so every frame restarts the
         # accumulation (the reference's interactive loop, offline).
         from caitlynrenderer_tpu_torch.utils import config
@@ -145,15 +153,15 @@ def cmd_render(args) -> int:
         translation = config.scene_from_config(cfg, os.path.dirname(args.config))[1]
         base, ext = os.path.splitext(args.output)
         state = progressive.init_state(w, h, args.seed, device)
-        for k in range(args.turntable):
-            cam_k = turntable_camera(cfg, translation, k, args.turntable)
+        for k in range(frames):
+            cam_k = turntable_camera(cfg, translation, k, frames)
             state = progressive.reset(state)
             while state.frame_count < spp:
                 chunk = min(spl, spp - state.frame_count)
                 state = progressive.render_steps(ds, cam_k, state, w, h, options, chunk)
             path = f"{base}_{k:03d}{ext}"
             save_png(path, progressive.resolve(state, w, h, options).cpu().numpy())
-            print(f"wrote {path} ({spp} spp, frame {k + 1}/{args.turntable})")
+            print(f"wrote {path} ({spp} spp, frame {k + 1}/{frames})")
         return 0
 
     if tiled:
@@ -252,7 +260,7 @@ def _render_mesh(args) -> int:
 
     _refuse({"--mesh with --aov": args.aov not in (None, "beauty"),
              "--mesh with --resume": args.resume,
-             "--mesh with --turntable": args.turntable is not None,
+             "--mesh with --turntable": _turntable_frames(args) is not None,
              "--mesh with --debug-checks": args.debug_checks})
     device = rank_device(args.device)
     rank, world = init_distributed(device=device)
@@ -429,11 +437,11 @@ def main(argv=None) -> int:
                    help="sharded render, one rank per process under torchrun (pixels over "
                    "dp, sample streams over sp; --spp a multiple of sp), e.g. "
                    "torchrun --nproc_per_node 4 -m caitlynrenderer_tpu_torch.cli render "
-                   "scene.toml --mesh 2x2; not with --aov, --resume, --turntable or "
+                   "scene.toml --mesh 2x2; not with --aov, --resume, --turntable N > 1 or "
                    "--debug-checks")
     r.add_argument("--turntable", type=int, default=None, metavar="N",
-                   help="N frames orbiting the look-at point, each restarting the "
-                   "accumulation; writes OUTPUT_000.png ...")
+                   help="N > 1 frames orbiting the look-at point, each restarting the "
+                   "accumulation; writes OUTPUT_000.png ... (N = 1: the still image at -o)")
     r.set_defaults(fn=cmd_render)
 
     b = sub.add_parser("benchmark", add_help=False,

@@ -3,21 +3,29 @@ caitlynrenderer_tpu/ops/traverse_xla.py), for the "bvh2" and "sbvh"
 accelerators: kernel B4.
 
 `traverse_closest` and `traverse_anyhit` launch the hand-written CUDA kernel
-(csrc/traverse_bvh.cu: one thread per ray, each running its own stack) for
-CUDA tensors and run the plain PyTorch twin for CPU tensors; there is no
-fallback from one to the other.  The kernel reads nothing back to the host,
-so a CUDA graph captures it like the other kernels.
+(csrc/traverse_bvh.cu, v2: one thread per ray with its own stack, over
+child-pair records and the tris9 slab) for CUDA tensors and run the plain
+PyTorch twin for CPU tensors; there is no fallback from one to the other.
+The kernel reads nothing back to the host, so a CUDA graph captures it like
+the other kernels.
+
+`pack_bvh_pairs` packs a FlatBVH into the kernel's records at upload
+(scene.DeviceScene.bvh_pairs): record k holds nodes 2k - 1 and 2k, both
+boxes then both (left, count) metas, 64 bytes, so the two children (left,
+left + 1) of an inner node are one record, (left + 1) // 2, and record 0
+holds the root in its second slot.  It raises on a tree whose children do
+not come in such pairs.
 
 The twins (`traverse_closest_plain`, `traverse_anyhit_plain`) are a
-vectorized per-ray stack machine: every ray carries its own node, stack
-pointer and stack as rows of dense tensors, and a `while` loop steps the
-whole batch with masked updates until every lane has finished, reading the
-live lane count on the host at every step.  Per step, an inner node
-slab-tests both children with the reference's acceptance (t_far > 0,
-t_far >= t_near, t_near < t_best), goes to the nearer hit child and pushes
-the other; a leaf runs a `max_leaf`-wide Möller–Trumbore block over its
-contiguous triangle range.  They are the CPU path and the oracle the kernel
-is held against on the card, bit for bit.
+vectorized per-ray stack machine over the FlatBVH itself: every ray carries
+its own node, stack pointer and stack as rows of dense tensors, and a
+`while` loop steps the whole batch with masked updates until every lane has
+finished, reading the live lane count on the host at every step.  Per step,
+an inner node slab-tests both children with the reference's acceptance
+(t_far > 0, t_far >= t_near, t_near < t_best), goes to the nearer hit child
+and pushes the other; a leaf runs a `max_leaf`-wide Möller–Trumbore block
+over its contiguous triangle range.  They are the CPU path and the oracle
+the kernel is held against on the card, bit for bit.
 
 The stack is `max_stack` deep and never clamped: a push past it raises
 ValueError in the twin and traps in the kernel (the integrator sizes it
@@ -45,7 +53,6 @@ REPLACES = ("caitlynrenderer_tpu/ops/traverse_xla.py:52 traverse_closest and :16
 
 INF = 1e9
 MAX_STACK = 128  # the deepest stack the kernel is instantiated for
-
 launches = _build.launch_counter("traverse_bvh", {"closest": "bvh2_kernelILb0E",
                                                   "anyhit": "bvh2_kernelILb1E"})
 # Launches of the stats variant, apart from `launches`.
@@ -53,20 +60,20 @@ stats_launches = {"closest": 0, "anyhit": 0}
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # o, d, active, bounds, meta, verts, tri_v, n, nn, nv, nt, max_leaf,
-    # max_stack, out_t, out_tri, out_u, out_v, stats, device, stream
-    "bvh_closest": (_INT, [_PTR] * 7 + [_INT] * 6 + [_PTR] * 5 + [_INT, _PTR]),
-    # o, d, t_max, active, bounds, meta, verts, tri_v, n, nn, nv, nt,
-    # max_leaf, max_stack, out_occ, stats, device, stream
-    "bvh_anyhit": (_INT, [_PTR] * 8 + [_INT] * 6 + [_PTR] * 2 + [_INT, _PTR]),
+    # o, d, active, pairs, tris9, tri_v, n, n_recs, nt, max_leaf, max_stack,
+    # out_t, out_tri, out_u, out_v, stats, device, stream
+    "bvh_closest": (_INT, [_PTR] * 6 + [_INT] * 5 + [_PTR] * 5 + [_INT, _PTR]),
+    # o, d, t_max, active, pairs, tris9, tri_v, n, n_recs, nt, max_leaf,
+    # max_stack, out_occ, stats, device, stream
+    "bvh_anyhit": (_INT, [_PTR] * 7 + [_INT] * 5 + [_PTR] * 2 + [_INT, _PTR]),
     "bvh_error_string": (ctypes.c_char_p, [_INT]),
 }
 
 # Per-ray counts of the stats variant, in column order.
 STATS = ("inner", "tris", "stack")
-# The stats variant's flags, one per row of the table read: a node's meta
-# (the walk stood on it), a node's bounds (slab-tested as a child), a tri_v
-# row, a vertex.
+# The stats variant's flags, one per row of the FlatBVH's own tables a walk
+# over them reads: a node's meta (the walk stood on it), a node's bounds
+# (slab-tested as a child), a tri_v row, a vertex.
 SEEN = ("meta_seen", "bounds_seen", "tri_seen", "vert_seen")
 
 
@@ -79,6 +86,44 @@ def reset_launches() -> None:
     for counter in (launches, stats_launches):
         for k in counter:
             counter[k] = 0
+
+
+def _lib():
+    return _build.load("traverse_bvh", _SIGNATURES)
+
+
+def n_records(num_nodes: int) -> int:
+    """Rows of `pack_bvh_pairs`' records for a tree of num_nodes nodes."""
+    return num_nodes // 2 + 1
+
+
+def pack_bvh_pairs(node_bounds, node_meta):
+    """The kernel's child-pair records of a FlatBVH, on the tensors' device:
+    (n_records(Nn), 16) f32.  Record k holds nodes 2k - 1 and 2k: their
+    boxes (min | max) in columns 0:6 and 6:12, their (left, count) meta as
+    int32 bits in 12:14 and 14:16; record 0's first slot and a last slot
+    past the tree are zeros.  A copy, no arithmetic: the floats are the
+    FlatBVH's.  Raises ValueError unless every inner node's children are
+    a pair (left odd, left + 1 within the tree) after the node, as the BFS
+    layout of accel/bvh.py and the native builder's make them (so the walk
+    over the records is the walk over the tree, and ends)."""
+    nn = node_meta.shape[0]
+    meta = node_meta.to(torch.int32)
+    left, inner = meta[:, 0].long(), meta[:, 1] == 0
+    ids = torch.arange(nn, device=meta.device)
+    bad = inner & ((left % 2 != 1) | (left <= ids) | (left + 1 >= nn))
+    if bool(bad.any()):
+        node = int(bad.nonzero()[0, 0])
+        raise ValueError(f"node {node}'s children start at {int(left[node])}: the kernel's "
+                         "records take a tree whose children are pairs (left odd, left + 1 "
+                         f"< {nn} nodes) after their parent, as the BFS layout makes them")
+    rows = 2 * n_records(nn)
+    bounds = torch.zeros((rows, 6), dtype=torch.float32, device=meta.device)
+    bounds[1:nn + 1] = node_bounds
+    metas = torch.zeros((rows, 2), dtype=torch.int32, device=meta.device)
+    metas[1:nn + 1] = meta
+    return torch.cat([bounds.view(-1, 12), metas.view(torch.float32).view(-1, 4)],
+                     dim=1).contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -232,7 +277,7 @@ def traverse_anyhit_plain(o, d, t_max, active, node_bounds, node_meta, verts, tr
 
 def _check_query(o, d, active, tree, max_stack, t_max=None, t_seed=None):
     """Validate a CUDA query; returns (n, nn, nv, nt, device)."""
-    node_bounds, node_meta, verts, tri_v = tree
+    node_bounds, node_meta, verts, tri_v, pairs, tris9 = tree
     n, dev = o.shape[0], o.device
     f32, i32 = torch.float32, torch.int32
     _build.check_tensor("o", o, f32, (n, 3), dev)
@@ -247,7 +292,9 @@ def _check_query(o, d, active, tree, max_stack, t_max=None, t_seed=None):
     _build.check_tensor("node_meta", node_meta, i32, (nn, 2), dev)
     _build.check_tensor("verts", verts, f32, (nv, 3), dev)
     _build.check_tensor("tri_v", tri_v, i32, (nt, 4), dev)
-    if n >= 2**31 or nn * 6 >= 2**31 or nv * 3 >= 2**31 or nt * 4 >= 2**31:
+    _build.check_tensor("pairs", pairs, f32, (n_records(nn), 16), dev)
+    _build.check_tensor("tris9", tris9, f32, (nt, 9), dev)
+    if n >= 2**30 or nn * 8 >= 2**31 or nv * 3 >= 2**31 or nt * 9 >= 2**31:
         raise ValueError(f"too many rays ({n}), nodes ({nn}), vertices ({nv}) or triangles "
                          f"({nt}) for the kernel's indexing")
     if nt > 0 and nn == 0:
@@ -277,8 +324,11 @@ def _stats_on_cpu(stats, t_seed, cpu):
     return cpu
 
 
-def _tree_ptrs(tree):
-    return [x.data_ptr() for x in tree]
+def _kernel_args(tree, n, nt):
+    """The kernel's tree arguments: pairs, tris9, tri_v (read by the stats
+    variant's vertex flags), n, n_recs, nt."""
+    _, _, _, tri_v, pairs, tris9 = tree
+    return [x.data_ptr() for x in (pairs, tris9, tri_v)] + [n, pairs.shape[0], nt]
 
 
 def _stats_ptr(st_arg):
@@ -286,26 +336,29 @@ def _stats_ptr(st_arg):
     return None if st_arg is None else ctypes.addressof(st_arg)
 
 
-def traverse_closest(o, d, active, node_bounds, node_meta, verts, tri_v,
+def traverse_closest(o, d, active, node_bounds, node_meta, verts, tri_v, pairs, tris9,
                      max_leaf: int = 4, max_stack: int = 32, stats=False, t_seed=None):
-    """Closest hit of every active ray over the binary BVH.  Arguments and
-    result as `traverse_closest_plain`; CUDA tensors launch the kernel, on
-    the current stream, and read nothing back.
+    """Closest hit of every active ray over the binary BVH.  Arguments as
+    `traverse_closest_plain`, plus the tree's records (`pack_bvh_pairs`)
+    and the leaf-ordered (T, 9) v0 | e1 | e2 slab, both (scene.DeviceScene's
+    bvh_pairs and tris9) what the kernel reads; result as the twin's.  CPU
+    tensors run the twin; CUDA tensors launch the kernel, on the current
+    stream, and read nothing back.
 
     stats=True (CUDA only) launches the stats variant, the same walk, and
     returns (t, tri, u, v, st): st["counts"] (N, 3) i32 per ray, columns
     STATS (inner nodes visited, leaf triangles tested, the stack's
-    high-water mark); st["meta_seen"] (Nn,) i32, 1 where some ray stood on
-    the node and read its meta; st["bounds_seen"] (Nn,), 1 where some ray
-    slab-tested the node's box; st["tri_seen"] (T,), 1 where some ray read
-    the triangle's tri_v row; st["vert_seen"] (V,), 1 where some ray read
-    the vertex.
+    high-water mark); by FlatBVH row: st["meta_seen"] (Nn,) i32, 1 where
+    some ray stood on the node; st["bounds_seen"] (Nn,), 1 where some ray
+    slab-tested the node's box; st["tri_seen"] (T,), 1 where some ray tested
+    the triangle (its tri_v row, in the FlatBVH's layout); st["vert_seen"]
+    (V,), 1 where some ray tested a triangle of the vertex.
     t_seed ((N,) f32, stats only) also rejects a child box entered after the
     seed (relative margin 1e-5), acceptance unchanged: seeded with the
     closest t, the oracle walk, whose counts are the work the query needs."""
-    tree = (node_bounds, node_meta, verts, tri_v)
+    tree = (node_bounds, node_meta, verts, tri_v, pairs, tris9)
     if _stats_on_cpu(stats, t_seed, _build.is_cpu(o, d, active, *tree, t_seed)):
-        return traverse_closest_plain(o, d, active, *tree, max_leaf=max_leaf,
+        return traverse_closest_plain(o, d, active, *tree[:4], max_leaf=max_leaf,
                                       max_stack=max_stack)
     n, nn, nv, nt, dev = _check_query(o, d, active, tree, max_stack, t_seed=t_seed)
     st, st_arg = _stats_buffers(n, nn, nv, nt, dev, t_seed) if stats else (None, None)
@@ -319,11 +372,11 @@ def traverse_closest(o, d, active, node_bounds, node_meta, verts, tri_v,
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty(n, dtype=torch.float32, device=dev)
     v = torch.empty(n, dtype=torch.float32, device=dev)
-    lib = _build.load("traverse_bvh", _SIGNATURES)
+    lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.bvh_closest(
-            o.data_ptr(), d.data_ptr(), active.data_ptr(), *_tree_ptrs(tree), n, nn, nv, nt,
-            max_leaf, max_stack, t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+            o.data_ptr(), d.data_ptr(), active.data_ptr(), *_kernel_args(tree, n, nt), max_leaf,
+            max_stack, t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
             _stats_ptr(st_arg), dev.index, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.raise_on(rc, lib.bvh_error_string, "bvh_closest")
@@ -334,15 +387,15 @@ def traverse_closest(o, d, active, node_bounds, node_meta, verts, tri_v,
     return t, tri, u, v
 
 
-def traverse_anyhit(o, d, t_max, active, node_bounds, node_meta, verts, tri_v,
+def traverse_anyhit(o, d, t_max, active, node_bounds, node_meta, verts, tri_v, pairs, tris9,
                     max_leaf: int = 4, max_stack: int = 32, stats=False, t_seed=None):
     """Occlusion of every active ray by any triangle at 0 <= t < t_max
-    ((N,) f32) over the binary BVH: (N,) bool.  CUDA tensors launch the
-    kernel.  stats=True (CUDA only): returns (occ, st), st and t_seed as in
-    `traverse_closest`."""
-    tree = (node_bounds, node_meta, verts, tri_v)
+    ((N,) f32) over the binary BVH: (N,) bool.  Tree arguments as in
+    `traverse_closest`; CUDA tensors launch the kernel.  stats=True (CUDA
+    only): returns (occ, st), st and t_seed as in `traverse_closest`."""
+    tree = (node_bounds, node_meta, verts, tri_v, pairs, tris9)
     if _stats_on_cpu(stats, t_seed, _build.is_cpu(o, d, t_max, active, *tree, t_seed)):
-        return traverse_anyhit_plain(o, d, t_max, active, *tree, max_leaf=max_leaf,
+        return traverse_anyhit_plain(o, d, t_max, active, *tree[:4], max_leaf=max_leaf,
                                      max_stack=max_stack)
     n, nn, nv, nt, dev = _check_query(o, d, active, tree, max_stack, t_max=t_max,
                                       t_seed=t_seed)
@@ -351,11 +404,12 @@ def traverse_anyhit(o, d, t_max, active, node_bounds, node_meta, verts, tri_v,
         occ = torch.zeros(n, dtype=torch.bool, device=dev)
         return (occ, st) if stats else occ
     occ = torch.empty(n, dtype=torch.bool, device=dev)
-    lib = _build.load("traverse_bvh", _SIGNATURES)
+    lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.bvh_anyhit(
-            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), active.data_ptr(), *_tree_ptrs(tree),
-            n, nn, nv, nt, max_leaf, max_stack, occ.data_ptr(), _stats_ptr(st_arg), dev.index,
+            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), active.data_ptr(),
+            *_kernel_args(tree, n, nt), max_leaf, max_stack, occ.data_ptr(), _stats_ptr(st_arg),
+            dev.index,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.raise_on(rc, lib.bvh_error_string, "bvh_anyhit")

@@ -151,7 +151,10 @@ def _cw(ds: DeviceScene):
 
 
 def _bvh(ds: DeviceScene):
-    return ds.node_bounds, ds.node_meta, ds.scene.vertices, ds.scene.tri_v
+    """B4's tree arguments: the FlatBVH and the scene (the twin's), the
+    child-pair records and the tris9 slab (the kernel's)."""
+    return (ds.node_bounds, ds.node_meta, ds.scene.vertices, ds.scene.tri_v, ds.bvh_pairs,
+            ds.tris9)
 
 
 @torch.no_grad()

@@ -37,6 +37,7 @@ from caitlynrenderer_tpu_torch.core.types import (
     SceneArrays,
 )
 from caitlynrenderer_tpu_torch.ops.intersect import pack_tris
+from caitlynrenderer_tpu_torch.ops.traverse_bvh import pack_bvh_pairs
 from caitlynrenderer_tpu_torch.ops.traverse_cw8 import check_depth, node8_depth, pack_windows
 from caitlynrenderer_tpu_torch.ops.traverse_mega import pack_mega, pack_octants
 
@@ -70,6 +71,10 @@ class DeviceScene(NamedTuple):
                 (accel/bvh.FlatBVH; one leaf of every triangle under
                 "brute" and for an empty scene)
     tree_depth: levels of that binary tree (sizes the bvh2/sbvh stack)
+    bvh_pairs:  under "bvh2" and "sbvh", that tree as kernel B4's child-pair
+                records, (Nn // 2 + 1, 16) f32 (layout at
+                ops/traverse_bvh.pack_bvh_pairs); an empty (0, 16) placeholder
+                under the others
     wb_*:       the wide accelerator (empty placeholders under the others):
                 group_bounds (G, 6) f32, mega (G, 8, 3·Kp) f32 plane blocks,
                 oct_bounds (8, gpad, 16) f32, oct_gid and oct_start
@@ -93,6 +98,7 @@ class DeviceScene(NamedTuple):
     node_bounds: torch.Tensor
     node_meta: torch.Tensor
     tree_depth: int
+    bvh_pairs: torch.Tensor
     wb_group_bounds: torch.Tensor
     wb_mega: torch.Tensor
     wb_oct_bounds: torch.Tensor
@@ -350,7 +356,8 @@ def scene_to_device(scene_np: SceneArrays, accel: str, device, bvh: FlatBVH, wid
     reordered) scene and its accelerator arrays: the binary `bvh`, `wide`
     ({WIDE_FIELDS name: array}) and `cw` ({CW_FIELDS name: array}, node
     words uint32 or int32).  Raises ValueError for a node8 tree deeper than
-    the kernel's stack."""
+    the kernel's stack, and under "bvh2"/"sbvh" for a binary tree that
+    `pack_bvh_pairs` refuses."""
     cw_depth = node8_depth(cw["cw_nodes"])
     check_depth(cw_depth)
 
@@ -371,15 +378,21 @@ def scene_to_device(scene_np: SceneArrays, accel: str, device, bvh: FlatBVH, wid
         env_map=put(scene_np.env_map, f32),
     )
     int_fields = ("wb_oct_gid", "wb_oct_start")
+    node_bounds, node_meta = put(bvh.node_bounds, f32), put(bvh.node_meta, i32)
+    if accel in ("bvh2", "sbvh"):
+        pairs = pack_bvh_pairs(node_bounds, node_meta)
+    else:
+        pairs = torch.zeros((0, 16), dtype=f32, device=device)
     return DeviceScene(
         accel=accel,
         scene=sc,
         tris9=pack_tris(sc.vertices, sc.tri_v).contiguous(),
         shade_tab=build_shade_table(sc),
         light_tab=build_light_table(sc.lights),
-        node_bounds=put(bvh.node_bounds, f32),
-        node_meta=put(bvh.node_meta, i32),
+        node_bounds=node_bounds,
+        node_meta=node_meta,
         tree_depth=int(tree_depth(np.asarray(bvh.node_meta))),
+        bvh_pairs=pairs,
         **{k: put(wide[k], i32 if k in int_fields else f32) for k in WIDE_FIELDS},
         cw_nodes=put(np.ascontiguousarray(cw["cw_nodes"]).view(np.int32), i32),
         cw_planes=put(cw["cw_planes"], f32),

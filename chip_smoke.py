@@ -199,9 +199,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      the box faces) at max_leaf 4 and 2 (below the build's leaf width), an
      all-dead batch and an empty scene; on every set B4's stats variant,
      plain and seeded with the closest t, returns the plain launch's
-     answers; (c) B4 and its twin timed on the cornell primary rays and
-     (a)'s ray sets, beside B4's bound (`bvh_bound`, from the stats
-     variant's oracle walk) and its walk's work over the bound.  Its
+     answers; (c) B4, its stats variant and its twin timed on the cornell
+     primary rays and (a)'s ray sets, beside B4's bound (`bvh_bound`, from
+     the stats variant's oracle walk) and its walk's work over the bound.  Its
      numbers are also printed as one {"phase21": ...} JSON line before the
      kernels' line.
 About 6 minutes on one H100, builds included.  B3's and B4's stats
@@ -765,9 +765,14 @@ def twin_walk():
     from caitlynrenderer_tpu_torch.ops import traverse_bvh as tb
     from caitlynrenderer_tpu_torch.render import integrator
 
+    def closest(o, d, active, *tree, **kw):  # the twin takes the FlatBVH and the scene
+        return tb.traverse_closest_plain(o, d, active, *tree[:4], **kw)
+
+    def anyhit(o, d, t_max, active, *tree, **kw):
+        return tb.traverse_anyhit_plain(o, d, t_max, active, *tree[:4], **kw)
+
     saved = integrator.traverse_closest, integrator.traverse_anyhit
-    integrator.traverse_closest = tb.traverse_closest_plain
-    integrator.traverse_anyhit = tb.traverse_anyhit_plain
+    integrator.traverse_closest, integrator.traverse_anyhit = closest, anyhit
     try:
         yield
     finally:
@@ -2000,9 +2005,9 @@ def compare_bvh(label, tb, o, d, active, tree, t_max, kw):
     the oracle walk, equal to the plain launch.  Returns the largest |dt|
     and the occlusion mismatch (0 or 1)."""
     got = tb.traverse_closest(o, d, active, *tree, **kw)
-    want = tb.traverse_closest_plain(o, d, active, *tree, **kw)
+    want = tb.traverse_closest_plain(o, d, active, *tree[:4], **kw)
     occ = tb.traverse_anyhit(o, d, t_max, active, *tree, **kw)
-    occ_t = tb.traverse_anyhit_plain(o, d, t_max, active, *tree, **kw)
+    occ_t = tb.traverse_anyhit_plain(o, d, t_max, active, *tree[:4], **kw)
     torch.cuda.synchronize()
     bits = {k: int((a.view(torch.int32) != b.view(torch.int32)).sum())
             for k, a, b in zip(("t", "tri", "u", "v"), got, want)}
@@ -2034,8 +2039,7 @@ def phase21(dev, smi, scene, camera, o, d, uni, grid, grid1m, grid_cam, go, gd, 
     rec = {"device": smi, "a_main_path": {}, "c_times": {}}
     launches = {"closest": 0, "anyhit": 0}
 
-    def tree(ds):
-        return ds.node_bounds, ds.node_meta, ds.scene.vertices, ds.scene.tri_v
+    from caitlynrenderer_tpu_torch.render.integrator import _bvh as tree
 
     def kw(ds, max_leaf=4):
         return {"max_leaf": max_leaf, "max_stack": required_stack(ds)}
@@ -2112,10 +2116,15 @@ def phase21(dev, smi, scene, camera, o, d, uni, grid, grid1m, grid_cam, go, gd, 
         tmax = torch.full((qo.shape[0],), 20.0, device=dev)
         r = {"closest": event_ms(lambda: tb.traverse_closest(qo, qd, qa, *qt, **qk), 20),
              "anyhit": event_ms(lambda: tb.traverse_anyhit(qo, qd, tmax, qa, *qt, **qk), 20),
+             "closest_stats": event_ms(lambda: tb.traverse_closest(qo, qd, qa, *qt, **qk,
+                                                                   stats=True), 5),
+             "anyhit_stats": event_ms(lambda: tb.traverse_anyhit(qo, qd, tmax, qa, *qt, **qk,
+                                                                 stats=True), 5),
              # the twin reads the host every step: timed as a caller issues it
-             "closest_plain": event_ms(lambda: tb.traverse_closest_plain(qo, qd, qa, *qt, **qk),
+             "closest_plain": event_ms(lambda: tb.traverse_closest_plain(qo, qd, qa, *qt[:4],
+                                                                         **qk),
                                        2, host_ahead=False),
-             "anyhit_plain": event_ms(lambda: tb.traverse_anyhit_plain(qo, qd, tmax, qa, *qt,
+             "anyhit_plain": event_ms(lambda: tb.traverse_anyhit_plain(qo, qd, tmax, qa, *qt[:4],
                                                                        **qk), 2,
                                       host_ahead=False)}
         st = bvh_stats(tb, qo, qd, qa, qt, tmax, qk)

@@ -108,7 +108,8 @@ def test_traverse_closest_matches_reference(accel, name):
     tj, trj, uj, vj = (np.asarray(x) for x in j_xla.traverse_closest(
         jnp.asarray(o), jnp.asarray(d), jnp.asarray(active), *_tree(jds)))
     tt, trt, ut, vt = (x.numpy() for x in t_bvh.traverse_closest(
-        torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(active), *_tree(tds)))
+        torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(active), *_tree(tds),
+        tds.bvh_pairs, tds.tris9))
     hit = trj >= 0
     np.testing.assert_array_equal(trt >= 0, hit)
     same = trt == trj
@@ -132,7 +133,7 @@ def test_traverse_anyhit_matches_reference(accel, name):
                                            jnp.asarray(active), *_tree(jds)))
     got = t_bvh.traverse_anyhit(torch.from_numpy(o), torch.from_numpy(d),
                                 torch.from_numpy(t_max), torch.from_numpy(active),
-                                *_tree(tds)).numpy()
+                                *_tree(tds), tds.bvh_pairs, tds.tris9).numpy()
     np.testing.assert_array_equal(got, ref)
     assert got.mean() > 0.3 and not got[~active].any()
 
@@ -151,10 +152,11 @@ def test_stack_guard_raises():
         t_integrator.trace_paths(tds, o, d, torch.zeros((64, 11)),
                                  _options(sc, "bvh2", 8, 1, max_stack=tds.tree_depth))
     with pytest.raises(ValueError, match="overflow"):
-        t_bvh.traverse_closest(o, d, torch.ones(64, dtype=torch.bool), *_tree(tds), max_stack=2)
+        t_bvh.traverse_closest(o, d, torch.ones(64, dtype=torch.bool), *_tree(tds),
+                               tds.bvh_pairs, tds.tris9, max_stack=2)
     with pytest.raises(ValueError, match="overflow"):
         t_bvh.traverse_anyhit(o, d, torch.full((64,), 30.0), torch.ones(64, dtype=torch.bool),
-                              *_tree(tds), max_stack=2)
+                              *_tree(tds), tds.bvh_pairs, tds.tris9, max_stack=2)
     # The depth + 1 the policy asks for is enough.
     t_integrator.trace_paths(tds, o, d, torch.zeros((64, 11)),
                              _options(sc, "bvh2", 8, 1, max_stack=tds.tree_depth + 1))

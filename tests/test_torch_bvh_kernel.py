@@ -23,7 +23,15 @@ without a card.
   * the integrator refuses, on the card, a tree deeper than the kernel's
     stack (MAX_STACK) before anything launches, and takes it on the CPU;
   * `upload_scene(..., bvh=tree)` with the tree its own build makes equals
-    the plain upload, and refuses a tree of another scene.
+    the plain upload, and refuses a tree of another scene;
+  * v2's child-pair records (`pack_bvh_pairs`) on the bvh2 and sbvh trees
+    of a small grid, the cornell's and a one-leaf tree: each inner node's
+    record holds its children's bounds and meta bit for bit; a tree whose
+    children do not start at an odd id after their parent raises, in the
+    packer and at upload;
+  * a numpy walk over the records and the tris9 slab alone, in v2's order
+    (a stack of (left, count)), returns the twin's (t, tri, u, v) and
+    occlusion bit for bit on primary and bounce rays.
 The kernel itself runs on the card: tests/test_torch_cuda.py and
 chip_smoke.py phase 21 hold it to the twin bit for bit.
 """
@@ -63,7 +71,15 @@ def _uploads(accel):
 
 
 def _tree(ds):
+    """The FlatBVH and the leaf-ordered scene: the twins' tree arguments
+    (both packages')."""
     return ds.node_bounds, ds.node_meta, ds.scene.vertices, ds.scene.tri_v
+
+
+def _wrapper_tree(ds):
+    """The wrapper's: the twin's, then the records and the tris9 slab that
+    the kernel reads."""
+    return _tree(ds) + (ds.bvh_pairs, ds.tris9)
 
 
 def _rays(ds, n, seed):
@@ -97,7 +113,7 @@ def _rays(ds, n, seed):
 def _cpu_query(n=64):
     _, tds = _uploads("bvh2")
     o, d, active, t_max = (torch.from_numpy(x) for x in _rays(tds, n, 1))
-    return o, d, active, t_max, _tree(tds)
+    return o, d, active, t_max, _wrapper_tree(tds)
 
 
 @pytest.mark.parametrize("query", ["closest", "anyhit"])
@@ -108,12 +124,13 @@ def test_cpu_tensors_run_the_twin(query):
     traverse_bvh.reset_launches()
     if query == "closest":
         got = traverse_bvh.traverse_closest(o, d, active, *tree)
-        want = traverse_bvh.traverse_closest_plain(o, d, active, *tree)
+        want = traverse_bvh.traverse_closest_plain(o, d, active, *tree[:4])
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         assert int((got[1] >= 0).sum()) > 0
     else:
         got = traverse_bvh.traverse_anyhit(o, d, t_max, active, *tree)
-        assert torch.equal(got, traverse_bvh.traverse_anyhit_plain(o, d, t_max, active, *tree))
+        assert torch.equal(got, traverse_bvh.traverse_anyhit_plain(o, d, t_max, active,
+                                                                   *tree[:4]))
         assert int(got.sum()) > 0
     assert traverse_bvh.launches == {query: 0, f"{query}_twin": 2,
                                      **{k: 0 for k in traverse_bvh.launches
@@ -139,13 +156,17 @@ def _cuda(x):
 
 def _bad(case, o, d, active, t_max, tree):
     """The closest (or, for t_max, any-hit) query of `case`'s bad input."""
-    bounds, meta, verts, tri_v = tree
+    bounds, meta, verts, tri_v, pairs, tris9 = tree
     q = {"o": o, "d": d, "active": active, "bounds": bounds, "meta": meta, "verts": verts,
-         "tri_v": tri_v, "t_max": t_max, "max_stack": 32}
+         "tri_v": tri_v, "pairs": pairs, "tris9": tris9, "t_max": t_max, "max_stack": 32}
     if case == "dtype":
         q["meta"] = meta.long()
     elif case == "shape":
         q["bounds"] = bounds[:, :5].contiguous()
+    elif case == "pairs shape":
+        q["pairs"] = pairs[:-1]
+    elif case == "tris9 dtype":
+        q["tris9"] = tris9.double()
     elif case == "non-contiguous":
         q["d"] = d.t().contiguous().t()
     elif case == "t_max shape":
@@ -155,7 +176,7 @@ def _bad(case, o, d, active, t_max, tree):
     q = {k: _cuda(v) if isinstance(v, torch.Tensor) else v for k, v in q.items()}
     if case == "mix":
         q["verts"] = verts  # a plain CPU tensor among the card's
-    tree = (q["bounds"], q["meta"], q["verts"], q["tri_v"])
+    tree = tuple(q[k] for k in ("bounds", "meta", "verts", "tri_v", "pairs", "tris9"))
     if case == "t_max shape":
         return lambda: traverse_bvh.traverse_anyhit(q["o"], q["d"], q["t_max"], q["active"],
                                                     *tree, max_stack=q["max_stack"])
@@ -166,6 +187,8 @@ def _bad(case, o, d, active, t_max, tree):
 @pytest.mark.parametrize("case,error,match", [
     ("dtype", TypeError, "node_meta has dtype"),
     ("shape", ValueError, "node_bounds has shape"),
+    ("pairs shape", ValueError, "pairs has shape"),
+    ("tris9 dtype", TypeError, "tris9 has dtype"),
     ("non-contiguous", ValueError, "d must be contiguous"),
     ("t_max shape", ValueError, "t_max has shape"),
     ("stack", ValueError, "max_stack"),
@@ -216,12 +239,9 @@ def test_count_kernels_counts_b4_only_under_its_module():
     """B4's template instances (query, stats, stack depth) count under
     traverse_bvh's keys; the other kernels' names count nowhere there, and
     B4's nowhere else."""
-    b4 = (["_ZN12_GLOBAL__N_111bvh2_kernelILb0ELb0ELi32EEEvPKfS2_PKbS2_NS_4TreeEiiiPfPiS6_S6_Pb"
-           "5Stats"] * 3
-          + ["_ZN12_GLOBAL__N_111bvh2_kernelILb1ELb0ELi64EEEvPKfS2_PKbS2_NS_4TreeEiiiPfPiS6_S6_"
-             "Pb5Stats"] * 2
-          + ["_ZN12_GLOBAL__N_111bvh2_kernelILb0ELb1ELi32EEEvPKfS2_PKbS2_NS_4TreeEiiiPfPiS6_S6_"
-             "Pb5Stats"])
+    b4 = (["_ZN12_GLOBAL__N_111bvh2_kernelILb0ELb0ELi32EEEvNS_5QueryENS_4TreeE5Stats"] * 3
+          + ["_ZN12_GLOBAL__N_111bvh2_kernelILb1ELb0ELi64EEEvNS_5QueryENS_4TreeE5Stats"] * 2
+          + ["_ZN12_GLOBAL__N_111bvh2_kernelILb0ELb1ELi32EEEvNS_5QueryENS_4TreeE5Stats"])
     others = (["_ZN12_GLOBAL__N_115mt_brute_kernelILb0ELi4EEEvPKfS2_PKbS2_fiiPfPiS6_S6_"] * 4
               + ["_ZN12_GLOBAL__N_111mega_kernelILb1ELb0EEEvPKfS2_PKbS2_"] * 5
               + ["_ZN12_GLOBAL__N_110cw8_kernelILb0ELb0ELi16EEEvPKf"] * 6
@@ -308,3 +328,229 @@ def test_upload_scene_takes_a_tree_built_ahead(accel):
     small = sc._replace(tri_v=sc.tri_v[:-2], tri_vn=sc.tri_vn[:-2], tri_vt=sc.tri_vt[:-2])
     with pytest.raises(ValueError, match="orders 36 triangles"):
         t_scene.upload_scene(small, accel, "cpu", bvh=tree)
+
+
+# --------------------------------------------------------------------------
+# The child-pair records of kernel B4 v2 (traverse_bvh.pack_bvh_pairs)
+# --------------------------------------------------------------------------
+
+_GRIDS = {}
+
+
+def _grid(accel):
+    """A 30x30 displaced grid (1,684 triangles; bvh2 from the native
+    builder, sbvh from numpy) and the bench camera, which frames it."""
+    from caitlynrenderer_tpu_torch.bench import bench_scene
+    from caitlynrenderer_tpu_torch.io.builtin_scenes import displaced_grid
+
+    if accel not in _GRIDS:
+        _GRIDS[accel] = t_scene.upload_scene(displaced_grid(30)[0], accel, "cpu")
+    return _GRIDS[accel], bench_scene("grid100k")[1]
+
+
+def _one_leaf():
+    """The cornell box under a tree of one leaf of all its 36 triangles."""
+    sc = cornell_box()[0]
+    return t_scene.upload_scene(sc, "bvh2", "cpu", bvh=t_scene.one_leaf_bvh(sc.num_triangles))
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("tree", ["grid bvh2", "grid sbvh", "cornell bvh2", "one leaf"])
+def test_pack_bvh_pairs_records_are_the_flat_trees_rows(tree):
+    """Record (left + 1) // 2 of every inner node holds its children's
+    bounds and meta, node_bounds[left:left + 2] and node_meta[left:left +
+    2], bit for bit; record k holds nodes 2k - 1 and 2k, the root in record
+    0's second slot, zeros where no node is; upload_scene packs them under
+    bvh2/sbvh, and an empty placeholder under the others."""
+    if tree == "one leaf":
+        ds = _one_leaf()
+    elif tree == "cornell bvh2":
+        ds = _uploads("bvh2")[1]
+    else:
+        ds = _grid(tree.split()[1])[0]
+    nb, nm = ds.node_bounds, ds.node_meta
+    rec = traverse_bvh.pack_bvh_pairs(nb, nm)
+    assert torch.equal(_bits(rec), _bits(ds.bvh_pairs))
+    nn = nm.shape[0]
+    assert rec.shape == (traverse_bvh.n_records(nn), 16) and rec.dtype == torch.float32
+    boxes = rec[:, :12].reshape(-1, 2, 6)
+    metas = rec[:, 12:].contiguous().view(torch.int32).reshape(-1, 2, 2)
+    inner = (nm[:, 1] == 0).nonzero()[:, 0]
+    assert (len(inner) > 0) == (tree != "one leaf")
+    for node in inner.tolist():
+        left = int(nm[node, 0])
+        k = (left + 1) // 2
+        assert torch.equal(_bits(boxes[k]), _bits(nb[left:left + 2])), node
+        assert torch.equal(metas[k], nm[left:left + 2]), node
+    ids = torch.arange(2 * rec.shape[0]) - 1  # each slot's node
+    slot_boxes, slot_metas = boxes.reshape(-1, 6), metas.reshape(-1, 2)
+    real = (ids >= 0) & (ids < nn)
+    assert torch.equal(_bits(slot_boxes[real]), _bits(nb)) and torch.equal(slot_metas[real], nm)
+    assert not _bits(slot_boxes[~real]).any() and not slot_metas[~real].any()
+    assert torch.equal(metas[0, 1], nm[0])
+    assert t_scene.upload_scene(cornell_box()[0], "wide", "cpu").bvh_pairs.shape == (0, 16)
+
+
+def _renumbered(bvh):
+    """`bvh` with an unused leaf inserted at id 1: the same tree, but every
+    pair of children starts at an even id."""
+    from caitlynrenderer_tpu_torch.accel.bvh import FlatBVH
+
+    meta = bvh.node_meta.copy()
+    meta[meta[:, 1] == 0, 0] += 1
+    meta = np.concatenate([meta[:1], [[0, 1]], meta[1:]]).astype(np.int32)
+    bounds = np.concatenate([bvh.node_bounds[:1], bvh.node_bounds[:1], bvh.node_bounds[1:]])
+    return FlatBVH(bounds, meta, bvh.tri_order)
+
+
+@pytest.mark.parametrize("case", ["even pairs", "past the table", "before the parent", "upload"])
+def test_pack_bvh_pairs_refuses_a_tree_without_odd_pairs(case):
+    """A tree whose children are not pairs starting at an odd id after
+    their parent raises, in the packer and at upload (the twin walks it:
+    the records could not)."""
+    from caitlynrenderer_tpu_torch.accel.bvh import build_bvh
+
+    sc = cornell_box()[0]
+    bvh = build_bvh(sc.vertices, sc.tri_v, max_leaf=4)
+    bad = _renumbered(bvh)
+    if case == "upload":
+        with pytest.raises(ValueError, match="children start at 2"):
+            t_scene.upload_scene(sc, "bvh2", "cpu", bvh=bad)
+        return
+    meta = {"even pairs": bad.node_meta,
+            "past the table": np.array([[1, 0], [0, 1]], np.int32),
+            "before the parent": np.array([[1, 0], [0, 1], [0, 1], [1, 0], [0, 1]],
+                                          np.int32)}[case]
+    bounds = torch.zeros((meta.shape[0], 6))
+    with pytest.raises(ValueError, match="children start at"):
+        traverse_bvh.pack_bvh_pairs(bounds, torch.from_numpy(meta))
+    # The renumbered tree is the same tree to the twin.
+    if case == "even pairs":
+        ds = t_scene.upload_scene(sc, "bvh2", "cpu", bvh=bvh)
+        o, d, active, _ = (torch.from_numpy(x) for x in _rays(ds, 200, 3))
+        flat = (torch.from_numpy(bad.node_bounds), torch.from_numpy(bad.node_meta),
+                ds.scene.vertices, ds.scene.tri_v)
+        for a, b in zip(traverse_bvh.traverse_closest_plain(o, d, active, *flat, max_stack=32),
+                        traverse_bvh.traverse_closest_plain(o, d, active, *_tree(ds),
+                                                            max_stack=32)):
+            assert torch.equal(a, b)
+
+
+def _records_walk(records, tris9, o, d, active, t_max, max_leaf, anyhit):
+    """Kernel B4 v2's walk in numpy float32, one ray at a time, over the
+    packed records and the tris9 slab only: the root from record 0's second
+    slot, both children of an inner node from its record (left + 1) // 2,
+    near child first (right first only when near_l > near_r), the other
+    pushed as its (left, count), a leaf's first min(count, max_leaf)
+    triangles in index order with a strict < update (any-hit: the first
+    accepted ends the ray).  Returns (t, tri, u, v) or occlusion."""
+    f32 = np.float32
+    boxes = records[:, :12].reshape(-1, 2, 6)
+    metas = records[:, 12:].copy().view(np.int32).reshape(-1, 2, 2)
+    n, nt = o.shape[0], tris9.shape[0]
+    t_out = np.full(n, f32(1e9), f32)
+    tri_out = np.full(n, -1, np.int32)
+    u_out, v_out = np.zeros(n, f32), np.zeros(n, f32)
+    occ = np.zeros(n, bool)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        for i in np.flatnonzero(active):
+            oi, di = o[i], d[i]
+            inv = f32(1) / di
+            best = [f32(1e9), -1, f32(0), f32(0)]
+            stack, (left, count) = [], metas[0, 1]
+            while True:
+                limit = t_max[i] if anyhit else best[0]
+                if count == 0:
+                    k = (left + 1) // 2
+                    t0 = (boxes[k, :, :3] - oi) * inv
+                    t1 = (boxes[k, :, 3:] - oi) * inv
+                    tn = np.minimum(t0, t1).max(axis=1)
+                    tf = np.maximum(t0, t1).min(axis=1)
+                    hit = (tf > 0) & (tf >= tn) & (tn < limit)
+                    right_first = hit[0] and hit[1] and tn[0] > tn[1]
+                    if hit[0] and hit[1]:
+                        stack.append(tuple(metas[k, 0 if right_first else 1]))
+                    if hit[0] and not right_first:
+                        left, count = metas[k, 0]
+                        continue
+                    if hit[1]:
+                        left, count = metas[k, 1]
+                        continue
+                elif count > 0:
+                    idx = left + np.arange(min(count, max_leaf))
+                    r = tris9[np.clip(idx, 0, nt - 1)]
+                    v0, e1, e2 = r[:, 0:3], r[:, 3:6], r[:, 6:9]
+                    pv = np.stack([di[1] * e2[:, 2] - di[2] * e2[:, 1],
+                                   di[2] * e2[:, 0] - di[0] * e2[:, 2],
+                                   di[0] * e2[:, 1] - di[1] * e2[:, 0]], axis=1)
+                    det = e1[:, 0] * pv[:, 0] + e1[:, 1] * pv[:, 1] + e1[:, 2] * pv[:, 2]
+                    inv_det = f32(1) / np.where(np.abs(det) < f32(1e-20), f32(1e-20), det)
+                    tv = oi - v0
+                    qv = np.stack([tv[:, 1] * e1[:, 2] - tv[:, 2] * e1[:, 1],
+                                   tv[:, 2] * e1[:, 0] - tv[:, 0] * e1[:, 2],
+                                   tv[:, 0] * e1[:, 1] - tv[:, 1] * e1[:, 0]], axis=1)
+                    u = (tv[:, 0] * pv[:, 0] + tv[:, 1] * pv[:, 1] + tv[:, 2] * pv[:, 2]) * inv_det
+                    v = (di[0] * qv[:, 0] + di[1] * qv[:, 1] + di[2] * qv[:, 2]) * inv_det
+                    t = (e2[:, 0] * qv[:, 0] + e2[:, 1] * qv[:, 1] + e2[:, 2] * qv[:, 2]) * inv_det
+                    ok = (u >= 0) & (v >= 0) & (f32(1) - u - v >= 0) & (t >= 0)
+                    if anyhit and (ok & (t < limit)).any():
+                        occ[i] = True
+                        break
+                    for j in np.flatnonzero(ok):
+                        if t[j] < best[0]:
+                            best = [t[j], int(idx[j]), u[j], v[j]]
+                if not stack:
+                    break
+                left, count = stack.pop()
+            t_out[i], tri_out[i], u_out[i], v_out[i] = best
+    return occ if anyhit else (t_out, tri_out, u_out, v_out)
+
+
+@pytest.mark.parametrize("tree", ["grid bvh2", "grid sbvh", "one leaf"])
+@pytest.mark.parametrize("rays", ["primary", "bounce"])
+def test_records_walk_equals_the_twin(tree, rays):
+    """A numpy walk over the records and tris9 alone, in v2's order (a
+    stack of (left, count)), returns the twin's (t, tri, u, v) and occlusion
+    bit for bit on a 16x16 camera's primary rays and the integrator's
+    bounce rays from their hits (chip_smoke.bounce_rays): the records carry
+    every float and id the FlatBVH walk reads, and tris9's e1, e2 are the
+    twin's own subtractions."""
+    import importlib.util
+
+    from caitlynrenderer_tpu_torch.core.camera import generate_rays
+    from caitlynrenderer_tpu_torch.render import sampling
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    if tree == "one leaf":
+        from caitlynrenderer_tpu_torch.bench import bench_scene
+
+        ds, camera = _one_leaf(), bench_scene("cornell")[1]
+        max_leaf = ds.scene.tri_v.shape[0]
+    else:
+        ds, camera = _grid(tree.split()[1])
+        max_leaf = 4
+    side = 16
+    uni = sampling.pixel_uniforms(sampling.sample_key(sampling.prng_key(0), 0),
+                                  torch.arange(side * side, dtype=torch.int32), 2)
+    o, d = generate_rays(camera, side, side, uni)
+    active = torch.ones(side * side, dtype=torch.bool)
+    kw = {"max_leaf": max_leaf, "max_stack": t_scene.required_stack(ds)}
+    if rays == "bounce":
+        tri = traverse_bvh.traverse_closest_plain(o, d, active, *_tree(ds), **kw)[1]
+        o, d, active = smoke.bounce_rays(ds, o, d, tri, uni)
+    t_max = torch.from_numpy(np.random.default_rng(5).uniform(0.5, 20, o.shape[0]).astype(
+        np.float32))
+    want = traverse_bvh.traverse_closest_plain(o, d, active, *_tree(ds), **kw)
+    occ = traverse_bvh.traverse_anyhit_plain(o, d, t_max, active, *_tree(ds), **kw)
+    args = [x.numpy() for x in (ds.bvh_pairs, ds.tris9, o, d, active, t_max)]
+    got = _records_walk(*args, max_leaf, anyhit=False)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.view(np.int32), b.numpy().view(np.int32))
+    np.testing.assert_array_equal(_records_walk(*args, max_leaf, anyhit=True), occ.numpy())
+    assert int((want[1] >= 0).sum()) > 0.2 * int(active.sum()) and int(active.sum()) > 100
+    assert 0 < int(occ.sum()) < int(active.sum())

@@ -546,7 +546,10 @@ def test_graph_on_a_card_that_is_not_current(dev, cornell):
 
 
 def _bvh(ds):
-    return ds.node_bounds, ds.node_meta, ds.scene.vertices, ds.scene.tri_v
+    """B4's tree arguments: the FlatBVH and scene (the twin's), the records
+    and the tris9 slab (the kernel's)."""
+    return (ds.node_bounds, ds.node_meta, ds.scene.vertices, ds.scene.tri_v, ds.bvh_pairs,
+            ds.tris9)
 
 
 def _bvh_case(case, dev, cornell):
@@ -583,9 +586,9 @@ def test_bvh_kernel_matches_twin(case, max_leaf, dev, cornell):
     kw = {"max_leaf": max_leaf, "max_stack": required_stack(ds)}
     traverse_bvh.reset_launches()
     got = traverse_bvh.traverse_closest(o, d, active, *_bvh(ds), **kw)
-    want = traverse_bvh.traverse_closest_plain(o, d, active, *_bvh(ds), **kw)
+    want = traverse_bvh.traverse_closest_plain(o, d, active, *_bvh(ds)[:4], **kw)
     occ = traverse_bvh.traverse_anyhit(o, d, t_max, active, *_bvh(ds), **kw)
-    occ_t = traverse_bvh.traverse_anyhit_plain(o, d, t_max, active, *_bvh(ds), **kw)
+    occ_t = traverse_bvh.traverse_anyhit_plain(o, d, t_max, active, *_bvh(ds)[:4], **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(occ, occ_t)
@@ -615,3 +618,4 @@ def test_bvh_kernel_matches_twin(case, max_leaf, dev, cornell):
             assert 0 < int(s["vert_seen"].sum()) <= 3 * int(s["tri_seen"].sum())
         assert bool((st["counts"][got[1] >= 0, 1] > 0).all())  # a hit was tested
     assert traverse_bvh.stats_launches == {"closest": 2, "anyhit": 2}
+

@@ -180,6 +180,33 @@ def test_cli_turntable_writes_each_orbit_frame(tmp_path, capsys):
         cli.main(["render", TOML, "--device", "cpu", "--turntable", "0"])
 
 
+def test_cli_turntable_1_renders_a_still_image(tmp_path, capsys):
+    """--turntable 1 is the still image at -o, as in the reference's CLI
+    (its turntable runs only for N > 1): one PNG, OUT.png and no OUT_000.png,
+    within one 8-bit level of the reference CLI's `render --turntable 1`
+    on the same config (the turntable test's tolerance, for the same
+    reason) and bit for bit the port's render without --turntable; the
+    still path takes --resume, which the turntable refuses."""
+    from caitlynrenderer_tpu import cli as j_cli
+
+    args = ["render", TOML, "--accel", "brute", "--width", "12", "--height", "12", "--depth", "2",
+            "--spp", "2"]
+    port, ref, plain = (tmp_path / d for d in ("port", "ref", "plain"))
+    for d in (port, ref, plain):
+        d.mkdir()
+    assert cli.main([*args, "--device", "cpu", "--turntable", "1", "-o", str(port / "x.png"),
+                     "--resume", str(tmp_path / "ck.npz")]) == 0
+    assert "frame" not in capsys.readouterr().out
+    assert j_cli.main([*args, "--turntable", "1", "-o", str(ref / "x.png")]) == 0
+    assert cli.main([*args, "--device", "cpu", "-o", str(plain / "x.png")]) == 0
+    assert sorted(os.listdir(port)) == sorted(os.listdir(ref)) == ["x.png"]
+    got = load_png(str(port / "x.png"))
+    assert got.shape == (12, 12, 3) and got.max() > 0
+    assert np.abs(got - load_png(str(ref / "x.png"))).max() <= 1.0 / 255 + 1e-6
+    np.testing.assert_array_equal(got, load_png(str(plain / "x.png")))
+    assert checkpoint.load_render_state(str(tmp_path / "ck.npz"), "cpu").frame_count == 2
+
+
 def test_cli_benchmark_help(capfd):
     """`benchmark` runs the port's bench module with the remaining
     arguments, --help included."""
