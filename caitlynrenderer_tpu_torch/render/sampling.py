@@ -14,6 +14,12 @@ draws the samples of its own frames; the numbers are the same either way.
 torch has little uint32 support (especially on CUDA), so the arithmetic
 runs in int64 with every sum and shift masked back to 32 bits.
 
+`pixel_uniforms` and `draw_uniforms` draw on the card through kernel B5
+(ops/threefry.py, csrc/threefry.cu) and on the CPU through their plain
+twins `pixel_uniforms_plain` and `draw_uniforms_plain`, which the kernel
+equals bit for bit; there is no fallback from one to the other.  The key
+folds (`fold_in`, `sample_key`) stay torch on either device.
+
 Uniform layout per pixel-sample (shared with the reference integrator):
 
     [0:2]  tent-filter AA jitter pair
@@ -26,8 +32,13 @@ from __future__ import annotations
 
 import torch
 
+from caitlynrenderer_tpu_torch.ops import _build, threefry
+
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA  # Threefry's key-schedule constant
+_ONE = 0x3F800000  # the bits of 1.0f
+_MANTISSA_SHIFT = 9  # 32 random bits -> 23 of mantissa
 
 
 def uniforms_per_sample(max_depth: int) -> int:
@@ -43,7 +54,7 @@ def threefry2x32(k1: int, k2: int, x0, x1):
     (k1, k2).  x0, x1: int64 tensors (or Python ints) holding uint32 values;
     k1, k2: ints or int64 tensors broadcasting against them.  Returns the
     two output words, same kind as the inputs."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
     for i in range(5):
@@ -89,11 +100,11 @@ def sample_key(base_key, sample_idx):
 def _bits_to_uniform(b0, b1):
     """jax.random.uniform's float32 in [0, 1) from one threefry output pair:
     the 23 high bits of b0 ^ b1 as mantissa of a float in [1, 2), minus 1."""
-    bits = ((b0 ^ b1) >> 9) | 0x3F800000
+    bits = ((b0 ^ b1) >> _MANTISSA_SHIFT) | _ONE
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
-def draw_uniforms(key, num_pixels: int, max_depth: int, device) -> torch.Tensor:
+def draw_uniforms_plain(key, num_pixels: int, max_depth: int, device) -> torch.Tensor:
     """`jax.random.uniform(key, (num_pixels, 4 + 7*max_depth))`: the uniform
     block for one sample of every pixel, keyed by lane position."""
     n_u = uniforms_per_sample(max_depth)
@@ -102,7 +113,7 @@ def draw_uniforms(key, num_pixels: int, max_depth: int, device) -> torch.Tensor:
     return _bits_to_uniform(b0, b1).reshape(num_pixels, n_u)
 
 
-def pixel_uniforms(key, pixel_ids, max_depth: int) -> torch.Tensor:
+def pixel_uniforms_plain(key, pixel_ids, max_depth: int) -> torch.Tensor:
     """Per-pixel-keyed uniforms, `vmap(uniform(fold_in(key, pid), (n_u,)))`:
     stream i depends only on (key, pixel_ids[i]).  key: an int pair, or a
     pair of 0-d int64 tensors on pixel_ids' device; pixel_ids: (N,) integer
@@ -114,3 +125,24 @@ def pixel_uniforms(key, pixel_ids, max_depth: int) -> torch.Tensor:
     count = torch.arange(n_u, dtype=torch.int64, device=pixel_ids.device)[None, :]
     b0, b1 = threefry2x32(pk1, pk2, torch.zeros_like(count), count)
     return _bits_to_uniform(b0, b1)
+
+
+def draw_uniforms(key, num_pixels: int, max_depth: int, device) -> torch.Tensor:
+    """`draw_uniforms_plain`'s numbers: on a CUDA device from kernel B5
+    (ops/threefry.py, which takes the key's words as ints), on the CPU
+    from the twin."""
+    if torch.device(device).type == "cpu":
+        threefry.launches["lane_twin"] += 1
+        return draw_uniforms_plain(key, num_pixels, max_depth, device)
+    return threefry.threefry_lane(key, num_pixels, uniforms_per_sample(max_depth), device)
+
+
+def pixel_uniforms(key, pixel_ids, max_depth: int) -> torch.Tensor:
+    """`pixel_uniforms_plain`'s numbers: for ids on a CUDA device from
+    kernel B5 (ops/threefry.py, which takes (N,) contiguous int32 ids and
+    the key's words as ints or 0-d int64 tensors on that card), on the CPU
+    from the twin."""
+    if _build.is_cpu(pixel_ids, *key):
+        threefry.launches["pixel_twin"] += 1
+        return pixel_uniforms_plain(key, pixel_ids, max_depth)
+    return threefry.threefry_pixel(key, pixel_ids, uniforms_per_sample(max_depth))

@@ -6,9 +6,9 @@
 Phases (any failure exits non-zero; no phase's exception is caught):
   1. require CUDA; print the card's name and power limit (nvidia-smi)
   2. build csrc/mt_brute.cu (B1), csrc/traverse_mega.cu (B2),
-     csrc/traverse_cw8.cu (B3) and csrc/traverse_bvh.cu (B4) from this
-     checkout, one nvcc each, started together; print ptxas's lines
-     (registers, stack, spills)
+     csrc/traverse_cw8.cu (B3), csrc/traverse_bvh.cu (B4) and
+     csrc/threefry.cu (B5) from this checkout, one nvcc each, started
+     together; print ptxas's lines (registers, stack, spills)
   3. kernel vs plain PyTorch twin on the card: cornell primary, bounce
      and shadow rays at 700x700, 65536 rays x the 2048-triangle soup (4 lanes per
      ray), an edge-case set (ragged N, inactive lanes, det = 0 padding rows,
@@ -23,7 +23,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
   5. the main path at the demo size: upload_scene -> render_steps ->
      resolve, 700x700, 3 bounces, one launch of 32 spp (a graph's replay)
      after a warm-up launch of the same length (the capture, with its
-     warm-up sample)
+     warm-up sample); B5 draws every sample (its launches are the kernels
+     line's), its twin never
   6. closest-hit (and any-hit) kernel vs twin times at the path's shapes:
      490k primary, bounce and shadow rays x 36 triangles (the shadow rays
      are the main path's any-hit, and the JSON record's) and 65k rays x
@@ -127,7 +128,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      rtol 1e-3, atol 1e-6 max|g|, the losses within rtol 1e-5.  Its
      numbers, beside the card's name and power limit, are also printed
      as one {"grad": ...} JSON line before the kernels' line.
- 19. tooling and multi-device on the card: (a) the 700x700 cornell (3
+ 19. tooling and multi-device on the card, B5 drawing every sample of
+     each path in this process and in (d)'s ranks: (a) the 700x700 cornell (3
      bounces, B1) in 4x4 tiles (render/tiled.py) against the untiled
      progressive loop, 4 samples: accumulations equal bit for bit,
      ms/frame of both, and B1 against its twin bit for bit on every query
@@ -138,7 +140,7 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      Moller-Trumbore), the times of both, the walk launching neither B3
      nor any twin; one 256x256, 4-bounce sample under "auto" (B3
      launched 4 + 4 times, its twin never), and traversal "xla" refused
-     on the card (ValueError, nothing launched); (c) a 1x1 mesh under
+     on the card (ValueError, nothing launched but B5's draw); (c) a 1x1 mesh under
      NCCL (world size 1): the sharded render of the cornell demo (B1) and
      of grid100k through wide (B2, 256x256, 4 bounces), 4 samples, equal
      bit for bit to the progressive loop, ms/frame of both, the kernel
@@ -204,15 +206,35 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      the stats variant's oracle walk) and its walk's work over the bound.  Its
      numbers are also printed as one {"phase21": ...} JSON line before the
      kernels' line.
-About 6 minutes on one H100, builds included.  B3's and B4's stats
+ 22. B5, the threefry sampler (ops/threefry.py; every path's uniforms):
+     (a) B5 against its twin, bit for bit (torch.equal on the int32
+     views): the 700x700 cornell's ids at depth 3, 256x256 at depth 4, a
+     175x175 tile's ids, the 4x4-tiled frame's tile-major ids padded as
+     parallel/render.py pads and clamps them, depth 0
+     and 8, keys as ints and as 0-d tensor views at frames 0, 1, 2^31 - 1
+     and 2^32 - 1, and draw_uniforms at 256x256 x 25 (config #5) and at
+     1001 rows (a last block not full); (b) B5 and its twin timed at the
+     cornell's 700x700 x 25, the grids' 256x256 x 32 and config #5's lane
+     draw, beside B5's bound (`threefry_bound`: the larger of its bytes
+     over 3.35 TB/s and its least instructions, the ALU pipe's at 64 a
+     clock an SM and all at the SM's 128 issue slots a clock, over the SMs
+     at the card's highest SM clock); (c) graph frames
+     of 16 samples through the twin (`twin_sampler`, the card's path
+     before B5) and through B5, in turns twin, B5, B5, twin, on the
+     700x700 cornell (B1), grid100k under wide, cwbvh and bvh2, and grid1m
+     under wide, the two graphs' accumulations equal bit for bit; (d) both
+     graphs' nodes a sample.  Its numbers are also printed as one
+     {"phase22": ...} JSON line before the kernels' line.
+About 7 minutes on one H100, builds included.  B3's and B4's stats
 variants (`stats=True`) are checked and used for counts and bounds only;
 their launches are counted apart (`traverse_cw8.stats_launches`,
 `traverse_bvh.stats_launches`).  The line before the last is
 the kernels' JSON record, each kernel with its time, its plain twin's, and
 its bound (the larger of its bytes over 3.35 TB/s and its FP32 operations
-over 67 TFLOP/s, the H100 SXM's published peaks, counted from this run's
-inputs as `*_bound` below say); the last line is {"ok": true, "device":
-{...}}.  Nothing of JAX or of the JAX package is imported.
+over 67 TFLOP/s, the H100 SXM's published peaks, or for B5 its integer
+instructions over the SM's pipes, counted from this run's inputs as
+`*_bound` below say); the last line is {"ok": true, "device": {...}}.
+Nothing of JAX or of the JAX package is imported.
 """
 
 import contextlib
@@ -749,12 +771,47 @@ PATH_KERNEL = {"brute": ("mt_brute", "mt_brute_kernel", "B1"),
                "sbvh": ("traverse_bvh", "bvh2_kernel", "B4")}
 
 
+# B5's module: every sample of every path draws its uniforms through it.
+SAMPLER = "threefry"
+
+
 def kernel_modules():
-    """{module name: module} of the four kernel modules."""
-    from caitlynrenderer_tpu_torch.ops import mt_brute, traverse_bvh, traverse_cw8, traverse_mega
+    """{module name: module} of the five kernel modules."""
+    from caitlynrenderer_tpu_torch.ops import (
+        mt_brute,
+        threefry,
+        traverse_bvh,
+        traverse_cw8,
+        traverse_mega,
+    )
 
     return {"mt_brute": mt_brute, "traverse_mega": traverse_mega, "traverse_cw8": traverse_cw8,
-            "traverse_bvh": traverse_bvh}
+            "traverse_bvh": traverse_bvh, SAMPLER: threefry}
+
+
+def only_path(launches, name):
+    """True when, in {module: {key: n}}, no twin ran and no kernel but
+    module `name`'s and the sampler's (B5)."""
+    return all(v == 0 for k, r in launches.items() for q, v in r.items()
+               if q.endswith("_twin") or k not in (name, SAMPLER))
+
+
+@contextlib.contextmanager
+def twin_sampler():
+    """The sampler as the card ran it before B5: `pixel_uniforms` runs its
+    plain twin (int64 torch ops) on the card.  Graphs captured inside use
+    the twin for good; the graph cache is cleared on entry and exit, so
+    none crosses over."""
+    from caitlynrenderer_tpu_torch.render import progressive, sampling
+
+    saved = sampling.pixel_uniforms
+    progressive.clear_graphs()
+    sampling.pixel_uniforms = sampling.pixel_uniforms_plain
+    try:
+        yield
+    finally:
+        sampling.pixel_uniforms = saved
+        progressive.clear_graphs()
 
 
 @contextlib.contextmanager
@@ -840,13 +897,12 @@ def main_path(label, scene, camera, options, dev, spp, split_stages=True, prebui
     launches = {k: dict(m.launches) for k, m in modules.items()}
     run = launches[name]
     # Two launches of spp samples, and a capture's warm-up sample.
-    expect = depth * (2 * spp + progressive.graph_counts["captures"] - captures)
-    check(run["closest"] == expect and run["anyhit"] == expect,
+    samples = 2 * spp + progressive.graph_counts["captures"] - captures
+    check(run["closest"] == depth * samples and run["anyhit"] == depth * samples,
           f"{label}: unexpected launch counts {launches}")
-    check(run["closest_twin"] == 0 and run["anyhit_twin"] == 0,
-          f"{label}: the twin ran on the card's path")
-    check(all(v == 0 for k, m in launches.items() if k != name for v in m.values()),
-          f"{label}: another kernel or twin ran: {launches}")
+    check(launches[SAMPLER]["pixel"] == samples,
+          f"{label}: B5 did not draw every sample: {launches[SAMPLER]}")
+    check(only_path(launches, name), f"{label}: another kernel or a twin ran: {launches}")
     check(bool(torch.isfinite(state.accum).all()), f"{label}: non-finite radiance")
     check(tuple(img.shape) == (h, w, 3), f"{label}: image shape {tuple(img.shape)}")
     check(float(img.mean()) > 0.05, f"{label}: image is black")
@@ -929,6 +985,7 @@ def grad_recovery(dev, disney_cfg, base_dir, mt):
     from caitlynrenderer_tpu_torch.cli import render_setup
     from caitlynrenderer_tpu_torch.core.types import LAMBERT_TYPES
     from caitlynrenderer_tpu_torch.grad.inverse import optimize
+    from caitlynrenderer_tpu_torch.ops import threefry
     from caitlynrenderer_tpu_torch.render import sampling
     from caitlynrenderer_tpu_torch.render.integrator import render_sample
     from caitlynrenderer_tpu_torch.scene import upload_scene
@@ -938,6 +995,7 @@ def grad_recovery(dev, disney_cfg, base_dir, mt):
     check(opts.accel == "brute", f"config #5 resolves to {opts.accel}")
     ds = upload_scene(sc, opts.accel, dev)
     mt.reset_launches()
+    threefry.reset_launches()
     target_spp = 8
     with torch.no_grad():
         target = sum(render_sample(ds, cam, sampling.draw_uniforms(
@@ -975,6 +1033,7 @@ def grad_recovery(dev, disney_cfg, base_dir, mt):
     ms_step = (time.perf_counter() - t0) / GRAD_STEPS * 1e3
     peak = torch.cuda.max_memory_allocated(dev) - before
     runs = dict(mt.launches)
+    b5 = dict(threefry.launches)
     trail = np.array(trail)
     best = trail[1:].argmin(axis=0) + 1
     rec = {"scene": "scenes/cornell_disney.toml", "size": f"{w}x{h}", "bounces": depth,
@@ -986,7 +1045,7 @@ def grad_recovery(dev, disney_cfg, base_dir, mt):
                              "min_step": int(best[0]), "end": trail[-1, 0]},
            "camera_err": {"start": trail[0, 1], "min": trail[best[1], 1],
                           "min_step": int(best[1]), "end": trail[-1, 1]},
-           "launches": runs}
+           "launches": runs, "b5_launches": b5}
     print(f"  config #5, {w}x{h}, {depth} bounces, {opts.accel}: loss {losses[0]:.5f} -> "
           f"{losses[-1]:.5f} (means of the first and last 10: {rec['loss_mean_first10']:.5f}, "
           f"{rec['loss_mean_last10']:.5f}); {ms_step:.3f} ms per step, peak "
@@ -995,7 +1054,7 @@ def grad_recovery(dev, disney_cfg, base_dir, mt):
         print(f"  {name} error every 10 steps: "
               + " ".join(f"{x:.4f}" for x in trail[::10, col]) + f" | end {trail[-1, col]:.4f}, "
               f"least {trail[best[col], col]:.4f} at step {best[col]}", flush=True)
-    print(f"  B1 launches {runs}", flush=True)
+    print(f"  B1 launches {runs}; B5 {b5}", flush=True)
     check(all(finite), "a gradient of config #5 was not finite")
     check(rec["loss_mean_last10"] < rec["loss_mean_first10"], "config #5: the loss did not fall")
     # The errors reach half their start, then drift (PERF.md: the
@@ -1007,6 +1066,8 @@ def grad_recovery(dev, disney_cfg, base_dir, mt):
     check(runs["closest"] == want and runs["anyhit"] == want,
           f"config #5: B1 launches {runs}, expected {want} each")
     check(runs["closest_twin"] == 0 and runs["anyhit_twin"] == 0, "config #5: a twin ran")
+    check(b5 == {"pixel": 0, "lane": GRAD_STEPS + target_spp, "pixel_twin": 0, "lane_twin": 0},
+          f"config #5: B5 launches {b5}, expected a lane launch a step and a target sample")
     return rec, runs
 
 
@@ -1281,6 +1342,7 @@ def gloo_rank(rank, world, init, out_dir):
 
     from caitlynrenderer_tpu_torch.cli import render_setup
     from caitlynrenderer_tpu_torch.ops import mt_brute as mt
+    from caitlynrenderer_tpu_torch.ops import threefry
     from caitlynrenderer_tpu_torch.parallel import distributed as pd
     from caitlynrenderer_tpu_torch.parallel import render as pr
     from caitlynrenderer_tpu_torch.parallel.mesh import make_mesh
@@ -1303,9 +1365,10 @@ def gloo_rank(rank, world, init, out_dir):
                                        mesh, DEMO, DEMO, options)
             twins = hold_to_twins(calls, mt)
             mt.reset_launches()
+            threefry.reset_launches()
             accum, ms = _sharded_accum(ds, camera, options, mesh, SHARD_STEPS // mesh.sp, dev)
             out[shape] = {"accum": accum.cpu(), "ms": ms, "launches": dict(mt.launches),
-                          "b1_vs_twin": twins}
+                          "b5_launches": dict(threefry.launches), "b1_vs_twin": twins}
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -1313,7 +1376,7 @@ def gloo_rank(rank, world, init, out_dir):
 
 def phase19(dev, setup, camera, grid, grid_cam, g3, go, gd, gact, guni, b3o, b3d, b3act, smi):
     """Phase 19 (a)-(f); returns (record, B1/B2/B3 launches of its main
-    paths under "auto")."""
+    paths under "auto").  B5 must draw every sample of each path."""
     import torch.distributed as dist
     import torch.multiprocessing as mp
 
@@ -1321,6 +1384,7 @@ def phase19(dev, setup, camera, grid, grid_cam, g3, go, gd, gact, guni, b3o, b3d
     from caitlynrenderer_tpu_torch.core.types import RenderOptions
     from caitlynrenderer_tpu_torch.io.image import load_png, save_png
     from caitlynrenderer_tpu_torch.ops import mt_brute as mt
+    from caitlynrenderer_tpu_torch.ops import threefry
     from caitlynrenderer_tpu_torch.ops import traverse_cw8 as cw8
     from caitlynrenderer_tpu_torch.ops import traverse_cwbvh as walk
     from caitlynrenderer_tpu_torch.ops import traverse_mega as mega
@@ -1335,20 +1399,22 @@ def phase19(dev, setup, camera, grid, grid_cam, g3, go, gd, gact, guni, b3o, b3d
     rec = {"device": smi}
     totals = {"mt_brute": {"closest": 0, "anyhit": 0}, "traverse_mega": {"closest": 0, "anyhit": 0},
               "traverse_cw8": {"closest": 0, "anyhit": 0}}
-    modules = {"mt_brute": mt, "traverse_mega": mega, "traverse_cw8": cw8}
+    modules = {"mt_brute": mt, "traverse_mega": mega, "traverse_cw8": cw8, SAMPLER: threefry}
 
     def reset():
         for m in modules.values():
             m.reset_launches()
 
-    def read(name, want_min, label):
+    def read(name, want_min, label, samples):
         """Add kernel `name`'s launches since reset() to the totals; the
-        kernel must have run, its twin and the other kernels not."""
+        kernel must have run, B5 once a sample (`samples` pixel draws),
+        their twins and the other kernels not."""
         runs = {k: dict(m.launches) for k, m in modules.items()}
         check(runs[name]["closest"] >= want_min and runs[name]["anyhit"] >= want_min,
               f"{label}: {name} not launched: {runs}")
-        check(all(v == 0 for k, r in runs.items() for q, v in r.items()
-                  if k != name or q.endswith("_twin")), f"{label}: another path ran: {runs}")
+        check(runs[SAMPLER]["pixel"] == samples,
+              f"{label}: B5 drew {runs[SAMPLER]['pixel']} times, not {samples}")
+        check(only_path(runs, name), f"{label}: another path ran: {runs}")
         for q in ("closest", "anyhit"):
             totals[name][q] += runs[name][q]
         return runs[name]
@@ -1370,10 +1436,12 @@ def phase19(dev, setup, camera, grid, grid_cam, g3, go, gd, gact, guni, b3o, b3d
     acc_t = tiled.accumulate_tiled(ds, camera, tiled_opts, spp=SHARD_STEPS)
     torch.cuda.synchronize()
     ms_tiled = (time.perf_counter() - t0) / SHARD_STEPS * 1e3
-    runs = read("mt_brute", 16 * 3 * SHARD_STEPS, "(a) tiled cornell")
+    runs = read("mt_brute", 16 * 3 * SHARD_STEPS, "(a) tiled cornell", 16 * SHARD_STEPS)
     reset()
+    captures = progressive.graph_counts["captures"]
     acc_u, ms_untiled = _progressive_accum(ds, camera, opts, SHARD_STEPS, dev)
-    read("mt_brute", 3 * SHARD_STEPS, "(a) untiled cornell")
+    read("mt_brute", 3 * SHARD_STEPS, "(a) untiled cornell",
+         2 * SHARD_STEPS + progressive.graph_counts["captures"] - captures)
     check(torch.equal(acc_t, acc_u), "(a) the tiled cornell differs from the untiled one")
     rec["a_tiled_cornell"] = {"ms_per_frame_tiled": ms_tiled, "ms_per_frame_untiled": ms_untiled,
                               "tiles": 16, "b1_launches": runs, "bit_equal": True,
@@ -1436,7 +1504,7 @@ def phase19(dev, setup, camera, grid, grid_cam, g3, go, gd, gact, guni, b3o, b3d
                             BENCH, gopts)
     torch.cuda.synchronize()
     ms_auto = (time.perf_counter() - t0) * 1e3
-    runs = read("traverse_cw8", BENCH_DEPTH, "(b) grid100k cwbvh, auto")
+    runs = read("traverse_cw8", BENCH_DEPTH, "(b) grid100k cwbvh, auto", 1)
     check(runs["closest"] == BENCH_DEPTH and runs["anyhit"] == BENCH_DEPTH,
           f"(b) auto: B3 launches {runs}")
     # "xla" is the reference's plain walks for CPU tensors: on the card it
@@ -1449,8 +1517,9 @@ def phase19(dev, setup, camera, grid, grid_cam, g3, go, gd, gact, guni, b3o, b3d
     except ValueError as e:
         refused = str(e)
     check(refused is not None, '(b) traversal "xla" rendered on the card')
-    check(all(v == 0 for m in modules.values() for v in m.launches.values()),
-          '(b) traversal "xla": a kernel or a twin ran before the refusal')
+    check(all(v == 0 for k, m in modules.items() for q, v in m.launches.items()
+              if (k, q) != (SAMPLER, "pixel")) and threefry.launches["pixel"] == 1,
+          '(b) traversal "xla": a kernel but B5\'s draw, or a twin, ran before the refusal')
     rec["b_node8_walk"] = {"rays": walk_rec, "frames": {
         "auto": {"ms_per_frame": ms_auto, "b3_launches": runs}, "xla": {"refused": refused}}}
     print(f"  (b) grid100k {BENCH}x{BENCH}, {BENCH_DEPTH} bounces, cwbvh: ms/frame auto (B3) "
@@ -1482,11 +1551,14 @@ def phase19(dev, setup, camera, grid, grid_cam, g3, go, gd, gact, guni, b3o, b3d
         reset()
         acc_s, ms_s = _sharded_accum(cds, camera if label == "cornell" else grid_cam, copts, mesh,
                                      SHARD_STEPS, dev)
-        runs = read(name, copts.max_depth * SHARD_STEPS, f"(c) {label} sharded")
+        runs = read(name, copts.max_depth * SHARD_STEPS, f"(c) {label} sharded",
+                    SHARD_STEPS + 1)
         reset()
+        captures = progressive.graph_counts["captures"]
         acc_p, ms_p = _progressive_accum(cds, camera if label == "cornell" else grid_cam, copts,
                                          SHARD_STEPS, dev)
-        read(name, copts.max_depth * SHARD_STEPS, f"(c) {label} progressive")
+        read(name, copts.max_depth * SHARD_STEPS, f"(c) {label} progressive",
+             2 * SHARD_STEPS + progressive.graph_counts["captures"] - captures)
         check(torch.equal(acc_s, acc_p), f"(c) {label}: the 1x1 NCCL mesh differs")
         rec["c_nccl_1x1"][label] = {"ms_per_frame_sharded": ms_s, "ms_per_frame_progressive": ms_p,
                                     "launches": runs, "bit_equal": True,
@@ -1531,6 +1603,9 @@ def phase19(dev, setup, camera, grid, grid_cam, g3, go, gd, gact, guni, b3o, b3d
             runs = r[shape]["launches"]
             check(runs["closest"] > 0 and runs["anyhit"] > 0 and runs["closest_twin"] == 0
                   and runs["anyhit_twin"] == 0, f"(d) {shape}: B1 launches {runs}")
+            b5 = r[shape]["b5_launches"]
+            check(b5 == {"pixel": SHARD_STEPS // shape[1] + 1, "lane": 0, "pixel_twin": 0,
+                         "lane_twin": 0}, f"(d) {shape}: B5 launches {b5}")
             n_q, n_rays, differ = r[shape]["b1_vs_twin"]
             check(n_q == 2 * opts.max_depth and n_rays == DEMO * DEMO // shape[0] and differ == 0,
                   f"(d) {shape}: B1 against its twin on the rank's queries: {differ} of "
@@ -1567,7 +1642,7 @@ def phase19(dev, setup, camera, grid, grid_cam, g3, go, gd, gact, guni, b3o, b3d
                                           0, SINGLE, side, side, o64, lr=2.0)
         res[where.type] = ({k: v.cpu() for k, v in new.items()}, loss)
         if where.type == "cuda":
-            runs = read("mt_brute", 3, "(e) train step")
+            runs = read("mt_brute", 3, "(e) train step", 1)
     (new_c, loss_c), (new_h, loss_h) = res["cuda"], res["cpu"]
     check(abs(loss_c - loss_h) <= 1e-4 * abs(loss_h), f"(e) losses {loss_c} / {loss_h}")
     for k, v in params0.items():
@@ -1754,16 +1829,14 @@ def phase20(dev, smi, runs, binary_runs, cfg, base_dir):
         check(g["nodes"] > 0 and g["spp"] == GRAPH_SPP
               and g["device"] == f"cuda:{torch.cuda.current_device()}"
               and per_replay["closest"] == per_replay["anyhit"] == depth * GRAPH_SPP
-              and all(v == 0 for k, r in g["launches"].items() for q, v in r.items()
-                      if k != name or q.endswith("_twin")),
-              f"({tag}) {label}: the graph holds {g}")
+              and g["launches"][SAMPLER]["pixel"] == GRAPH_SPP
+              and only_path(g["launches"], name), f"({tag}) {label}: the graph holds {g}")
         launches = {k: dict(m.launches) for k, m in modules.items()}
         samples = 2 * GRAPH_SPP + 1 + 4 * GRAPH_SPP  # eager, the warm-up, 4 replays
-        check(launches[name]["closest"] == launches[name]["anyhit"] == depth * samples,
+        check(launches[name]["closest"] == launches[name]["anyhit"] == depth * samples
+              and launches[SAMPLER]["pixel"] == samples,
               f"({tag}) {label}: launches {launches}")
-        check(all(v == 0 for k, r in launches.items() for q, v in r.items()
-                  if k != name or q.endswith("_twin")), f"({tag}) {label}: another path ran: "
-              f"{launches}")
+        check(only_path(launches, name), f"({tag}) {label}: another path ran: {launches}")
         for q in ("closest", "anyhit"):
             totals[name][q] += launches[name][q]
         nodes = g["nodes"]
@@ -2148,6 +2221,202 @@ def phase21(dev, smi, scene, camera, o, d, uni, grid, grid1m, grid_cam, go, gd, 
     return rec, launches, err, row
 
 
+# Phase 22: kernel B5, the threefry sampler (ops/threefry.py).
+# The least instructions of the sampler's arithmetic, split by the pipes of
+# an H100 SM that can run them.  Rotations (funnel shifts) and xors run on
+# the integer ALU pipe only, 64 a clock an SM.  An add runs there (IADD3,
+# three operands) or on the FMA pipe (IMAD), and so can the uniform's
+# shift-and-or (one funnel shift whose high word is 0x7F, or one IMAD.HI
+# by 2^23 plus 0x3F800000); the float subtraction runs on the FMA pipes.
+# Every instruction takes one of the SM's 128 issue slots a clock (four
+# schedulers, a warp of 32 each).  A threefry of (0, x1) under a folded
+# key: 20 rotations and 20 xors (ALU), 21 adds on x0 (one a round and the
+# last key injection: the other four injections fold into the next
+# round's add) and 6 on x1 (the counter's, and five injections of a key
+# word plus a constant).  An element adds its uniform (an xor on the ALU,
+# the shift-and-or, the subtraction); a key adds its schedule word k1 ^ k2
+# ^ parity (one three-input xor, ALU), once a fold and once for the base
+# key.
+THREEFRY_ALU, THREEFRY_OTHER = 40, 27
+UNIFORM_ALU, UNIFORM_OTHER = 1, 2
+SCHEDULE_ALU = 1
+ALU_PER_CLOCK, ISSUE_PER_CLOCK = 64, 128  # thread instructions a clock an SM
+
+
+def sm_clock():
+    """(SMs, the card's highest SM clock in MHz)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    return sms, mhz
+
+
+def threefry_ops(elements, folds):
+    """(ALU-pipe instructions, all instructions) the sampler's arithmetic
+    needs at the least for `elements` uniforms drawn from `folds` folded
+    keys (0: the base key for all, the lane kernel)."""
+    alu = (elements * (THREEFRY_ALU + UNIFORM_ALU) + folds * (THREEFRY_ALU + SCHEDULE_ALU)
+           + SCHEDULE_ALU)
+    other = elements * (THREEFRY_OTHER + UNIFORM_OTHER) + folds * THREEFRY_OTHER
+    return alu, alu + other
+
+
+def threefry_bound(elements, folds, id_bytes, sms, mhz):
+    """(bound_ms, bound_by) of `elements` uniforms from `folds` folded keys:
+    the larger of the bytes (the float32 out and the `id_bytes` of ids in)
+    at PEAK_BYTES and the operations (`threefry_ops`) at the larger of
+    their ALU instructions over ALU_PER_CLOCK and all of them over
+    ISSUE_PER_CLOCK clocks, on `sms` SMs at `mhz`."""
+    alu, ops = threefry_ops(elements, folds)
+    clocks = max(alu / ALU_PER_CLOCK, ops / ISSUE_PER_CLOCK)
+    b_ms, o_ms = (4 * elements + id_bytes) / PEAK_BYTES * 1e3, clocks / (sms * mhz * 1e3)
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def phase22(dev, smi, frame_runs):
+    """Phase 22 (a)-(d).  frame_runs: [(label, upload, camera, options)]
+    for (c).  Returns (record, B5's largest |difference| from the twin,
+    pixel and lane, and its times and bounds at the main path's shapes)."""
+    from caitlynrenderer_tpu_torch.core.camera import has_lens
+    from caitlynrenderer_tpu_torch.parallel.render import tile_pixel_order
+    from caitlynrenderer_tpu_torch.render import progressive, sampling
+    from caitlynrenderer_tpu_torch.render.tiled import tile_grid
+
+    t22 = time.perf_counter()
+    rec = {"device": smi, "a_bit_equal": {}, "b_times": {}, "c_frames": {}}
+    errs = {"pixel": 0.0, "lane": 0.0}
+
+    def same(kind, label, got, want):
+        torch.cuda.synchronize()
+        check(tuple(got.shape) == tuple(want.shape)
+              and torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"(a) {label}: B5 and its twin differ")
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        errs[kind] = max(errs[kind], err)
+        rec["a_bit_equal"][label] = {"shape": list(got.shape), "max_abs_err": err}
+
+    # (a) B5 against its twin, bit for bit.
+    key0 = sampling.sample_key(sampling.prng_key(0), 0)
+    demo_ids = torch.arange(DEMO * DEMO, dtype=torch.int32, device=dev)
+    bench_ids = torch.arange(BENCH * BENCH, dtype=torch.int32, device=dev)
+    tile = list(tile_grid(DEMO, DEMO, 4, 4))[9]
+    yy, xx = torch.meshgrid(torch.arange(tile.h, dtype=torch.int32, device=dev),
+                            torch.arange(tile.w, dtype=torch.int32, device=dev), indexing="ij")
+    tile_ids = (tile.y0 + yy.reshape(-1)) * DEMO + (tile.x0 + xx.reshape(-1))
+    order, n_pad = tile_pixel_order(DEMO, DEMO, 4, 4, 64)
+    padded = torch.clamp(torch.tensor(order, device=dev), min=0)
+    check(n_pad > DEMO * DEMO, "(a) the tile-major order has no padding")
+    pixel_sets = [(f"{DEMO}x{DEMO} ids, depth 3", demo_ids, 3),
+                  (f"{BENCH}x{BENCH} ids, depth 4", bench_ids, 4),
+                  (f"a {tile.h}x{tile.w} tile's ids, depth 3", tile_ids, 3),
+                  (f"{DEMO}x{DEMO} tile-major ids padded to {n_pad}", padded, 3),
+                  (f"{BENCH}x{BENCH} ids, depth 0", bench_ids, 0),
+                  (f"{BENCH}x{BENCH} ids, depth 8", bench_ids, 8)]
+    for label, ids, depth in pixel_sets:
+        same("pixel", label, sampling.pixel_uniforms(key0, ids, depth),
+             sampling.pixel_uniforms_plain(key0, ids, depth))
+    base = sampling.prng_key(0)
+    frames = (0, 1, 2**31 - 1, 2**32 - 1)
+    keys = sampling.sample_key(tuple(torch.tensor(w, dtype=torch.int64, device=dev)
+                                     for w in base),
+                               torch.tensor(frames, dtype=torch.int64, device=dev))
+    for i, frame in enumerate(frames):
+        key = sampling.sample_key(base, frame)
+        want = sampling.pixel_uniforms_plain(key, demo_ids, 3)
+        same("pixel", f"{DEMO}x{DEMO}, depth 3, frame {frame}, int key",
+             sampling.pixel_uniforms(key, demo_ids, 3), want)
+        same("pixel", f"{DEMO}x{DEMO}, depth 3, frame {frame}, 0-d tensor views",
+             sampling.pixel_uniforms((keys[0][i], keys[1][i]), demo_ids, 3), want)
+    for rows in (BENCH * BENCH, 1001):  # config #5's; a last block not full
+        same("lane", f"draw_uniforms {rows} x 25",
+             sampling.draw_uniforms(key0, rows, 3, dev),
+             sampling.draw_uniforms_plain(key0, rows, 3, dev))
+    print(f"  (a) B5 = twin bit for bit (int32 views) on {len(rec['a_bit_equal'])} sets: "
+          + "; ".join(f"{k} {v['shape']}" for k, v in rec["a_bit_equal"].items())
+          + f"; max |err| {errs}", flush=True)
+
+    # (b) B5 and its twin timed at the main path's shapes, beside B5's bound.
+    sms, mhz = sm_clock()
+    rec["int_rates"] = {"sms": sms, "max_sm_clock_mhz": mhz, "alu_per_clock": ALU_PER_CLOCK,
+                        "issue_per_clock": ISSUE_PER_CLOCK}
+    print(f"  {sms} SMs at {mhz:.0f} MHz: ALU pipe {ALU_PER_CLOCK} and issue {ISSUE_PER_CLOCK} "
+          f"instructions a clock an SM", flush=True)
+    # (kind, label, kernel call, twin call, their arguments, pixels, depth)
+    shapes = [("pixel", f"cornell {DEMO}x{DEMO} x 25 (3 bounces)", sampling.pixel_uniforms,
+               sampling.pixel_uniforms_plain, (key0, demo_ids, 3), DEMO * DEMO, 3),
+              ("pixel", f"grids {BENCH}x{BENCH} x 32 (4 bounces)", sampling.pixel_uniforms,
+               sampling.pixel_uniforms_plain, (key0, bench_ids, BENCH_DEPTH), BENCH * BENCH,
+               BENCH_DEPTH),
+              ("lane", f"config #5 {BENCH}x{BENCH} x 25 (3 bounces)", sampling.draw_uniforms,
+               sampling.draw_uniforms_plain, (key0, BENCH * BENCH, 3, dev), BENCH * BENCH, 3)]
+    rows = {}
+    for kind, label, kernel_fn, twin_fn, args, n, depth in shapes:
+        n_u = sampling.uniforms_per_sample(depth)
+        folds = n if kind == "pixel" else 0  # int32 ids, one fold each
+        bnd = threefry_bound(n * n_u, folds, 4 * folds, sms, mhz)
+        alu, ops = threefry_ops(n * n_u, folds)
+        r = {"elements": n * n_u, "alu_ops": alu, "ops": ops, "ms": event_ms(lambda: kernel_fn(*args), 50), "per_call_ms":
+             event_ms(lambda: kernel_fn(*args), 50, host_ahead=False),
+             "plain_ms": event_ms(lambda: twin_fn(*args), 3),
+             "bound_ms": bnd[0], "bound_by": bnd[1]}
+        rec["b_times"][label] = r
+        if label.startswith(("cornell", "config")):
+            rows[kind] = r
+        print(f"  (b) {label}: {n * n_u} elements, B5 {r['ms']:.4f} ms (per call, host "
+              f"included, {r['per_call_ms']:.4f}), twin {r['plain_ms']:.4f} ms "
+              f"({r['plain_ms'] / r['ms']:.0f}x); bound {bnd[0]:.4f} ms by {bnd[1]} "
+              f"({bnd[0] / r['ms']:.1%} of it)", flush=True)
+
+    # (c), (d) Graph frames with the twin ("before") and with B5, in turns
+    # twin, B5, B5, twin; the two graphs' accumulations equal; the graphs'
+    # nodes a sample.
+    def capture(ds, camera, options):
+        w, h = options.width, options.height
+        state = progressive.init_state(w, h, 0, dev)
+        graph = progressive.SampleGraph(ds, camera, state, w, h, options, GRAPH_SPP,
+                                        has_lens(camera))
+        return graph, state
+
+    def frame_ms(graph, camera, state):
+        state = graph.run(camera, state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state = graph.run(camera, state)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / (2 * GRAPH_SPP) * 1e3
+
+    for label, ds, camera, options in frame_runs:
+        with twin_sampler():
+            g_twin, state = capture(ds, camera, options)
+        g_b5, _ = capture(ds, camera, options)
+        check(g_twin.launches[SAMPLER]["pixel"] == 0
+              and g_b5.launches[SAMPLER]["pixel"] == GRAPH_SPP,
+              f"(c) {label}: B5 nodes {g_twin.launches[SAMPLER]} / {g_b5.launches[SAMPLER]}")
+        out_twin, out_b5 = g_twin.run(camera, state), g_b5.run(camera, state)
+        torch.cuda.synchronize()
+        check(torch.equal(out_twin.accum, out_b5.accum),
+              f"(c) {label}: the graph through B5 differs from the graph through the twin")
+        ms = {"twin": [], "b5": []}
+        for side in ("twin", "b5", "b5", "twin"):
+            ms[side].append(frame_ms({"twin": g_twin, "b5": g_b5}[side], camera, state))
+        row = {"twin_ms_per_frame": ms["twin"], "b5_ms_per_frame": ms["b5"],
+               "nodes_per_sample": {"twin": g_twin.nodes / GRAPH_SPP,
+                                    "b5": g_b5.nodes / GRAPH_SPP}}
+        rec["c_frames"][label] = row
+        print(f"  (c) {label}: graph ms/frame, twin {ms['twin'][0]:.3f} {ms['twin'][1]:.3f}, "
+              f"B5 {ms['b5'][0]:.3f} {ms['b5'][1]:.3f}; (d) nodes a sample, twin "
+              f"{g_twin.nodes / GRAPH_SPP:.1f}, B5 {g_b5.nodes / GRAPH_SPP:.1f}; the two "
+              f"graphs' accumulations equal bit for bit", flush=True)
+        del g_twin, g_b5
+        progressive.clear_graphs()
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t22
+    print(f"  phase 22: {rec['seconds']:.3f} s", flush=True)
+    return rec, errs, rows
+
+
 def main():
     with SbvhBuild() as sbvh_grid1m:
         return run(sbvh_grid1m)
@@ -2173,6 +2442,7 @@ def run(sbvh_grid1m):
     from caitlynrenderer_tpu_torch.device import get_device
     from caitlynrenderer_tpu_torch.ops import _build
     from caitlynrenderer_tpu_torch.ops import mt_brute as mt
+    from caitlynrenderer_tpu_torch.ops import threefry as tf
     from caitlynrenderer_tpu_torch.ops import traverse_bvh as tb
     from caitlynrenderer_tpu_torch.ops import traverse_cw8 as cw8
     from caitlynrenderer_tpu_torch.ops import traverse_mega as mega
@@ -2187,7 +2457,7 @@ def run(sbvh_grid1m):
 
     # -------------------------------------------------------------- phase 2
     phase("2 build")
-    names = ("mt_brute", "traverse_mega", "traverse_cw8", "traverse_bvh")
+    names = ("mt_brute", "traverse_mega", "traverse_cw8", "traverse_bvh", "threefry")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc each, all at once
         infos = list(pool.map(lambda name: _build.build(name, force=True), names))
     for info in infos:
@@ -2306,6 +2576,7 @@ def run(sbvh_grid1m):
     alive_per_bounce = [int(x) for x in stats["alive_per_bounce"]]
 
     mt.reset_launches()
+    tf.reset_launches()
     captures = progressive.graph_counts["captures"]
     ds_main = upload_scene(scene, options.accel, dev)
     state = progressive.init_state(DEMO, DEMO, 0, dev)
@@ -2319,11 +2590,14 @@ def run(sbvh_grid1m):
     img = progressive.resolve(state, DEMO, DEMO, options)
     torch.cuda.synchronize()
     launches = dict(mt.launches)
+    b5_main = dict(tf.launches)  # B5 on the main path: the kernels line's count
     samples = 2 * spp + progressive.graph_counts["captures"] - captures
     check(launches["closest"] == 3 * samples and launches["anyhit"] == 3 * samples,
           f"unexpected launch counts {launches}")
     check(launches["closest_twin"] == 0 and launches["anyhit_twin"] == 0,
           "the twin ran on the card's path")
+    check(b5_main == {"pixel": samples, "lane": 0, "pixel_twin": 0, "lane_twin": 0},
+          f"B5 did not draw every sample of the main path: {b5_main}")
     check(bool(torch.isfinite(state.accum).all()), "non-finite radiance")
     check(tuple(img.shape) == (DEMO, DEMO, 3), f"image shape {tuple(img.shape)}")
     check(float(img.mean()) > 0.05, "image is black")
@@ -2331,7 +2605,7 @@ def run(sbvh_grid1m):
     ms_per_frame = elapsed / spp * 1e3
     print(f"  rays_per_sample {rays_per_sample} rays_per_sec {rays_per_sec:.1f} "
           f"ms_per_frame {ms_per_frame:.3f} alive_per_bounce {alive_per_bounce} "
-          f"mean pixel {float(img.mean()):.4f} launches {launches}")
+          f"mean pixel {float(img.mean()):.4f} launches {launches}, B5 {b5_main}")
 
     # -------------------------------------------------------------- phase 6
     phase("6 kernel and twin times")
@@ -2920,7 +3194,7 @@ def run(sbvh_grid1m):
         (f"grid1m {BENCH}x{BENCH} wide (B2)", mds, grid_cam,
          grid_opts["wide"]._replace(families=scene_families(grid1m))),
     ], binary_runs, cfg, os.path.dirname(CORNELL_TOML))
-    del binary_runs, g4
+    del binary_runs
     for q in ("closest", "anyhit"):
         launches[q] += runs20["mt_brute"][q]
         mega_launches[q] += runs20["traverse_mega"][q]
@@ -2935,6 +3209,20 @@ def run(sbvh_grid1m):
     for q in ("closest", "anyhit"):
         b4_launches[q] += runs21[q]
     print(json.dumps({"phase21": rec21}))
+
+    # ------------------------------------------------------------- phase 22
+    phase("22 B5: the threefry sampler")
+    rec22, err_b5, b5_rows = phase22(dev, smi, [
+        (f"cornell {DEMO}x{DEMO} brute (B1)", ds_main, camera, demo_opts),
+        (f"grid100k {BENCH}x{BENCH} wide (B2)", gds, grid_cam, grid_opts["wide"]),
+        (f"grid100k {BENCH}x{BENCH} cwbvh (B3)", g3, grid_cam, grid_opts["cwbvh"]),
+        (f"grid100k {BENCH}x{BENCH} bvh2 (B4)", g4, grid_cam,
+         grid_opts["bvh2"]._replace(max_stack=required_stack(g4))),
+        (f"grid1m {BENCH}x{BENCH} wide (B2)", mds, grid_cam,
+         grid_opts["wide"]._replace(families=scene_families(grid1m))),
+    ])
+    del g4
+    print(json.dumps({"phase22": rec22}))
 
     # Bounds at the shapes each row's time was taken at: B1 on the 700x700
     # cornell primary rays (closest) and their shadow rays (any-hit), B2, B3
@@ -2961,6 +3249,18 @@ def run(sbvh_grid1m):
     ] + [
         kernel_row("bvh", tb, q, b4_launches[q], err_b4[q], b4_row["ms"][q],
                    b4_row["ms"][f"{q}_plain"], b4_row["bound"][q]) for q in ("closest", "anyhit")
+    ] + [
+        # B5 at the main paths' shapes: the cornell demo's pixel-keyed
+        # uniforms (launches from phase 5), config #5's lane-keyed ones
+        # (launches from `optimize` in phase 18a).  No PyTorch call computes
+        # threefry: torch.rand is Philox.
+        {"name": f"threefry_{q}", "route": "cuda", "source": tf.SOURCE,
+         "replaces": tf.REPLACES if q == "pixel" else tf.REPLACES_LANE, "launches": n_launch,
+         "max_abs_err": err_b5[q], "ms": b5_rows[q]["ms"], "plain_ms": b5_rows[q]["plain_ms"],
+         "bound_ms": b5_rows[q]["bound_ms"], "bound_by": b5_rows[q]["bound_by"],
+         "library_ms": None}
+        for q, n_launch in (("pixel", b5_main["pixel"]),
+                            ("lane", grad["config5"]["b5_launches"]["lane"]))
     ]}
     loaded = sorted(k for k in sys.modules
                     if any(k == f or k.startswith(f + ".") for f in FORBIDDEN))

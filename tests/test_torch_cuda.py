@@ -1,8 +1,8 @@
 """CUDA tier: the hand-written kernels (mt_brute, traverse_mega,
-traverse_cw8, traverse_bvh) against their plain PyTorch twins on the card,
-their stats variants against the plain launches, the golden render through
-each, CUDA graphs against eager samples, and one value and grad on the card
-against the CPU.
+traverse_cw8, traverse_bvh, threefry) against their plain PyTorch twins on
+the card, their stats variants against the plain launches, the golden
+render through each, CUDA graphs against eager samples, and one value and
+grad on the card against the CPU.
 
 Marked `cuda`; every test skips (inside the fixture, never at import)
 when torch sees no CUDA device.  Run on an NVIDIA card with
@@ -10,7 +10,8 @@ when torch sees no CUDA device.  Run on an NVIDIA card with
 builds its csrc/*.cu with nvcc (a few seconds).  Tolerance: tri, group and
 occlusion equal on every ray, t/u/v within 1e-6 relative (kernel and twin
 evaluate the same float32 expressions, neither contracts into FMAs); B3's
-window equal on every ray too; B4's t, u and v bit for bit.
+window equal on every ray too; B4's t, u and v bit for bit; B5's uniforms
+bit for bit (integer arithmetic and one exact subtraction).
 """
 
 import os
@@ -619,3 +620,130 @@ def test_bvh_kernel_matches_twin(case, max_leaf, dev, cornell):
         assert bool((st["counts"][got[1] >= 0, 1] > 0).all())  # a hit was tested
     assert traverse_bvh.stats_launches == {"closest": 2, "anyhit": 2}
 
+
+
+# ---------------------------------------------------------------------------
+# B5, the threefry sampler (ops/threefry.py)
+# ---------------------------------------------------------------------------
+
+# (pixel ids, max_depth) of the bit-equality sets: frames at a small size, a
+# tile of a 40x40 frame in 4x4 tiles, the padded tile-major order of the
+# sharded render (padding clamped to pixel 0), int32 ids at the edges of
+# their range, depth 0 and 8.
+B5_SETS = ["frame 48x48 depth 3", "frame 32x32 depth 4", "tile", "padded", "edge ids",
+           "depth 0", "depth 8"]
+
+
+def _b5_ids(name, dev):
+    from caitlynrenderer_tpu_torch.parallel.render import tile_pixel_order
+
+    if name == "tile":
+        yy, xx = torch.meshgrid(torch.arange(10, dtype=torch.int32, device=dev),
+                                torch.arange(10, dtype=torch.int32, device=dev), indexing="ij")
+        return (10 + yy.reshape(-1)) * 40 + (20 + xx.reshape(-1)), 3
+    if name == "padded":
+        order, _ = tile_pixel_order(45, 31, 2, 2, 28)
+        return torch.clamp(torch.tensor(order, device=dev), min=0), 3
+    if name == "edge ids":
+        return torch.tensor([0, 2**31 - 1, -(2**31), -1, 7], dtype=torch.int32, device=dev), 3
+    size, depth = {"frame 48x48 depth 3": (48, 3), "frame 32x32 depth 4": (32, 4),
+                   "depth 0": (40, 0), "depth 8": (40, 8)}[name]
+    return torch.arange(size * size, dtype=torch.int32, device=dev), depth
+
+
+@pytest.mark.parametrize("name", B5_SETS)
+def test_threefry_kernel_equals_twin(name, dev):
+    """B5's pixel kernel ≡ the twin bit for bit (compared as int32 bits),
+    under int keys and under 0-d tensor views on the card (the graph's
+    key form) at frames 0, 1, 2**31 - 1 and 2**32 - 1; the two key forms
+    agree; the kernel launches once a call and the twin counter stays."""
+    from caitlynrenderer_tpu_torch.ops import threefry
+    from caitlynrenderer_tpu_torch.render import sampling
+
+    ids, depth = _b5_ids(name, dev)
+    base = sampling.prng_key(7)
+    frames = torch.tensor([0, 1, 2**31 - 1, 2**32 - 1], dtype=torch.int64, device=dev)
+    keys = sampling.sample_key(tuple(torch.tensor(w, dtype=torch.int64, device=dev)
+                                     for w in base), frames)
+    threefry.reset_launches()
+    for i, frame in enumerate((0, 1, 2**31 - 1, 2**32 - 1)):
+        want = sampling.pixel_uniforms_plain(sampling.sample_key(base, frame), ids, depth)
+        by_int = sampling.pixel_uniforms(sampling.sample_key(base, frame), ids, depth)
+        by_view = sampling.pixel_uniforms((keys[0][i], keys[1][i]), ids, depth)
+        torch.cuda.synchronize()
+        assert torch.equal(by_int.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(by_view.view(torch.int32), by_int.view(torch.int32))
+    assert threefry.launches == {"pixel": 8, "lane": 0, "pixel_twin": 0, "lane_twin": 0}
+
+
+@pytest.mark.parametrize("rows,depth", [(64 * 64, 3), (37, 1), (2049, 8)])
+def test_threefry_lane_kernel_equals_twin(rows, depth, dev):
+    """B5's lane kernel ≡ draw_uniforms' twin bit for bit, also where the
+    last block is not full; a tensor key is refused, not launched."""
+    from caitlynrenderer_tpu_torch.ops import threefry
+    from caitlynrenderer_tpu_torch.render import sampling
+
+    key = sampling.sample_key(sampling.prng_key(3), 5)
+    tkey = tuple(torch.tensor(w, dtype=torch.int64, device=dev) for w in key)
+    threefry.reset_launches()
+    want = sampling.draw_uniforms_plain(key, rows, depth, dev)
+    got = sampling.draw_uniforms(key, rows, depth, dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(TypeError, match="takes the key's words as ints"):
+        sampling.draw_uniforms(tkey, rows, depth, dev)
+    assert threefry.launches == {"pixel": 0, "lane": 1, "pixel_twin": 0, "lane_twin": 0}
+
+
+@pytest.mark.parametrize("accel", ["brute", "wide"])
+def test_graph_of_16_samples_through_b5_equals_eager(accel, dev, cornell):
+    """One replay of a 16-sample graph ≡ 16 eager render_step calls bit for
+    bit through B5 and B1 or B2: the graph holds 16 pixel-kernel nodes,
+    the capture adds its warm-up sample's launch, and no twin runs."""
+    from caitlynrenderer_tpu_torch.ops import threefry
+
+    scene, camera = cornell
+    options = RenderOptions(width=40, height=32, max_depth=3, accel=accel,
+                            families=scene_families(scene))
+    ds = upload_scene(scene, accel, dev)
+    w, h = options.width, options.height
+    progressive.clear_graphs()
+    threefry.reset_launches()
+    eager = progressive.init_state(w, h, 3, dev)
+    for _ in range(16):
+        eager = progressive.render_step(ds, camera, eager, w, h, options)
+    assert threefry.launches["pixel"] == 16
+    graph = progressive.render_steps(ds, camera, progressive.init_state(w, h, 3, dev), w, h,
+                                     options, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(graph.accum, eager.accum)
+    (sample_graph,) = progressive._graphs.values()
+    assert sample_graph.launches["threefry"] == {"pixel": 16, "lane": 0, "pixel_twin": 0,
+                                                 "lane_twin": 0}
+    assert threefry.launches == {"pixel": 16 + 16 + 1, "lane": 0, "pixel_twin": 0,
+                                 "lane_twin": 0}
+    progressive.clear_graphs()
+
+
+def test_threefry_kernel_rejects_bad_inputs(dev):
+    from caitlynrenderer_tpu_torch.ops import threefry
+
+    ids = torch.arange(64, dtype=torch.int32, device=dev)
+    threefry.reset_launches()
+    with pytest.raises(TypeError, match="pixel_ids has dtype"):
+        threefry.threefry_pixel((1, 2), ids.float(), 11)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        threefry.threefry_pixel((1, 2), ids[::2], 11)
+    with pytest.raises(TypeError, match=r"key\[0\] has dtype"):
+        threefry.threefry_pixel((torch.tensor(1, dtype=torch.int32, device=dev), 2), ids, 11)
+    with pytest.raises(ValueError, match=r"key\[1\] is on cpu"):
+        threefry.threefry_pixel((1, torch.tensor(2, dtype=torch.int64)), ids, 11)
+    with pytest.raises(ValueError, match="n_u must be at least"):
+        threefry.threefry_lane((1, 2), 8, 3, dev)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        threefry.threefry_pixel((1, 2), ids.cpu(), 11)
+    with pytest.raises(TypeError, match="pixel_ids has dtype torch.int64"):
+        threefry.threefry_pixel((1, 2), ids.long(), 11)
+    with pytest.raises(TypeError, match="takes the key's words as ints"):
+        threefry.threefry_lane((torch.tensor(1, dtype=torch.int64, device=dev), 2), 8, 11, dev)
+    assert all(v == 0 for v in threefry.launches.values())
