@@ -1,0 +1,217 @@
+"""Frozen copies, in plain numpy, of the two procedural scenes the cells
+render: the Cornell box and the displaced heightfield grid.
+
+The benchmark makes every triangle itself from a configuration's `scene`
+entry and hands the same arrays to the program under test and to the
+plain reference, so a change to the program's own scene generators cannot
+move the yardstick.  A scene is a dict of numpy arrays with the layout of
+the program's `SceneArrays` (vertices, normals, texcoords, tri_v, tri_vn,
+tri_vt, and `materials` and `lights` as dicts of arrays).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+DIFFUSE = 0  # the material type id of a Lambert surface
+
+MATERIAL_FIELDS = ("albedo", "emission", "specular", "disney", "disney2", "tex_ind")
+LIGHT_FIELDS = ("p", "u", "v", "n", "e", "area_pdf")
+
+
+class _SceneBuilder:
+    """Accumulates triangles and materials into a scene dict."""
+
+    def __init__(self):
+        self.vertices = []
+        self.tri_v = []
+        self.tri_light = []
+        self.mats = []
+        self.lights = []
+
+    def add_material(self, albedo=(0.8, 0.8, 0.8), emission=(0.0, 0.0, 0.0),
+                     mat_type: int = DIFFUSE, ior: float = 1.5, roughness: float = 0.5,
+                     metallic: float = 0.0, specular=(1.0, 1.0, 1.0)) -> int:
+        emissive = any(e > 0 for e in emission)
+        self.mats.append(dict(albedo=albedo, emission=emission, mat_type=mat_type, ior=ior,
+                              roughness=roughness, metallic=metallic, specular=specular,
+                              emissive=emissive))
+        return len(self.mats) - 1
+
+    def add_triangle(self, p0, p1, p2, mtl: int):
+        base = len(self.vertices)
+        self.vertices += [tuple(p0), tuple(p1), tuple(p2)]
+        self.tri_v.append((base, base + 1, base + 2, mtl))
+        m = self.mats[mtl]
+        if m["emissive"]:
+            p0 = np.asarray(p0, np.float32)
+            u = np.asarray(p1, np.float32) - p0
+            v = np.asarray(p2, np.float32) - p0
+            n = np.cross(u, v)
+            two_area = float(np.linalg.norm(n))
+            self.tri_light.append(len(self.lights))
+            self.lights.append((p0, u, v, n / max(two_area, 1e-20),
+                                np.asarray(m["emission"], np.float32), 0.5 * two_area))
+        else:
+            self.tri_light.append(-1)
+
+    def add_quad(self, p0, p1, p2, p3, mtl: int):
+        """Two triangles with consistent winding (p0,p1,p2) (p0,p2,p3)."""
+        self.add_triangle(p0, p1, p2, mtl)
+        self.add_triangle(p0, p2, p3, mtl)
+
+    def add_box(self, lo, hi, mtl: int):
+        """Axis-aligned box with outward-facing quads."""
+        x0, y0, z0 = lo
+        x1, y1, z1 = hi
+        self.add_quad((x0, y0, z1), (x1, y0, z1), (x1, y1, z1), (x0, y1, z1), mtl)
+        self.add_quad((x1, y0, z0), (x0, y0, z0), (x0, y1, z0), (x1, y1, z0), mtl)
+        self.add_quad((x1, y0, z1), (x1, y0, z0), (x1, y1, z0), (x1, y1, z1), mtl)
+        self.add_quad((x0, y0, z0), (x0, y0, z1), (x0, y1, z1), (x0, y1, z0), mtl)
+        self.add_quad((x0, y1, z1), (x1, y1, z1), (x1, y1, z0), (x0, y1, z0), mtl)
+        self.add_quad((x0, y0, z0), (x1, y0, z0), (x1, y0, z1), (x0, y0, z1), mtl)
+
+    def build(self) -> dict:
+        t = len(self.tri_v)
+        tri_vt = np.full((t, 4), -1, np.int32)
+        tri_vt[:, 3] = np.asarray(self.tri_light, np.int32)
+        return dict(
+            vertices=np.asarray(self.vertices, np.float32).reshape(-1, 3),
+            normals=np.zeros((0, 3), np.float32),
+            texcoords=np.zeros((0, 2), np.float32),
+            tri_v=np.asarray(self.tri_v, np.int32).reshape(-1, 4),
+            tri_vn=np.full((t, 4), 0, np.int32),
+            tri_vt=tri_vt,
+            materials=_pack(self.mats),
+            lights=_pack_lights(self.lights),
+        )
+
+
+def _pack(mats) -> dict:
+    m = len(mats)
+    albedo = np.zeros((m, 4), np.float32)
+    emission = np.zeros((m, 4), np.float32)
+    specular = np.zeros((m, 4), np.float32)
+    disney = np.zeros((m, 4), np.float32)
+    disney2 = np.zeros((m, 4), np.float32)
+    disney2[:, 1] = 1.0  # clearcoat_gloss default
+    tex_ind = np.full((m, 4), -1.0, np.float32)
+    light_count = 0
+    for i, d in enumerate(mats):
+        albedo[i, :3] = d["albedo"]
+        albedo[i, 3] = d["mat_type"]
+        emission[i, :3] = d["emission"]
+        if d["emissive"]:
+            emission[i, 3] = light_count
+            light_count += 1
+        else:
+            emission[i, 3] = -1
+        specular[i, :3] = d["specular"]
+        specular[i, 3] = d["ior"]
+        disney[i, 0] = d["roughness"]
+        disney[i, 1] = d["metallic"]
+    return dict(albedo=albedo, emission=emission, specular=specular, disney=disney,
+                disney2=disney2, tex_ind=tex_ind)
+
+
+def _pack_lights(rows) -> dict:
+    if not rows:
+        z = np.zeros((0, 3), np.float32)
+        return dict(p=z, u=z, v=z, n=z, e=z, area_pdf=np.zeros((0, 2), np.float32))
+    p, u, v, n, e = (np.stack([np.asarray(r[k], np.float32) for r in rows]) for k in range(5))
+    area = np.asarray([r[5] for r in rows], np.float32)
+    pdf = area / max(float(area.sum()), 1e-20)
+    return dict(p=p, u=u, v=v, n=n, e=e, area_pdf=np.stack([area, pdf], 1).astype(np.float32))
+
+
+def cornell_box() -> dict:
+    """The classic Cornell box in [0, 5.56]^3, its light a 1.3 x 1.1 quad
+    just below the ceiling, with the tall and the short box: 36 Lambert
+    triangles."""
+    b = _SceneBuilder()
+    white = b.add_material(albedo=(0.73, 0.73, 0.73))
+    red = b.add_material(albedo=(0.65, 0.05, 0.05))
+    green = b.add_material(albedo=(0.12, 0.45, 0.15))
+    light = b.add_material(albedo=(0.0, 0.0, 0.0), emission=(15.0, 15.0, 15.0))
+    s = 5.56
+    b.add_quad((0, 0, 0), (0, 0, s), (s, 0, s), (s, 0, 0), white)  # floor
+    b.add_quad((0, s, 0), (s, s, 0), (s, s, s), (0, s, s), white)  # ceiling
+    b.add_quad((0, 0, 0), (s, 0, 0), (s, s, 0), (0, s, 0), white)  # back wall
+    b.add_quad((0, 0, 0), (0, s, 0), (0, s, s), (0, 0, s), red)  # left wall
+    b.add_quad((s, 0, 0), (s, 0, s), (s, s, s), (s, s, 0), green)  # right wall
+    lx0, lx1 = s / 2 - 0.65, s / 2 + 0.65
+    lz0, lz1 = s / 2 - 0.55, s / 2 + 0.55
+    ly = s - 0.01
+    b.add_quad((lx0, ly, lz0), (lx1, ly, lz0), (lx1, ly, lz1), (lx0, ly, lz1), light)
+    b.add_box((1.1, 0.0, 1.2), (2.7, 3.3, 2.8), white)
+    b.add_box((3.1, 0.0, 2.9), (4.4, 1.3, 4.2), white)
+    return b.build()
+
+
+def displaced_grid(resolution: int = 224, extent: float = 10.0) -> dict:
+    """A sinusoidally displaced heightfield of resolution^2 vertices,
+    2 (resolution - 1)^2 coherent Lambert triangles, under one square
+    light: resolution 708 gives 999,700 triangles (999,702 with the
+    light)."""
+    xs = np.linspace(0, extent, resolution, dtype=np.float32)
+    zs = np.linspace(0, extent, resolution, dtype=np.float32)
+    xx, zz = np.meshgrid(xs, zs, indexing="ij")
+    yy = (np.sin(xx * 1.7) * np.cos(zz * 1.3) * 0.8
+          + np.sin(xx * 5.1 + 1.0) * np.cos(zz * 4.7) * 0.2 + 2.0).astype(np.float32)
+    verts = np.stack([xx, yy, zz], axis=-1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(resolution - 1), np.arange(resolution - 1), indexing="ij")
+    v00 = (i * resolution + j).reshape(-1)
+    v01 = v00 + 1
+    v10 = v00 + resolution
+    v11 = v10 + 1
+    tris = np.concatenate([np.stack([v00, v10, v01], axis=1),
+                           np.stack([v01, v10, v11], axis=1)], axis=0).astype(np.int32)
+    b = _SceneBuilder()
+    white = b.add_material(albedo=(0.75, 0.72, 0.68))
+    light = b.add_material(emission=(30.0, 30.0, 30.0))
+    b.add_quad((extent * 0.3, extent * 0.9, extent * 0.3), (extent * 0.7, extent * 0.9, extent * 0.3),
+               (extent * 0.7, extent * 0.9, extent * 0.7), (extent * 0.3, extent * 0.9, extent * 0.7),
+               light)
+    base = b.build()
+    t = tris.shape[0]
+    tri_v = np.concatenate([tris + len(base["vertices"]), np.full((t, 1), white, np.int32)], axis=1)
+    base.update(
+        vertices=np.concatenate([base["vertices"], verts], axis=0),
+        tri_v=np.concatenate([base["tri_v"], tri_v], axis=0),
+        tri_vn=np.concatenate([base["tri_vn"], np.zeros((t, 4), np.int32)], axis=0),
+        tri_vt=np.concatenate([base["tri_vt"], np.full((t, 4), -1, np.int32)], axis=0),
+    )
+    return base
+
+
+GENERATORS = {"cornell_box": cornell_box, "displaced_grid": displaced_grid}
+
+
+def make_scene(spec: dict) -> dict:
+    """The scene of a configuration's `scene` entry: {"generator": name,
+    "args": {keyword: value}}."""
+    if spec["generator"] not in GENERATORS:
+        raise ValueError(f"unknown scene generator {spec['generator']!r} "
+                         f"(known: {', '.join(sorted(GENERATORS))})")
+    return GENERATORS[spec["generator"]](**spec.get("args", {}))
+
+
+def make_camera(position, look_at, fov_degrees: float = 40.0, up_hint=(0.0, 1.0, 0.0),
+                focal_dist: float = 0.1, aperture: float = 0.0) -> dict:
+    """A fly camera as an explicit basis from position and look-at, the
+    field order of the program's `Camera`: position, forward, right, up,
+    fov (radians), focal_dist, aperture."""
+    position = np.asarray(position, np.float32)
+    look_at = np.asarray(look_at, np.float32)
+    forward = look_at - position
+    forward = forward / np.linalg.norm(forward)
+    right = np.cross(forward, np.asarray(up_hint, np.float32))
+    right = right / np.linalg.norm(right)
+    up = np.cross(right, forward)
+    return dict(position=position, forward=forward.astype(np.float32),
+                right=right.astype(np.float32), up=up.astype(np.float32),
+                fov=np.float32(np.deg2rad(fov_degrees)), focal_dist=np.float32(focal_dist),
+                aperture=np.float32(aperture))
+
+
+CAMERA_FIELDS = ("position", "forward", "right", "up", "fov", "focal_dist", "aperture")
