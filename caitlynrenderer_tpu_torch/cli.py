@@ -48,24 +48,25 @@ def render_setup(cfg: dict, base_dir: str, **overrides):
 def _upload(args, device=None, **overrides):
     """(device, ds, camera, options) of the config named on the command
     line: render_setup with `overrides`, then the upload to `device`
-    (default args.device), logged as a "scene" record, the binary-BVH stack
+    (default args.device), logged as a "scene" record with the seconds of
+    each step of the upload (its "upload" record), the binary-BVH stack
     sized from the build (a deep tree would overflow a fixed one)."""
     from caitlynrenderer_tpu_torch.device import get_device
-    from caitlynrenderer_tpu_torch.scene import required_stack, upload_scene
+    from caitlynrenderer_tpu_torch.scene import UPLOAD_STEPS, required_stack, upload_scene
     from caitlynrenderer_tpu_torch.utils import config, metrics
 
     device = get_device(args.device) if device is None else device
     scene, camera, options = render_setup(config.load_config(args.config),
                                           os.path.dirname(args.config), **overrides)
-    t0 = time.perf_counter()
     ds = upload_scene(scene, options.accel, device, max_leaf=options.max_leaf)
     options = options._replace(max_stack=required_stack(ds))
+    upload = metrics.last_records["upload"]
     metrics.log_record("scene", {
         "triangles": scene.num_triangles,
         "lights": scene.lights.count,
         "materials": scene.materials.count,
         "accel": options.accel,
-        "build_s": round(time.perf_counter() - t0, 3),
+        **{k: upload[k] for k in UPLOAD_STEPS},
     })
     return device, ds, camera, options
 
@@ -128,9 +129,11 @@ def cmd_render(args) -> int:
     frames = _turntable_frames(args)
     if frames is not None:
         _refuse({"--turntable with --resume": args.resume,
+                 "--turntable with --profile": args.profile,
                  "--turntable with [render] num_tiles_x/num_tiles_y": tiled})
     elif tiled:
-        _refuse({"[render] num_tiles_x/num_tiles_y with --resume": args.resume})
+        _refuse({"[render] num_tiles_x/num_tiles_y with --resume": args.resume,
+                 "[render] num_tiles_x/num_tiles_y with --profile": args.profile})
     if args.debug_checks:
         # One sample checked for NaN/inf radiance before the accumulation.
         from caitlynrenderer_tpu_torch.render import sampling
@@ -185,34 +188,35 @@ def cmd_render(args) -> int:
     else:
         state = progressive.init_state(w, h, args.seed, device)
     rays_per_sample = _rays_per_sample(ds, camera, options, args.seed, device)
-    timer = metrics.StepTimer()
-    last_ckpt = time.monotonic()
-    last_logged = 0
-    log_every = max(spp // 10, 1)
-    while state.frame_count < spp:
-        # spl samples a launch, the tail one at a time.  With --resume the
-        # chunk is halved until one launch takes about --checkpoint-every
-        # at the pace so far (a power of two, so few graphs are captured):
-        # checkpoints fall between launches.
-        chunk = spl if spp - state.frame_count >= spl else 1
-        if args.resume and chunk > 1 and timer.counts.get("samples", 0) > 0:
-            s_per_sample = timer.spans.get("step", 0.0) / timer.counts["samples"]
-            budget = max(1, int(args.checkpoint_every / max(s_per_sample, 1e-9)))
-            while chunk > budget and chunk > 1:
-                chunk //= 2
-        with timer.span("step"):
-            state = progressive.render_steps(ds, camera, state, w, h, options, chunk)
-            synchronize(device)
-        timer.count("samples", chunk)
-        timer.count("rays", rays_per_sample * chunk)
-        if args.resume and time.monotonic() - last_ckpt > args.checkpoint_every:
-            checkpoint.save_render_state(args.resume, state)
-            last_ckpt = time.monotonic()
-        # Logged where the count crosses the next tenth of spp (it moves in
-        # chunks, so a multiple of spp / 10 may never be hit).
-        if state.frame_count // log_every > last_logged // log_every:
-            last_logged = state.frame_count
-            metrics.log_record("progress", {"spp": state.frame_count, **timer.summary()})
+    with metrics.profile_trace(args.profile, progressive.phase_maps):
+        timer = metrics.StepTimer()
+        last_ckpt = time.monotonic()
+        last_logged = 0
+        log_every = max(spp // 10, 1)
+        while state.frame_count < spp:
+            # spl samples a launch, the tail one at a time.  With --resume the
+            # chunk is halved until one launch takes about --checkpoint-every
+            # at the pace so far (a power of two, so few graphs are captured):
+            # checkpoints fall between launches.
+            chunk = spl if spp - state.frame_count >= spl else 1
+            if args.resume and chunk > 1 and timer.counts.get("samples", 0) > 0:
+                s_per_sample = timer.spans.get("step", 0.0) / timer.counts["samples"]
+                budget = max(1, int(args.checkpoint_every / max(s_per_sample, 1e-9)))
+                while chunk > budget and chunk > 1:
+                    chunk //= 2
+            with timer.span("step"):
+                state = progressive.render_steps(ds, camera, state, w, h, options, chunk)
+                synchronize(device)
+            timer.count("samples", chunk)
+            timer.count("rays", rays_per_sample * chunk)
+            if args.resume and time.monotonic() - last_ckpt > args.checkpoint_every:
+                checkpoint.save_render_state(args.resume, state)
+                last_ckpt = time.monotonic()
+            # Logged where the count crosses the next tenth of spp (it moves in
+            # chunks, so a multiple of spp / 10 may never be hit).
+            if state.frame_count // log_every > last_logged // log_every:
+                last_logged = state.frame_count
+                metrics.log_record("progress", {"spp": state.frame_count, **timer.summary()})
     if args.resume:
         checkpoint.save_render_state(args.resume, state)
     img = progressive.resolve(state, w, h, options).cpu().numpy()
@@ -226,16 +230,22 @@ def cmd_render(args) -> int:
 def _rays_per_sample(ds, camera, options, seed: int, device) -> int:
     """The closest-hit and any-hit queries one sample issues (an
     instrumented pass of the seed's first uniforms), for the rays counted
-    in the progress records."""
+    in the progress records; logged as a "rays" record with the live lanes
+    entering each bounce's closest-hit query and each bounce's any-hit
+    candidates."""
     from caitlynrenderer_tpu_torch.core.camera import generate_rays
     from caitlynrenderer_tpu_torch.render import sampling
     from caitlynrenderer_tpu_torch.render.integrator import trace_paths
+    from caitlynrenderer_tpu_torch.utils import metrics
 
     w, h = options.width, options.height
     uni = sampling.draw_uniforms(sampling.prng_key(seed), w * h, options.max_depth, device)
     o, d = generate_rays(camera, w, h, uni)
     _, stats = trace_paths(ds, o, d, uni, options, with_stats=True)
-    return int(stats["rays_closest"]) + int(stats["rays_anyhit"])
+    rays = {k: int(stats[k]) for k in ("rays_closest", "rays_anyhit")}
+    metrics.log_record("rays", {"rays": w * h, **rays, **{
+        k: stats[k].tolist() for k in ("alive_per_bounce", "anyhit_per_bounce")}})
+    return rays["rays_closest"] + rays["rays_anyhit"]
 
 
 def _render_mesh(args) -> int:
@@ -261,7 +271,8 @@ def _render_mesh(args) -> int:
     _refuse({"--mesh with --aov": args.aov not in (None, "beauty"),
              "--mesh with --resume": args.resume,
              "--mesh with --turntable": _turntable_frames(args) is not None,
-             "--mesh with --debug-checks": args.debug_checks})
+             "--mesh with --debug-checks": args.debug_checks,
+             "--mesh with --profile": args.profile})
     device = rank_device(args.device)
     rank, world = init_distributed(device=device)
     try:
@@ -439,6 +450,11 @@ def main(argv=None) -> int:
                    "torchrun --nproc_per_node 4 -m caitlynrenderer_tpu_torch.cli render "
                    "scene.toml --mesh 2x2; not with --aov, --resume, --turntable N > 1 or "
                    "--debug-checks")
+    r.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the progressive loop with torch.profiler into DIR/trace.json "
+                   "(Chrome trace format): the program's caitlyn.* phase spans and the card's "
+                   "kernels on one clock, a graph replay's kernels given their phases; logs a "
+                   "profile record of device ms by phase")
     r.add_argument("--turntable", type=int, default=None, metavar="N",
                    help="N > 1 frames orbiting the look-at point, each restarting the "
                    "accumulation; writes OUTPUT_000.png ... (N = 1: the still image at -o)")

@@ -178,34 +178,92 @@ class _KernelNodeParams(ctypes.Structure):
                 ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
 
 
-def graph_kernels(raw_graph: int):
-    """(nodes, names) of a captured CUDA graph, given its cudaGraph_t
-    handle: its node count and the mangled name of each kernel node's
-    kernel, read through libcuda."""
-    cu = ctypes.CDLL("libcuda.so.1")
+# CUgraphNodeType values of the nodes that run on the device, and the name
+# a memcpy or memset node goes by (the profiler's names begin so).
+_KERNEL, _MEMCPY, _MEMSET = 0, 1, 2
+_COPY_NAMES = {_MEMCPY: "Memcpy", _MEMSET: "Memset"}
+_libcuda = None
 
-    def call(fn, *args):
-        rc = getattr(cu, fn)(*args)
-        if rc != 0:
-            raise RuntimeError(f"{fn} failed: CUresult {rc}")
 
-    graph = ctypes.c_void_p(raw_graph)
+def _cu(fn, *args) -> None:
+    """Call libcuda's `fn`; raise on an error."""
+    global _libcuda
+    if _libcuda is None:
+        _libcuda = ctypes.CDLL("libcuda.so.1")
+    rc = getattr(_libcuda, fn)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed: CUresult {rc}")
+
+
+def _handles(fn, graph) -> list:
+    """The node handles libcuda's `fn` (cuGraphGetNodes or
+    cuGraphGetRootNodes) lists for `graph`."""
     count = ctypes.c_size_t(0)
-    call("cuGraphGetNodes", graph, None, ctypes.byref(count))
+    _cu(fn, graph, None, ctypes.byref(count))
+    if count.value == 0:
+        return []
     nodes = (ctypes.c_void_p * count.value)()
-    call("cuGraphGetNodes", graph, nodes, ctypes.byref(count))
-    names, by_handle = [], {}
+    _cu(fn, graph, nodes, ctypes.byref(count))
+    return list(nodes)
+
+
+def _run_order(graph, nodes: list):
+    """`nodes` in the order they run where the graph is one chain (one
+    root, each node followed by at most one), else None."""
+    count = ctypes.c_size_t(0)
+    _cu("cuGraphGetEdges", graph, None, None, ctypes.byref(count))
+    if count.value != max(len(nodes) - 1, 0):
+        return None
+    src, dst = (ctypes.c_void_p * count.value)(), (ctypes.c_void_p * count.value)()
+    if count.value:
+        _cu("cuGraphGetEdges", graph, src, dst, ctypes.byref(count))
+    after = dict(zip(src, dst))
+    roots = _handles("cuGraphGetRootNodes", graph)
+    if len(after) != count.value or len(roots) != 1:
+        return None
+    order = roots
+    while order[-1] in after:
+        order.append(after[order[-1]])
+    return order if len(order) == len(nodes) else None
+
+
+def graph_nodes(raw_graph: int):
+    """(nodes, chain) of a captured CUDA graph, given its cudaGraph_t
+    handle, read through libcuda.  nodes: one (handle, kernel, name) for
+    each node, in the order they run where the graph is one chain (`chain`
+    True), else in libcuda's order; kernel tells a kernel node, and name is
+    its kernel's mangled name, "Memcpy" or "Memset" for a copy node, None
+    for a node that runs nothing on the device."""
+    graph = ctypes.c_void_p(raw_graph)
+    handles = _handles("cuGraphGetNodes", graph)
+    order = _run_order(graph, handles)
+    chain = order is not None
+    out, by_func = [], {}
     kind, params = ctypes.c_int(0), _KernelNodeParams()
-    for node in nodes:
-        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
-        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+    for node in order if chain else handles:
+        _cu("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != _KERNEL:
+            out.append((node, False, _COPY_NAMES.get(kind.value)))
             continue
-        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(params))
+        _cu("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(params))
         handle = ("cuFuncGetName", params.func) if params.func else ("cuKernelGetName",
                                                                     params.kern)
-        if handle not in by_handle:
+        if handle not in by_func:
             name = ctypes.c_char_p()
-            call(handle[0], ctypes.byref(name), ctypes.c_void_p(handle[1]))
-            by_handle[handle] = name.value.decode()
-        names.append(by_handle[handle])
-    return count.value, names
+            _cu(handle[0], ctypes.byref(name), ctypes.c_void_p(handle[1]))
+            by_func[handle] = name.value.decode()
+        out.append((node, True, by_func[handle]))
+    return out, chain
+
+
+def capture_tail(stream: int):
+    """The node that the next node captured on `stream` (a cudaStream_t
+    handle, capturing) will follow: its handle, 0 before the first node,
+    None where it would follow several (the capture has forked)."""
+    status, ident, graph = ctypes.c_int(0), ctypes.c_uint64(0), ctypes.c_void_p()
+    deps, count = ctypes.POINTER(ctypes.c_void_p)(), ctypes.c_size_t(0)
+    _cu("cuStreamGetCaptureInfo_v2", ctypes.c_void_p(stream), ctypes.byref(status),
+        ctypes.byref(ident), ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(count))
+    if count.value > 1:
+        return None
+    return deps[0] if count.value else 0

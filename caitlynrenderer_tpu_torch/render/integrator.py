@@ -65,6 +65,7 @@ from caitlynrenderer_tpu_torch.ops.traverse_cw8 import cw8_anyhit, cw8_closest
 from caitlynrenderer_tpu_torch.ops.traverse_cwbvh import cwbvh_anyhit, cwbvh_closest
 from caitlynrenderer_tpu_torch.ops.traverse_mega import mega_anyhit, mega_closest
 from caitlynrenderer_tpu_torch.scene import ACCELS, DeviceScene
+from caitlynrenderer_tpu_torch.utils import metrics
 
 EPS = cm.EPS
 RAY_OFFSET = cm.RAY_OFFSET
@@ -419,9 +420,10 @@ def continuation(hf: HitFrame, surf: Surface, d, T, u_b1, u_b2, u_lobe):
 def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_stats: bool = False):
     """Trace one path per input ray; returns radiance (N, 3), or
     (radiance, stats) when with_stats.  stats counts the ray queries
-    actually issued: "rays_closest", "rays_anyhit" (int tensors) and
+    actually issued: "rays_closest", "rays_anyhit" (int tensors),
     "alive_per_bounce" ((max_depth,) tensor of live lanes entering each
-    closest-hit query).
+    closest-hit query) and "anyhit_per_bounce" (the any-hit candidates of
+    each bounce's NEE; empty without lights).
 
     uniforms: (N, 4 + 7*max_depth), layout in render/sampling.py; the first
     4 (raygen) entries are unused here.
@@ -432,96 +434,107 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
     light_tab = ds.light_tab
     env_map = ds.scene.env_map if options.use_env_map else None
 
-    L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    T = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    prev_pdf = torch.ones(n, dtype=torch.float32, device=dev)
-    is_specular = torch.ones(n, dtype=torch.bool, device=dev)
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
-    # The origin-group hint of the wide BVH (the CWBVH's: origin window):
-    # the group that produced each ray's origin (0 for primary rays).
-    og = torch.zeros(n, dtype=torch.int32, device=dev)
+    with metrics.span("raygen"):
+        L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        T = torch.ones((n, 3), dtype=torch.float32, device=dev)
+        prev_pdf = torch.ones(n, dtype=torch.float32, device=dev)
+        is_specular = torch.ones(n, dtype=torch.bool, device=dev)
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        # The origin-group hint of the wide BVH (the CWBVH's: origin window):
+        # the group that produced each ray's origin (0 for primary rays).
+        og = torch.zeros(n, dtype=torch.int32, device=dev)
     alive_per_bounce, anyhit_per_bounce = [], []
 
+    # Each bounce's phases are spans b<bounce>.rr, .closest, .hit, .nee
+    # (holding .anyhit) and .bounce (utils/metrics).
     for bounce in range(options.max_depth):
-        u_lp, u_l1, u_l2, u_b1, u_b2, u_lobe, u_rr = bounce_uniforms(uniforms, bounce)
+        b = f"b{bounce}."
+        with metrics.span(b + "rr"):
+            u_lp, u_l1, u_l2, u_b1, u_b2, u_lobe, u_rr = bounce_uniforms(uniforms, bounce)
 
-        # Russian roulette from rr_start on: survive with p = max throughput
-        # component (clamped to [0.05, 1]) and compensate T by 1/p.  The
-        # survival probability is a detached decision.
-        if 0 <= options.rr_start <= bounce:
-            p_surv = torch.clamp(T.max(dim=1).values, 0.05, 1.0).detach()
-            alive = alive & (u_rr < p_surv)
-            T = T / p_surv[:, None]
+            # Russian roulette from rr_start on: survive with p = max
+            # throughput component (clamped to [0.05, 1]) and compensate T
+            # by 1/p.  The survival probability is a detached decision.
+            if 0 <= options.rr_start <= bounce:
+                p_surv = torch.clamp(T.max(dim=1).values, 0.05, 1.0).detach()
+                alive = alive & (u_rr < p_surv)
+                T = T / p_surv[:, None]
 
-        if with_stats:
-            alive_per_bounce.append(alive.sum())
-        raw_t, raw_tri, raw_u, raw_v, grp = _closest_hit_raw(ds, o, d, alive, options, og)
-        hf = hit_frame(ds, o, d, raw_t, raw_tri, raw_u, raw_v)
-        got = alive & hf.keep
-        if env_map is not None:
-            # A miss sees the environment.  The env is lit only through
-            # BSDF samples (no NEE toward it), so its MIS weight is 1.
-            L = L + torch.where((alive & ~got)[:, None], T * sample_env(env_map, d), 0.0)
-        alive = got
-        if grp is not None:
-            og = torch.clamp(grp, min=0)
+            if with_stats:
+                alive_per_bounce.append(alive.sum())
+        with metrics.span(b + "closest"):
+            raw_t, raw_tri, raw_u, raw_v, grp = _closest_hit_raw(ds, o, d, alive, options, og)
+            if grp is not None:
+                og = torch.clamp(grp, min=0)
+        with metrics.span(b + "hit"):
+            hf = hit_frame(ds, o, d, raw_t, raw_tri, raw_u, raw_v)
+            got = alive & hf.keep
+            if env_map is not None:
+                # A miss sees the environment.  The env is lit only through
+                # BSDF samples (no NEE toward it), so its MIS weight is 1.
+                L = L + torch.where((alive & ~got)[:, None], T * sample_env(env_map, d), 0.0)
+            alive = got
 
-        rows = hf.rows
-        surf = surface(ds, hf, options.families)
-        emission = rows[:, 30:33]
-        emissive = rows[:, 33] != -1
-        li_hit = torch.round(rows[:, 25]).long()
+            rows = hf.rows
+            surf = surface(ds, hf, options.families)
+            emission = rows[:, 30:33]
+            emissive = rows[:, 33] != -1
+            li_hit = torch.round(rows[:, 25]).long()
 
-        # Emissive hit, weighted against the NEE that could have sampled it.
-        hit_light = got & emissive
-        if num_lights > 0:
-            area = light_tab[torch.clamp(li_hit, 0, num_lights - 1), 15]
-            cos_light = -cm.dot(d, hf.n_flip)
-            pdf_select = 1.0 / num_lights
-            pdf_light = (
-                hf.t * hf.t
-                / torch.clamp(area * torch.clamp(cos_light, min=1e-8), min=1e-20)
-                * pdf_select
-            )
-            w_mis = torch.where(is_specular, 1.0, _power_heuristic(prev_pdf, pdf_light))
-            L = L + torch.where(hit_light[:, None], T * emission * w_mis[:, None], 0.0)
-            alive = alive & ~hit_light
+            # Emissive hit, weighted against the NEE that could have
+            # sampled it.
+            hit_light = got & emissive
+            if num_lights > 0:
+                area = light_tab[torch.clamp(li_hit, 0, num_lights - 1), 15]
+                cos_light = -cm.dot(d, hf.n_flip)
+                pdf_select = 1.0 / num_lights
+                pdf_light = (
+                    hf.t * hf.t
+                    / torch.clamp(area * torch.clamp(cos_light, min=1e-8), min=1e-20)
+                    * pdf_select
+                )
+                w_mis = torch.where(is_specular, 1.0, _power_heuristic(prev_pdf, pdf_light))
+                L = L + torch.where(hit_light[:, None], T * emission * w_mis[:, None], 0.0)
+                alive = alive & ~hit_light
 
         # NEE with MIS: one light sample per vertex, visibility by any-hit.
         if num_lights > 0:
-            lrows, ldir, dist, cos_mtl, cos_light, cand, shadow_t = light_sample(
-                light_tab, hf.point, hf.n_flip, u_lp, u_l1, u_l2, alive, surf.specular)
-            if with_stats:
-                anyhit_per_bounce.append(cand.sum())
-            shadowed = _occluded(ds, hf.point, ldir, shadow_t, cand, options, og)
-            visible = cand & ~shadowed
-            pdf_light = (
-                dist * dist
-                / torch.clamp(lrows[:, 15] * torch.clamp(-cos_light, min=1e-8), min=1e-20)
-                * pdf_select
-            )
-            # The BSDF's value toward the light (cos-premultiplied) and its
-            # pdf, by family.
-            cos_pos = torch.clamp(cos_mtl, min=0.0)
-            if options.exact_reference_nee:
-                f_nee = surf.albedo  # the reference shader's estimator (no cos/pi)
-            else:
-                f_nee = surf.albedo * (cos_pos / math.pi)[:, None]
-            bsdf_pdf = cos_pos / math.pi
-            if surf.disney is not None:
-                f_dis, pdf_dis = bsdf.eval_pdf(surf.dis_p, hf.n_flip, -d, ldir)
-                f_nee = torch.where(surf.disney[:, None], f_dis, f_nee)
-                bsdf_pdf = torch.where(surf.disney, pdf_dis, bsdf_pdf)
-            w_mis = _power_heuristic(pdf_light, bsdf_pdf)
-            contrib = T * lrows[:, 12:15] * f_nee * (
-                w_mis / torch.clamp(pdf_light, min=1e-20)
-            )[:, None]
-            L = L + torch.where(visible[:, None], contrib, 0.0)
+            with metrics.span(b + "nee"):
+                lrows, ldir, dist, cos_mtl, cos_light, cand, shadow_t = light_sample(
+                    light_tab, hf.point, hf.n_flip, u_lp, u_l1, u_l2, alive, surf.specular)
+                if with_stats:
+                    anyhit_per_bounce.append(cand.sum())
+                with metrics.span(b + "anyhit"):
+                    shadowed = _occluded(ds, hf.point, ldir, shadow_t, cand, options, og)
+                visible = cand & ~shadowed
+                pdf_light = (
+                    dist * dist
+                    / torch.clamp(lrows[:, 15] * torch.clamp(-cos_light, min=1e-8), min=1e-20)
+                    * pdf_select
+                )
+                # The BSDF's value toward the light (cos-premultiplied) and
+                # its pdf, by family.
+                cos_pos = torch.clamp(cos_mtl, min=0.0)
+                if options.exact_reference_nee:
+                    f_nee = surf.albedo  # the reference shader's estimator (no cos/pi)
+                else:
+                    f_nee = surf.albedo * (cos_pos / math.pi)[:, None]
+                bsdf_pdf = cos_pos / math.pi
+                if surf.disney is not None:
+                    f_dis, pdf_dis = bsdf.eval_pdf(surf.dis_p, hf.n_flip, -d, ldir)
+                    f_nee = torch.where(surf.disney[:, None], f_dis, f_nee)
+                    bsdf_pdf = torch.where(surf.disney, pdf_dis, bsdf_pdf)
+                w_mis = _power_heuristic(pdf_light, bsdf_pdf)
+                contrib = T * lrows[:, 12:15] * f_nee * (
+                    w_mis / torch.clamp(pdf_light, min=1e-20)
+                )[:, None]
+                L = L + torch.where(visible[:, None], contrib, 0.0)
 
-        d, new_T, prev_pdf, is_specular, ok, o = continuation(hf, surf, d, T, u_b1, u_b2,
-                                                               u_lobe)
-        alive = alive & ok
-        T = torch.where(alive[:, None], new_T, T)
+        with metrics.span(b + "bounce"):
+            d, new_T, prev_pdf, is_specular, ok, o = continuation(hf, surf, d, T, u_b1, u_b2,
+                                                                   u_lobe)
+            alive = alive & ok
+            T = torch.where(alive[:, None], new_T, T)
 
     if not with_stats:
         return L
@@ -530,6 +543,8 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
         "rays_closest": sum(alive_per_bounce, zero),
         "rays_anyhit": sum(anyhit_per_bounce, zero),
         "alive_per_bounce": torch.stack(alive_per_bounce),
+        "anyhit_per_bounce": (torch.stack(anyhit_per_bounce) if anyhit_per_bounce
+                              else torch.zeros(0, dtype=torch.int64, device=dev)),
     }
 
 
@@ -540,19 +555,21 @@ def trace_aov(ds: DeviceScene, o, d, options: RenderOptions):
     their emission); 0 where the ray missed.  Returns (N, 3)."""
     check_supported(ds, options)
     n = o.shape[0]
-    active = torch.ones(n, dtype=torch.bool, device=o.device)
-    og = torch.zeros(n, dtype=torch.int32, device=o.device)
-    raw_t, raw_tri, raw_u, raw_v, _ = _closest_hit_raw(ds, o, d, active, options, og)
-    hf = hit_frame(ds, o, d, raw_t, raw_tri, raw_u, raw_v)
-    got = hf.keep[:, None]
-    if options.aov == "depth":
-        return torch.where(got, hf.t[:, None], 0.0).expand(n, 3)
-    if options.aov == "normal":
-        n_shade = _shading_normal_from_rows(hf.rows, hf.u, hf.v)
-        return torch.where(got, 0.5 * (n_shade + 1.0), 0.0)
-    albedo = _albedo_from_rows(ds.scene, hf.rows, hf.u, hf.v)
-    emissive = (hf.rows[:, 33] != -1)[:, None]
-    return torch.where(got, torch.where(emissive, hf.rows[:, 30:33], albedo), 0.0)
+    with metrics.span("b0.closest"):
+        active = torch.ones(n, dtype=torch.bool, device=o.device)
+        og = torch.zeros(n, dtype=torch.int32, device=o.device)
+        raw_t, raw_tri, raw_u, raw_v, _ = _closest_hit_raw(ds, o, d, active, options, og)
+    with metrics.span("b0.hit"):
+        hf = hit_frame(ds, o, d, raw_t, raw_tri, raw_u, raw_v)
+        got = hf.keep[:, None]
+        if options.aov == "depth":
+            return torch.where(got, hf.t[:, None], 0.0).expand(n, 3)
+        if options.aov == "normal":
+            n_shade = _shading_normal_from_rows(hf.rows, hf.u, hf.v)
+            return torch.where(got, 0.5 * (n_shade + 1.0), 0.0)
+        albedo = _albedo_from_rows(ds.scene, hf.rows, hf.u, hf.v)
+        emissive = (hf.rows[:, 33] != -1)[:, None]
+        return torch.where(got, torch.where(emissive, hf.rows[:, 30:33], albedo), 0.0)
 
 
 def render_sample(ds: DeviceScene, camera: Camera, uniforms, width: int, height: int,
@@ -562,10 +579,11 @@ def render_sample(ds: DeviceScene, camera: Camera, uniforms, width: int, height:
     (or the first-hit AOV unless options.aov is "beauty").  `lens` as in
     `generate_rays_for_ids`.  Returns (H*W, 3) or (N, 3) radiance on the
     uniforms' device."""
-    if pixel_ids is None:
-        o, d = generate_rays(camera, width, height, uniforms, lens)
-    else:
-        o, d = generate_rays_for_ids(camera, width, height, pixel_ids, uniforms, lens)
+    with metrics.span("raygen"):
+        if pixel_ids is None:
+            o, d = generate_rays(camera, width, height, uniforms, lens)
+        else:
+            o, d = generate_rays_for_ids(camera, width, height, pixel_ids, uniforms, lens)
     if options.aov != "beauty":
         return trace_aov(ds, o, d, options)
     return trace_paths(ds, o, d, uniforms, options)

@@ -17,7 +17,7 @@ CPU tensors the samples run as a loop.
 from __future__ import annotations
 
 import time
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from typing import NamedTuple, Tuple
 
 import torch
@@ -74,17 +74,21 @@ def render_pixels(ds: DeviceScene, camera: Camera, key, pixel_ids, width: int, h
     ((N,) int32; ids past the image trace throwaway rays): (N, 3) radiance.
     A pixel's uniforms depend only on the key and its id, so any split of
     the pixels (tiles, shards) renders each the same."""
-    uniforms = sampling.pixel_uniforms(key, pixel_ids, options.max_depth)
+    with metrics.span("sample.uniforms"):
+        uniforms = sampling.pixel_uniforms(key, pixel_ids, options.max_depth)
     return render_sample(ds, camera, uniforms, width, height, options, pixel_ids)
 
 
 def render_step(ds: DeviceScene, camera: Camera, state: RenderState, width: int,
                 height: int, options: RenderOptions) -> RenderState:
     """Add one sample per pixel to the accumulation."""
-    key = sampling.sample_key(state.base_key, state.frame_count)
-    pixel_ids = torch.arange(width * height, dtype=torch.int32, device=state.accum.device)
+    with metrics.span("sample.keys"):
+        key = sampling.sample_key(state.base_key, state.frame_count)
+        pixel_ids = torch.arange(width * height, dtype=torch.int32, device=state.accum.device)
     radiance = render_pixels(ds, camera, key, pixel_ids, width, height, options)
-    return RenderState(state.accum + radiance, state.frame_count + 1, state.base_key)
+    with metrics.span("sample.accumulate"):
+        accum = state.accum + radiance
+    return RenderState(accum, state.frame_count + 1, state.base_key)
 
 
 def accumulate(ds: DeviceScene, camera: Camera, accum, frame, base_key, width: int,
@@ -97,11 +101,19 @@ def accumulate(ds: DeviceScene, camera: Camera, accum, frame, base_key, width: i
     device, and adds the samples in render_step's order, so it returns
     what `spp` render_step calls accumulate, bit for bit."""
     dev = accum.device
-    keys = sampling.sample_key(base_key, frame + torch.arange(spp, dtype=torch.int64, device=dev))
-    ids = torch.arange(width * height, dtype=torch.int32, device=dev)
+    with metrics.span("sample.keys"):
+        keys = sampling.sample_key(base_key,
+                                   frame + torch.arange(spp, dtype=torch.int64, device=dev))
+        ids = torch.arange(width * height, dtype=torch.int32, device=dev)
     for i in range(spp):
-        uniforms = sampling.pixel_uniforms((keys[0][i], keys[1][i]), ids, options.max_depth)
-        accum = accum + render_sample(ds, camera, uniforms, width, height, options, ids, lens)
+        with metrics.span("sample.uniforms"):
+            uniforms = sampling.pixel_uniforms((keys[0][i], keys[1][i]), ids, options.max_depth)
+        radiance = render_sample(ds, camera, uniforms, width, height, options, ids, lens)
+        with metrics.span("sample.accumulate"):
+            accum = accum + radiance
+        # Freed before the next sample, as a temporary of the sum would be:
+        # the graph's memory pool holds what is alive at its peak.
+        del radiance
     return accum
 
 
@@ -112,13 +124,19 @@ class SampleGraph:
     written before each replay; it holds the scene, whose tensors it
     reads.
 
-    capture_s, instantiate_s: host seconds of the capture (after one
-    warm-up sample of the same body on a side stream, which loads each
-    kernel before capture, under the sync debug mode "error") and of the
-    graph's instantiation.  nodes: the graph's node count.  launches: the
-    kernel launches one replay adds, {module: {counter key: n}}, counted
-    from the graph's kernel nodes and held equal to the wrappers' own
-    counts during capture.  Each capture logs a "graph_capture" record."""
+    warmup_s, capture_s, instantiate_s: host seconds of one warm-up sample
+    of the same body on a side stream (it loads each kernel before
+    capture, under the sync debug mode "error"; ended by synchronizing
+    that stream), of the capture and of the graph's instantiation.  nodes:
+    the graph's node count.  launches: the kernel launches one replay
+    adds, {module: {counter key: n}}, counted from the graph's kernel
+    nodes and held equal to the wrappers' own counts during capture.
+    phases: the graph's phase map (utils/metrics), run-length encoded
+    ([[phase, kernel name, n], ...], `metrics.expand` lists it), one entry
+    per node that runs on the device in the order a replay runs them;
+    None where the graph is not one chain of nodes.  phase_nodes: the
+    graph's nodes by phase group, {group: n}, "none" for nodes outside
+    every span.  Each capture logs a "graph_capture" record of them."""
 
     def __init__(self, ds: DeviceScene, camera: Camera, state: RenderState, width: int,
                  height: int, options: RenderOptions, spp: int, lens: bool):
@@ -127,7 +145,7 @@ class SampleGraph:
         # Everything below runs with the scene's device current: a capture
         # records only the work of its stream's device, and work queued on
         # another device would run at once, outside the graph.
-        with torch.no_grad(), torch.cuda.device(dev):
+        with torch.no_grad(), torch.cuda.device(dev), metrics.span("capture"):
             self.accum = torch.empty_like(state.accum)
             self.frame = torch.zeros((), dtype=torch.int64, device=dev)
             self.key = (torch.zeros_like(self.frame), torch.zeros_like(self.frame))
@@ -140,11 +158,14 @@ class SampleGraph:
             side.wait_stream(torch.cuda.current_stream(dev))
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
             try:
                 with torch.cuda.stream(side):
                     accumulate(*body, 1, lens)
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
+            side.synchronize()
+            self.warmup_s = time.perf_counter() - t0
             torch.cuda.current_stream(dev).wait_stream(side)
             # keep_graph: the captured graph stays readable for its nodes.
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -154,15 +175,17 @@ class SampleGraph:
             before = _build.launch_counts()
             t0 = time.perf_counter()
             try:
-                with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                with torch.cuda.graph(self.graph, pool=pool, stream=stream), \
+                        metrics.capture_phases(stream.cuda_stream) as marks:
                     self.out = accumulate(*body, spp, lens)
             finally:
                 # The capture ran nothing: take its counts back.
                 counted = _build.launch_counts()
                 _build.set_launch_counts(before)
             self.capture_s = time.perf_counter() - t0
-            self.nodes, names = _build.graph_kernels(self.graph.raw_cuda_graph())
-            self.launches = _build.count_kernels(names)
+            nodes, phases = marks.node_phases(self.graph.raw_cuda_graph())
+            self.nodes = len(nodes)
+            self.launches = _build.count_kernels(name for _, kernel, name in nodes if kernel)
             wrappers = {m: {k: counted[m][k] - before[m][k] for k in row}
                         for m, row in counted.items()}
             if self.nodes == 0 or self.launches != wrappers:
@@ -172,11 +195,18 @@ class SampleGraph:
             t0 = time.perf_counter()
             self.graph.instantiate()
             self.instantiate_s = time.perf_counter() - t0
+        self.phases = self.phase_nodes = None
+        if phases is not None:
+            self.phases = metrics.run_length((phase, name) for (_, _, name), phase
+                                             in zip(nodes, phases) if name is not None)
+            self.phase_nodes = dict(Counter(
+                metrics.phase_group(phase) or "none" for phase in phases))
         graph_counts["captures"] += 1
         metrics.log_record("graph_capture", {
             "spp": spp, "width": width, "height": height, "accel": options.accel,
             "device": str(dev), "nodes": self.nodes, "launches": self.launches,
-            "capture_s": round(self.capture_s, 6), "instantiate_s": round(self.instantiate_s, 6)})
+            "warmup_s": round(self.warmup_s, 6), "capture_s": round(self.capture_s, 6),
+            "instantiate_s": round(self.instantiate_s, 6), "phase_nodes": self.phase_nodes})
 
     def _load(self, camera: Camera, state: RenderState) -> None:
         self.accum.copy_(state.accum)
@@ -191,12 +221,21 @@ class SampleGraph:
         device share their pool, so another graph's replay may overwrite
         this one's output)."""
         with torch.cuda.device(self.device):
-            self._load(camera, state)
-            self.graph.replay()
-            accum = self.out.clone()
+            with metrics.span("launch.load"):
+                self._load(camera, state)
+            with metrics.span("launch.replay"):
+                self.graph.replay()
+            with metrics.span("launch.clone"):
+                accum = self.out.clone()
         _build.add_launches(self.launches)
         graph_counts["replays"] += 1
         return RenderState(accum, state.frame_count + self.spp, state.base_key)
+
+
+def phase_maps() -> list:
+    """The phase maps of the cached graphs, expanded ([(phase, kernel
+    name), ...] each), for `metrics.profile_trace`."""
+    return [metrics.expand(g.phases) for g in _graphs.values() if g.phases is not None]
 
 
 def clear_graphs() -> None:
@@ -243,8 +282,9 @@ def resolve(state: RenderState, width: int, height: int, options: RenderOptions)
     The beauty pass is tonemapped; an AOV is a data view and resolves
     linearly, clipped to [0, 1], "depth" first normalized by the frame's
     largest value."""
-    inv = 1.0 / max(float(state.frame_count), 1.0)
-    return display(state.accum * inv * options.hdr_multiplier, width, height, options)
+    with metrics.span("resolve"):
+        inv = 1.0 / max(float(state.frame_count), 1.0)
+        return display(state.accum * inv * options.hdr_multiplier, width, height, options)
 
 
 def display(hdr, width: int, height: int, options: RenderOptions):

@@ -40,6 +40,7 @@ from caitlynrenderer_tpu_torch.ops.intersect import pack_tris
 from caitlynrenderer_tpu_torch.ops.traverse_bvh import pack_bvh_pairs
 from caitlynrenderer_tpu_torch.ops.traverse_cw8 import check_depth, node8_depth, pack_windows
 from caitlynrenderer_tpu_torch.ops.traverse_mega import pack_mega, pack_octants
+from caitlynrenderer_tpu_torch.utils import metrics
 
 ACCELS = ("brute", "bvh2", "sbvh", "wide", "cwbvh")
 
@@ -314,6 +315,12 @@ def one_leaf_bvh(num_triangles: int) -> FlatBVH:
     )
 
 
+# The steps of an upload its "upload" record times, in order.
+UPLOAD_STEPS = ("validate_s", "tree_s", "reorder_s", "pack_s", "device_init_s", "copy_s")
+# The CUDA devices an upload has started (its device_init_s).
+_started: set = set()
+
+
 def upload_scene(scene_np: SceneArrays, accel: str, device, max_leaf: int = 4,
                  wide_group_tris=None, bvh: FlatBVH | None = None) -> DeviceScene:
     """Validate the scene, build `accel` and move everything to `device` (a
@@ -323,10 +330,21 @@ def upload_scene(scene_np: SceneArrays, accel: str, device, max_leaf: int = 4,
     most 3 triangles) and wide_group_tris the wide group size.  `bvh`, if
     given, is the binary tree this call would build (`build_sbvh` under
     "sbvh", else `build_bvh`, with this max_leaf), built ahead, for example
-    in another process; it is used in place of the build."""
+    in another process; it is used in place of the build.
+
+    Logs an "upload" record of host seconds by step, each 0 where the step
+    has nothing to do: validate_s; tree_s, the binary tree's build (the
+    native or numpy SAH builder, or the SBVH); reorder_s; pack_s, the wide
+    groups and their planes and octant lists, or the CWBVH's collapse and
+    windows; device_init_s, the process's first touch of a CUDA device
+    (the runtime's start and one allocation there); copy_s, the copy to
+    `device` and the tables built there, ended by a synchronize on a CUDA
+    device.  With them the accel and the triangle count."""
     if accel not in ACCELS:
         raise ValueError(f"unknown accel {accel!r} (expected one of {'/'.join(ACCELS)})")
-    validate_scene(scene_np)
+    timer = metrics.StepTimer()
+    with timer.span("validate_s"):
+        validate_scene(scene_np)
     wide, cw = empty_wide_arrays(), empty_cw_arrays()
     if accel == "brute" or scene_np.num_triangles == 0:
         if bvh is not None:
@@ -337,17 +355,34 @@ def upload_scene(scene_np: SceneArrays, accel: str, device, max_leaf: int = 4,
             max_leaf = min(max_leaf, 3)
         if bvh is None:
             build = build_sbvh if accel == "sbvh" else build_bvh
-            bvh = build(scene_np.vertices, scene_np.tri_v, max_leaf=max_leaf)
+            with timer.span("tree_s"):
+                bvh = build(scene_np.vertices, scene_np.tri_v, max_leaf=max_leaf)
         elif len(bvh.tri_order) != scene_np.num_triangles:
             raise ValueError(f"the tree given orders {len(bvh.tri_order)} triangles, the scene "
                              f"has {scene_np.num_triangles}")
-        ordered = reorder_scene(scene_np, bvh)
+        with timer.span("reorder_s"):
+            ordered = reorder_scene(scene_np, bvh)
         if accel == "wide":
-            wide = _wide_arrays(ordered, bvh,
-                                wide_group_size(scene_np.num_triangles, wide_group_tris))
+            with timer.span("pack_s"):
+                wide = _wide_arrays(ordered, bvh,
+                                    wide_group_size(scene_np.num_triangles, wide_group_tris))
         elif accel == "cwbvh":
-            ordered, cw = _cw_arrays(ordered, bvh)
-    return scene_to_device(ordered, accel, device, bvh=bvh, wide=wide, cw=cw)
+            with timer.span("pack_s"):
+                ordered, cw = _cw_arrays(ordered, bvh)
+    device = torch.device(device)
+    if device.type == "cuda" and str(device) not in _started:
+        with timer.span("device_init_s"):
+            torch.cuda.init()
+            torch.empty(1, device=device)
+        _started.add(str(device))
+    with timer.span("copy_s"):
+        ds = scene_to_device(ordered, accel, device, bvh=bvh, wide=wide, cw=cw)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    metrics.log_record("upload", {
+        "accel": accel, "triangles": int(scene_np.num_triangles),
+        **{k: round(timer.spans.get(k, 0.0), 6) for k in UPLOAD_STEPS}})
+    return ds
 
 
 def scene_to_device(scene_np: SceneArrays, accel: str, device, bvh: FlatBVH, wide: dict,

@@ -1,0 +1,124 @@
+"""CUDA tier of the phase spans: the phase map of a captured CUDA graph on
+the card.  It covers every node that runs on the device, adds no node (a
+capture of the same samples without it has as many), puts the traversal
+kernels (B1, B2) in the query group and the sampler (B5) in raygen; and
+in a traced replay the five groups' kernels that are none of the
+hand-written ones add up to the render stage's, as the benchmark's trace
+reader counts them.
+
+Marked `cuda`; every test skips (inside the fixture) when torch sees no
+CUDA device: `python -m pytest tests/ -m cuda -q` on an NVIDIA card."""
+
+import json
+import os
+
+import pytest
+import torch
+
+from caitlynrenderer_tpu_torch.cli import render_setup
+from caitlynrenderer_tpu_torch.core.camera import camera_tensors
+from caitlynrenderer_tpu_torch.io.builtin_scenes import displaced_grid
+from caitlynrenderer_tpu_torch.core.types import RenderOptions, make_camera
+from caitlynrenderer_tpu_torch.ops import _build
+from caitlynrenderer_tpu_torch.render import progressive
+from caitlynrenderer_tpu_torch.scene import required_stack, scene_families, upload_scene
+from caitlynrenderer_tpu_torch.utils import config, metrics
+from cellbench import trace
+
+pytestmark = pytest.mark.cuda
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOML = os.path.join(ROOT, "scenes", "cornell.toml")
+SPP = 4
+QUERY_KERNELS = {"mt_brute_kernel", "mega_kernel"}
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _setup(accel, dev):
+    if accel == "brute":
+        cfg = config.load_config(TOML)
+        scene, camera, options = render_setup(cfg, os.path.dirname(TOML), width=96, height=64,
+                                              accel="brute")
+    else:
+        scene = displaced_grid(48)[0]
+        camera = make_camera([5.0, 9.0, 11.0], [5.0, 2.0, 5.0], 50.0)
+        options = RenderOptions(width=96, height=64, max_depth=4, accel=accel,
+                                families=scene_families(scene))
+    ds = upload_scene(scene, accel, dev)
+    return ds, camera, options._replace(max_stack=required_stack(ds))
+
+
+@pytest.mark.parametrize("accel", ["brute", "wide"])
+def test_graph_phase_map_covers_every_node_and_adds_none(dev, accel):
+    progressive.clear_graphs()
+    ds, camera, options = _setup(accel, dev)
+    w, h = options.width, options.height
+    state = progressive.init_state(w, h, 5, dev)
+    progressive.render_steps(ds, camera, state, w, h, options, SPP)
+    graph, = progressive._graphs.values()
+    assert graph.phases is not None
+    assert sum(graph.phase_nodes.values()) == graph.nodes and "none" not in graph.phase_nodes
+    assert set(graph.phase_nodes) == set(metrics.GROUPS)
+    entries = metrics.expand(graph.phases)
+    nodes, chain = _build.graph_nodes(graph.graph.raw_cuda_graph())
+    assert chain and len(entries) == sum(name is not None for _, _, name in nodes)
+    assert [name for _, name in entries] == [name for _, _, name in nodes if name is not None]
+    for phase, name in entries:
+        family = metrics.kernel_family(name)
+        if family in QUERY_KERNELS:
+            assert metrics.phase_group(phase) == "query", (phase, name)
+        if family == "threefry_pixel_kernel":
+            assert phase == "sample.uniforms"
+    assert sum(metrics.kernel_family(n) in QUERY_KERNELS for _, n in entries) == 2 * SPP * (
+        options.max_depth)
+
+    # The same samples captured without the phase map: as many nodes.
+    plain = torch.cuda.CUDAGraph(keep_graph=True)
+    accum = torch.zeros_like(state.accum)
+    frame = torch.zeros((), dtype=torch.int64, device=dev)
+    key = (torch.zeros_like(frame), torch.ones_like(frame))
+    body = (ds, camera_tensors(camera, dev), accum, frame, key, w, h, options)
+    before = _build.launch_counts()
+    with torch.no_grad(), torch.cuda.graph(plain):
+        progressive.accumulate(*body, SPP, False)
+    _build.set_launch_counts(before)
+    assert len(_build.graph_nodes(plain.raw_cuda_graph())[0]) == graph.nodes
+    progressive.clear_graphs()
+
+
+@pytest.mark.parametrize("accel", ["brute", "wide"])
+def test_traced_replay_groups_add_up_to_the_integrator(dev, accel, tmp_path):
+    progressive.clear_graphs()
+    ds, camera, options = _setup(accel, dev)
+    w, h = options.width, options.height
+    state = progressive.init_state(w, h, 5, dev)
+    state = progressive.render_steps(ds, camera, state, w, h, options, SPP)
+    torch.cuda.synchronize(dev)
+    launches = 3
+    with trace.Segment() as seg:
+        for _ in range(launches):
+            with trace.stage("render"):
+                state = progressive.render_steps(ds, camera, state, w, h, options, SPP)
+        torch.cuda.synchronize(dev)
+    integrator = seg.summary["stage_ms"]["render"]["other"]
+    path = str(tmp_path / "trace.json")
+    seg.prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    attributed = metrics.attribute(events, progressive.phase_maps())
+    other = {}
+    for e, phase in attributed:
+        if trace.kernel_class(e["name"]) == "other":
+            group = metrics.phase_group(phase)
+            other[group] = other.get(group, 0.0) + e["dur"] / 1e3
+    # Under brute force the queries are B1 alone: no other kernel.
+    assert None not in other and set(other) >= set(metrics.GROUPS) - {"query"}
+    assert set(other) <= set(metrics.GROUPS)
+    assert sum(other.values()) == pytest.approx(integrator, rel=0.01)
+    progressive.clear_graphs()
