@@ -21,7 +21,10 @@ order of the arithmetic are the reference's, so the tests can hold the
 two against each other per pixel.  A vertex's steps (`hit_frame`, `surface`,
 `light_sample`, `continuation`) are functions of their own, so that
 chip_smoke.py builds the kernels' bounce and shadow ray sets with the
-integrator's code.
+integrator's code.  On the card a Lambert-only scene rendered
+without grad shades each bounce in one launch of kernel B6 (ops/shade.py,
+`trace_paths_fused`, chosen by `fused_shading`); those steps are its
+plain twin, bit for bit.
 
 Shading: the four families of the reference (Lambert, the Disney BRDF
 of ops/bsdf.py for every microfacet type, mirror, glass), textured albedo
@@ -56,7 +59,7 @@ from caitlynrenderer_tpu_torch.core.types import (
 )
 from caitlynrenderer_tpu_torch.core import math as cm
 from caitlynrenderer_tpu_torch.core.camera import generate_rays, generate_rays_for_ids
-from caitlynrenderer_tpu_torch.ops import bsdf
+from caitlynrenderer_tpu_torch.ops import bsdf, shade
 from caitlynrenderer_tpu_torch.ops.intersect import intersect_brute, occluded_brute, refine_hit_tri
 from caitlynrenderer_tpu_torch.ops.mt_brute import brute_anyhit, brute_closest
 from caitlynrenderer_tpu_torch.ops.texture import sample_bilinear, sample_env
@@ -212,6 +215,53 @@ def _power_heuristic(a, b):
     b = torch.clamp(b, 0.0, 1e12)
     t = a * a
     return t / torch.clamp(b * b + t, min=1e-20)
+
+
+def _light_pdf(dist, area, cos_light, pdf_select):
+    """A light sample's pdf in solid angle, dist² / (area · cos), times
+    the light's selection pdf; cos_light is the light's cosine toward the
+    shaded point."""
+    area_cos = torch.clamp(area * torch.clamp(cos_light, min=1e-8), min=1e-20)
+    return dist * dist / area_cos * pdf_select
+
+
+def _emitted(light_tab, d, hf, T, prev_pdf, is_specular):
+    """What an emissive hit adds, T · emission · w_mis, weighted against
+    the NEE that could have sampled it (w_mis 1 after a specular bounce)."""
+    num_lights = light_tab.shape[0]
+    li_hit = torch.round(hf.rows[:, 25]).long()
+    area = light_tab[torch.clamp(li_hit, 0, num_lights - 1), 15]
+    pdf_light = _light_pdf(hf.t, area, -cm.dot(d, hf.n_flip), 1.0 / num_lights)
+    w_mis = torch.where(is_specular, 1.0, _power_heuristic(prev_pdf, pdf_light))
+    return T * hf.rows[:, 30:33] * w_mis[:, None]
+
+
+def _lambert_toward(albedo, cos_mtl, exact_reference_nee: bool):
+    """The Lambert BSDF's value toward the light (cos-premultiplied; the
+    reference shader's albedo under exact_reference_nee) and its pdf."""
+    cos_pos = torch.clamp(cos_mtl, min=0.0)
+    if exact_reference_nee:
+        f_nee = albedo  # the reference shader's estimator (no cos/pi)
+    else:
+        f_nee = albedo * (cos_pos / math.pi)[:, None]
+    return f_nee, cos_pos / math.pi
+
+
+def _nee_contrib(T, lrows, f_nee, pdf_light, bsdf_pdf):
+    """A light sample's contribution T · Le · f · w_mis / pdf_light."""
+    w_mis = _power_heuristic(pdf_light, bsdf_pdf)
+    return T * lrows[:, 12:15] * f_nee * (w_mis / torch.clamp(pdf_light, min=1e-20))[:, None]
+
+
+def _roulette(options: RenderOptions, bounce: int, alive, T, u_rr):
+    """Russian roulette from rr_start on: survive with p = max throughput
+    component (clamped to [0.05, 1]) and compensate T by 1/p.  The
+    survival probability is a detached decision.  Returns (alive, T)."""
+    if 0 <= options.rr_start <= bounce:
+        p_surv = torch.clamp(T.max(dim=1).values, 0.05, 1.0).detach()
+        alive = alive & (u_rr < p_surv)
+        T = T / p_surv[:, None]
+    return alive, T
 
 
 def _shading_normal_from_rows(rows, u, v):
@@ -417,6 +467,121 @@ def continuation(hf: HitFrame, surf: Surface, d, T, u_b1, u_b2, u_lobe):
     return cm.normalize(new_d), new_T, new_pdf, new_spec, ok, origin
 
 
+def fused_shading(ds: DeviceScene, o, d, uniforms, options: RenderOptions,
+                  with_stats: bool = False) -> bool:
+    """Whether `trace_paths` shades each bounce with kernel B6 (ops/shade.py,
+    `trace_paths_fused`) rather than the torch code below: the rays, the
+    uniforms and the scene's tables on CUDA, the Lambert family alone, no
+    texture, no environment, at least one light (without one the torch code
+    skips the emissive MIS and NEE), no ray-count stats, and nothing the
+    bounce reads requiring grad while grad mode is on."""
+    sc = ds.scene
+    tensors = (o, d, uniforms, ds.shade_tab, ds.light_tab)
+    return (all(x.device.type == "cuda" for x in tensors)
+            and tuple(options.families) == ("lambert",)
+            and (sc.textures is None or sc.texcoords.shape[0] == 0)
+            and not options.use_env_map
+            and ds.light_tab.shape[0] > 0
+            and not with_stats
+            and not (torch.is_grad_enabled() and any(x.requires_grad for x in tensors)))
+
+
+def shade_bounce_plain(ds: DeviceScene, o, d, tri, uniforms, bounce: int,
+                       state: shade.PathState, prev=None, exact_nee: bool = False,
+                       out=None) -> shade.Shaded:
+    """Kernel B6's plain twin (`ops/shade.shade_bounce`, the same arguments
+    with the scene for its tables): the torch path's bounce on a
+    Lambert-only scene, from the closest hit's triangles `tri` to the
+    any-hit query's rays and the continuation, updating `state` in place.
+    Where the kernel leaves a value undefined (pending outside cand) the
+    twin writes 0; a lane that shades nothing more gets the kernel's
+    placeholder shadow direction (0, 0, 1) and keeps its ray."""
+    alive, T, L, prev_pdf = state
+    if prev is not None:
+        shade_finish_plain(L, *prev)
+    u_lp, u_l1, u_l2, u_b1, u_b2, u_lobe, _ = bounce_uniforms(uniforms, bounce)
+    zero = torch.zeros_like(u_lp)
+    hf = hit_frame(ds, o, d, zero, tri, zero, zero)
+    surf = surface(ds, hf, ("lambert",))
+    got = alive & hf.keep
+    hit_light = got & (hf.rows[:, 33] != -1)
+    is_specular = torch.full_like(alive, bounce == 0)
+    L += torch.where(hit_light[:, None],
+                     _emitted(ds.light_tab, d, hf, T, prev_pdf, is_specular), 0.0)
+    live = got & ~hit_light
+    lrows, ldir, dist, cos_mtl, cos_light, cand, t_max = light_sample(
+        ds.light_tab, hf.point, hf.n_flip, u_lp, u_l1, u_l2, live, surf.specular)
+    pdf_light = _light_pdf(dist, lrows[:, 15], -cos_light, 1.0 / ds.light_tab.shape[0])
+    f_nee, bsdf_pdf = _lambert_toward(surf.albedo, cos_mtl, exact_nee)
+    pending = torch.where(cand[:, None], _nee_contrib(T, lrows, f_nee, pdf_light, bsdf_pdf), 0.0)
+    new_d, new_T, new_pdf, _, _, origin = continuation(hf, surf, d, T, u_b1, u_b2, u_lobe)
+    keep = live[:, None]
+    o_out, d_out = out if out is not None else (torch.empty_like(o), torch.empty_like(d))
+    o_out.copy_(torch.where(keep, origin, o))
+    d_out.copy_(torch.where(keep, new_d, d))
+    T.copy_(torch.where(keep, new_T, T))
+    prev_pdf.copy_(torch.where(live, new_pdf, prev_pdf))
+    alive.copy_(live)
+    up = torch.zeros_like(ldir)
+    up[:, 2] = 1.0
+    return shade.Shaded(o_out, d_out, torch.where(keep, ldir, up), t_max, cand, pending)
+
+
+def shade_finish_plain(L, cand, shadowed, pending) -> None:
+    """Kernel B6's finishing step's twin: L += pending where cand &
+    ~shadowed, in place."""
+    L += torch.where((cand & ~shadowed)[:, None], pending, 0.0)
+
+
+def _b6_bounce(ds: DeviceScene, *args) -> shade.Shaded:
+    """Kernel B6's bounce with the scene's tables, in `shade_bounce_plain`'s
+    signature."""
+    return shade.shade_bounce(ds.shade_tab, ds.light_tab, *args)
+
+
+def trace_paths_fused(ds: DeviceScene, o, d, uniforms, options: RenderOptions,
+                      bounce_fn=_b6_bounce, finish_fn=shade.shade_finish):
+    """`trace_paths` where `fused_shading` holds: each bounce's shading is
+    one launch of kernel B6 (`ops/shade.shade_bounce`, span b<k>.shade)
+    between its closest-hit and any-hit queries, and the last bounce's NEE
+    one launch of its finishing kernel.  Russian roulette and the queries
+    are the torch path's.  `bounce_fn` and `finish_fn` are the two launches;
+    the tests pass the plain twins (`shade_bounce_plain`,
+    `shade_finish_plain`) to run the loop on CPU tensors.  Returns radiance
+    (N, 3), bit for bit the torch path's."""
+    check_supported(ds, options)
+    n, dev = o.shape[0], o.device
+    with metrics.span("raygen"):
+        state = shade.PathState(alive=torch.ones(n, dtype=torch.bool, device=dev),
+                                T=torch.ones((n, 3), dtype=torch.float32, device=dev),
+                                L=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+                                prev_pdf=torch.empty(n, dtype=torch.float32, device=dev))
+        og = torch.zeros(n, dtype=torch.int32, device=dev)
+    prev = None
+    for bounce in range(options.max_depth):
+        b = f"b{bounce}."
+        with metrics.span(b + "rr"):
+            alive, T = _roulette(options, bounce, state.alive, state.T,
+                                 bounce_uniforms(uniforms, bounce)[6])
+            state = state._replace(alive=alive, T=T)
+        with metrics.span(b + "closest"):
+            _, tri, _, _, grp = _closest_hit_raw(ds, o, d, state.alive, options, og)
+            if grp is not None:
+                og = torch.clamp(grp, min=0)
+        with metrics.span(b + "shade"):
+            # From bounce 1 on the next rays overwrite this bounce's, which
+            # are the fused loop's own buffers.
+            sh = bounce_fn(ds, o, d, tri, uniforms, bounce, state, prev,
+                           options.exact_reference_nee, (o, d) if bounce else None)
+        with metrics.span(b + "anyhit"):
+            shadowed = _occluded(ds, sh.o, sh.ldir, sh.t_max, sh.cand, options, og)
+        o, d, prev = sh.o, sh.d, (sh.cand, shadowed, sh.pending)
+    if prev is not None:
+        with metrics.span(b + "shade"):
+            finish_fn(state.L, *prev)
+    return state.L
+
+
 def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_stats: bool = False):
     """Trace one path per input ray; returns radiance (N, 3), or
     (radiance, stats) when with_stats.  stats counts the ray queries
@@ -427,8 +592,14 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
 
     uniforms: (N, 4 + 7*max_depth), layout in render/sampling.py; the first
     4 (raygen) entries are unused here.
+
+    Where `fused_shading` holds (a Lambert-only scene rendered on the card
+    without grad or stats) this is `trace_paths_fused`, kernel B6; every
+    other case runs the torch code below.
     """
     check_supported(ds, options)
+    if fused_shading(ds, o, d, uniforms, options, with_stats):
+        return trace_paths_fused(ds, o, d, uniforms, options)
     n, dev = o.shape[0], o.device
     num_lights = ds.light_tab.shape[0]
     light_tab = ds.light_tab
@@ -451,14 +622,7 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
         b = f"b{bounce}."
         with metrics.span(b + "rr"):
             u_lp, u_l1, u_l2, u_b1, u_b2, u_lobe, u_rr = bounce_uniforms(uniforms, bounce)
-
-            # Russian roulette from rr_start on: survive with p = max
-            # throughput component (clamped to [0.05, 1]) and compensate T
-            # by 1/p.  The survival probability is a detached decision.
-            if 0 <= options.rr_start <= bounce:
-                p_surv = torch.clamp(T.max(dim=1).values, 0.05, 1.0).detach()
-                alive = alive & (u_rr < p_surv)
-                T = T / p_surv[:, None]
+            alive, T = _roulette(options, bounce, alive, T, u_rr)
 
             if with_stats:
                 alive_per_bounce.append(alive.sum())
@@ -475,26 +639,11 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
                 L = L + torch.where((alive & ~got)[:, None], T * sample_env(env_map, d), 0.0)
             alive = got
 
-            rows = hf.rows
             surf = surface(ds, hf, options.families)
-            emission = rows[:, 30:33]
-            emissive = rows[:, 33] != -1
-            li_hit = torch.round(rows[:, 25]).long()
-
-            # Emissive hit, weighted against the NEE that could have
-            # sampled it.
-            hit_light = got & emissive
+            hit_light = got & (hf.rows[:, 33] != -1)
             if num_lights > 0:
-                area = light_tab[torch.clamp(li_hit, 0, num_lights - 1), 15]
-                cos_light = -cm.dot(d, hf.n_flip)
-                pdf_select = 1.0 / num_lights
-                pdf_light = (
-                    hf.t * hf.t
-                    / torch.clamp(area * torch.clamp(cos_light, min=1e-8), min=1e-20)
-                    * pdf_select
-                )
-                w_mis = torch.where(is_specular, 1.0, _power_heuristic(prev_pdf, pdf_light))
-                L = L + torch.where(hit_light[:, None], T * emission * w_mis[:, None], 0.0)
+                L = L + torch.where(hit_light[:, None],
+                                    _emitted(light_tab, d, hf, T, prev_pdf, is_specular), 0.0)
                 alive = alive & ~hit_light
 
         # NEE with MIS: one light sample per vertex, visibility by any-hit.
@@ -507,27 +656,15 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
                 with metrics.span(b + "anyhit"):
                     shadowed = _occluded(ds, hf.point, ldir, shadow_t, cand, options, og)
                 visible = cand & ~shadowed
-                pdf_light = (
-                    dist * dist
-                    / torch.clamp(lrows[:, 15] * torch.clamp(-cos_light, min=1e-8), min=1e-20)
-                    * pdf_select
-                )
-                # The BSDF's value toward the light (cos-premultiplied) and
-                # its pdf, by family.
-                cos_pos = torch.clamp(cos_mtl, min=0.0)
-                if options.exact_reference_nee:
-                    f_nee = surf.albedo  # the reference shader's estimator (no cos/pi)
-                else:
-                    f_nee = surf.albedo * (cos_pos / math.pi)[:, None]
-                bsdf_pdf = cos_pos / math.pi
+                pdf_light = _light_pdf(dist, lrows[:, 15], -cos_light, 1.0 / num_lights)
+                # The BSDF's value toward the light and its pdf, by family.
+                f_nee, bsdf_pdf = _lambert_toward(surf.albedo, cos_mtl,
+                                                  options.exact_reference_nee)
                 if surf.disney is not None:
                     f_dis, pdf_dis = bsdf.eval_pdf(surf.dis_p, hf.n_flip, -d, ldir)
                     f_nee = torch.where(surf.disney[:, None], f_dis, f_nee)
                     bsdf_pdf = torch.where(surf.disney, pdf_dis, bsdf_pdf)
-                w_mis = _power_heuristic(pdf_light, bsdf_pdf)
-                contrib = T * lrows[:, 12:15] * f_nee * (
-                    w_mis / torch.clamp(pdf_light, min=1e-20)
-                )[:, None]
+                contrib = _nee_contrib(T, lrows, f_nee, pdf_light, bsdf_pdf)
                 L = L + torch.where(visible[:, None], contrib, 0.0)
 
         with metrics.span(b + "bounce"):

@@ -136,7 +136,9 @@ class SampleGraph:
     per node that runs on the device in the order a replay runs them;
     None where the graph is not one chain of nodes.  phase_nodes: the
     graph's nodes by phase group, {group: n}, "none" for nodes outside
-    every span.  Each capture logs a "graph_capture" record of them."""
+    every span.  fused_shading: whether the graph shades with kernel B6
+    (render/integrator.fused_shading), read from its kernel nodes.  Each
+    capture logs a "graph_capture" record of them."""
 
     def __init__(self, ds: DeviceScene, camera: Camera, state: RenderState, width: int,
                  height: int, options: RenderOptions, spp: int, lens: bool):
@@ -195,6 +197,7 @@ class SampleGraph:
             t0 = time.perf_counter()
             self.graph.instantiate()
             self.instantiate_s = time.perf_counter() - t0
+        self.fused_shading = self.launches["shade"]["bounce"] > 0
         self.phases = self.phase_nodes = None
         if phases is not None:
             self.phases = metrics.run_length((phase, name) for (_, _, name), phase
@@ -206,7 +209,8 @@ class SampleGraph:
             "spp": spp, "width": width, "height": height, "accel": options.accel,
             "device": str(dev), "nodes": self.nodes, "launches": self.launches,
             "warmup_s": round(self.warmup_s, 6), "capture_s": round(self.capture_s, 6),
-            "instantiate_s": round(self.instantiate_s, 6), "phase_nodes": self.phase_nodes})
+            "instantiate_s": round(self.instantiate_s, 6), "phase_nodes": self.phase_nodes,
+            "fused_shading": self.fused_shading})
 
     def _load(self, camera: Camera, state: RenderState) -> None:
         self.accum.copy_(state.accum)

@@ -107,10 +107,12 @@ def log_record(kind: str, record: Dict[str, Any]) -> None:
 # --------------------------------------------------------------------------
 
 PREFIX = "caitlyn."
-# The groups of phases, by what the card does in them.
-GROUPS = ("raygen", "query", "hit", "nee", "bounce")
+# The groups of phases, by what the card does in them.  "shade" is a
+# bounce's kernel B6, which does the work of "hit", "nee" and "bounce" on
+# the fused path (render/integrator.trace_paths_fused).
+GROUPS = ("raygen", "query", "hit", "nee", "bounce", "shade")
 _BOUNCE_GROUPS = {"closest": "query", "anyhit": "query", "hit": "hit", "nee": "nee",
-                  "rr": "bounce", "bounce": "bounce"}
+                  "rr": "bounce", "bounce": "bounce", "shade": "shade"}
 _BOUNCE_PHASE = re.compile(r"^b\d+\.(\w+)$")
 _NULL = contextlib.nullcontext()
 # The PhaseCapture of the CUDA-graph capture running, if any.
@@ -134,7 +136,8 @@ def span(name: str):
 def phase_group(phase: Optional[str]) -> Optional[str]:
     """The group (GROUPS) of a phase: "raygen" for `launch.*`, `sample.*`
     and `raygen`; "query" for a bounce's `closest` and `anyhit`; "hit";
-    "nee" (its `anyhit` apart); "bounce" for `rr` and `bounce`.  Any other
+    "nee" (its `anyhit` apart); "bounce" for `rr` and `bounce`; "shade"
+    for a bounce's `shade` (kernel B6 on the fused path).  Any other
     phase is a group of its own (`capture`, `resolve`); None stays None."""
     if phase is None:
         return None
@@ -246,7 +249,7 @@ def kernel_family(name: str) -> str:
     if not _kernel_bases:
         # Each kernel module registers its kernels' names at import.
         from caitlynrenderer_tpu_torch.ops import (  # noqa: F401
-            mt_brute, threefry, traverse_bvh, traverse_cw8, traverse_mega)
+            mt_brute, shade, threefry, traverse_bvh, traverse_cw8, traverse_mega)
 
         _kernel_bases.extend(sorted({re.match(r"\w*?_kernel", fragment).group(0)
                                      for _, kernels in _build.COUNTERS.values()

@@ -6,9 +6,9 @@
 Phases (any failure exits non-zero; no phase's exception is caught):
   1. require CUDA; print the card's name and power limit (nvidia-smi)
   2. build csrc/mt_brute.cu (B1), csrc/traverse_mega.cu (B2),
-     csrc/traverse_cw8.cu (B3), csrc/traverse_bvh.cu (B4) and
-     csrc/threefry.cu (B5) from this checkout, one nvcc each, started
-     together; print ptxas's lines (registers, stack, spills)
+     csrc/traverse_cw8.cu (B3), csrc/traverse_bvh.cu (B4),
+     csrc/threefry.cu (B5) and csrc/shade.cu (B6) from this checkout, one
+     nvcc each, started together; print ptxas's lines (registers, stack, spills)
   3. kernel vs plain PyTorch twin on the card: cornell primary, bounce
      and shadow rays at 700x700, 65536 rays x the 2048-triangle soup (4 lanes per
      ray), an edge-case set (ragged N, inactive lanes, det = 0 padding rows,
@@ -24,7 +24,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      resolve, 700x700, 3 bounces, one launch of 32 spp (a graph's replay)
      after a warm-up launch of the same length (the capture, with its
      warm-up sample); B5 draws every sample (its launches are the kernels
-     line's), its twin never
+     line's), its twin never; B6 shades every bounce (3 launches and one
+     finishing launch a sample, the kernels line's) and its twins never
+     run
   6. closest-hit (and any-hit) kernel vs twin times at the path's shapes:
      490k primary, bounce and shadow rays x 36 triangles (the shadow rays
      are the main path's any-hit, and the JSON record's) and 65k rays x
@@ -59,7 +61,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      launch of the same length (as phase 5); upload seconds, ms/frame,
      rays/s, live lanes per bounce, launch counts, and the split of an
      eager sample (render_step) between sampling, camera and the
-     integrator, with B2's share from a torch.profiler trace
+     integrator, with B2's share from a torch.profiler trace.  Here and
+     in every main path (phases 15, 17, 21): B6's launches max_depth and
+     one finishing launch a sample where `fused_shading` holds (a
+     Lambert-only scene), none elsewhere
  11. B2 vs twin times at grid100k (65536 rays) and B2 vs B1 at grid1m
      (16384 rays); then B2 and B3, closest and any-hit, on four ray sets
      (grid100k and grid1m, primary and bounce, 65536 rays each) in one
@@ -225,6 +230,19 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      under wide, the two graphs' accumulations equal bit for bit; (d) both
      graphs' nodes a sample.  Its numbers are also printed as one
      {"phase22": ...} JSON line before the kernels' line.
+ 23. B6, the shading kernel (ops/shade.py; every bounce of a Lambert-only
+     scene on the card), at the main paths' shapes: the 700x700 cornell
+     (B1, 3 bounces) and grid1m at 1024x1024 (B2, 6 bounces), bounce 0 on
+     the camera rays, then bounce 1 on bounce 0's next rays with bounce
+     0's NEE folded in, and the finishing add of bounce 1's NEE: (a) B6
+     against its twins (`integrator.shade_bounce_plain`,
+     `shade_finish_plain`) on the same inputs, every output bit for bit
+     (pending where cand); (b) B6 and the twins timed (CUDA events around
+     each call, queued behind a device sleep, the state restored between
+     calls outside the events), beside B6's bound (`shade_bound`,
+     `finish_bound`: the bytes each lane's outcome needs over 3.35 TB/s).
+     Its numbers are also printed as one {"phase23": ...} JSON line before
+     the kernels' line.
 About 7 minutes on one H100, builds included.  B3's and B4's stats
 variants (`stats=True`) are checked and used for counts and bounds only;
 their launches are counted apart (`traverse_cw8.stats_launches`,
@@ -232,8 +250,8 @@ their launches are counted apart (`traverse_cw8.stats_launches`,
 the kernels' JSON record, each kernel with its time, its plain twin's, and
 its bound (the larger of its bytes over 3.35 TB/s and its FP32 operations
 over 67 TFLOP/s, the H100 SXM's published peaks, or for B5 its integer
-instructions over the SM's pipes, counted from this run's inputs as
-`*_bound` below say); the last line is {"ok": true, "device": {...}}.
+instructions over the SM's pipes, for B6 its bytes, counted from this
+run's inputs as `*_bound` below say); the last line is {"ok": true, "device": {...}}.
 Nothing of JAX or of the JAX package is imported.
 """
 
@@ -773,12 +791,15 @@ PATH_KERNEL = {"brute": ("mt_brute", "mt_brute_kernel", "B1"),
 
 # B5's module: every sample of every path draws its uniforms through it.
 SAMPLER = "threefry"
+# B6's module: a Lambert-only scene's bounces shade through it on the card.
+SHADER = "shade"
 
 
 def kernel_modules():
-    """{module name: module} of the five kernel modules."""
+    """{module name: module} of the six kernel modules."""
     from caitlynrenderer_tpu_torch.ops import (
         mt_brute,
+        shade,
         threefry,
         traverse_bvh,
         traverse_cw8,
@@ -786,14 +807,24 @@ def kernel_modules():
     )
 
     return {"mt_brute": mt_brute, "traverse_mega": traverse_mega, "traverse_cw8": traverse_cw8,
-            "traverse_bvh": traverse_bvh, SAMPLER: threefry}
+            "traverse_bvh": traverse_bvh, SAMPLER: threefry, SHADER: shade}
+
+
+def b6_launches(ds, o, d, uni, options, samples):
+    """B6's counter after `samples` samples of the main path: max_depth
+    launches and one finishing launch a sample where `fused_shading` holds,
+    none elsewhere; no twin call."""
+    from caitlynrenderer_tpu_torch.render.integrator import fused_shading
+
+    k = samples if fused_shading(ds, o, d, uni, options) else 0
+    return {"bounce": options.max_depth * k, "finish": k, "bounce_twin": 0, "finish_twin": 0}
 
 
 def only_path(launches, name):
     """True when, in {module: {key: n}}, no twin ran and no kernel but
-    module `name`'s and the sampler's (B5)."""
+    module `name`'s, the sampler's (B5) and the shading kernel's (B6)."""
     return all(v == 0 for k, r in launches.items() for q, v in r.items()
-               if q.endswith("_twin") or k not in (name, SAMPLER))
+               if q.endswith("_twin") or k not in (name, SAMPLER, SHADER))
 
 
 @contextlib.contextmanager
@@ -902,6 +933,9 @@ def main_path(label, scene, camera, options, dev, spp, split_stages=True, prebui
           f"{label}: unexpected launch counts {launches}")
     check(launches[SAMPLER]["pixel"] == samples,
           f"{label}: B5 did not draw every sample: {launches[SAMPLER]}")
+    check(launches[SHADER] == b6_launches(ds, o, d, uni, options, samples),
+          f"{label}: B6 did not shade every bounce of a Lambert scene, or ran on another: "
+          f"{launches[SHADER]}")
     check(only_path(launches, name), f"{label}: another kernel or a twin ran: {launches}")
     check(bool(torch.isfinite(state.accum).all()), f"{label}: non-finite radiance")
     check(tuple(img.shape) == (h, w, 3), f"{label}: image shape {tuple(img.shape)}")
@@ -2417,6 +2451,198 @@ def phase22(dev, smi, frame_runs):
     return rec, errs, rows
 
 
+# Shading-table columns a live lane of B6 reads: v0, e1, e2, the smooth
+# flag, the albedo, the emissive flag (0-8, 18, 26-28, 33); the vertex
+# normals (9-17) where the row is smooth; the light index and emission
+# (25, 30-32) where it is emissive.
+B6_ROW_COLS, B6_SMOOTH_COLS, B6_EMISSIVE_COLS = 14, 9, 4
+
+
+def shade_bound(ds, tri, alive, sh, prev, bounce):
+    """B6's bound, (ms, "bytes"), and the lane counts it rests on: the
+    bytes a bounce needs over PEAK_BYTES.  Each lane's state is read and
+    written as its outcome needs it: every lane reads its alive flag and
+    writes its any-hit flag; a live lane reads o, d, T, its triangle and,
+    where it goes on, five uniforms; L where it adds to it, prev_pdf for an
+    emissive hit after bounce 0, the previous NEE's flags and pending where
+    its candidate saw the light; it writes what it changes, and t_max and
+    the direction only where the any-hit query runs.  Plus the used columns
+    of each distinct shading row once, and the light table."""
+    count = lambda m: int(m.sum())  # noqa: E731
+    n = int(alive.numel())
+    live = alive & (tri >= 0)
+    rows = ds.shade_tab[torch.clamp(tri, min=0).long()]
+    emissive = live & (rows[:, 33] != -1)
+    cont = live & ~emissive
+    visible = (prev[0] & ~prev[1]) if prev is not None else torch.zeros_like(alive)
+    adds = emissive | visible
+    read = n + 4 * count(alive) + 36 * count(live) + 20 * count(cont) + 12 * count(adds)
+    if bounce:  # the previous NEE's flags and pending; prev_pdf for the MIS
+        read += n + count(prev[0]) + 12 * count(visible) + 4 * count(emissive)
+    write = n + 16 * count(sh.cand) + 12 * count(sh.cand)  # cand, t_max + ldir, pending
+    write += 40 * count(cont) + 12 * count(adds) + count(alive & ~cont)  # o d T pdf, L, alive
+    distinct = torch.unique(tri[live]).long()
+    drows = ds.shade_tab[distinct]
+    cols = (B6_ROW_COLS + B6_SMOOTH_COLS * (drows[:, 18] > 0.5).long()
+            + B6_EMISSIVE_COLS * (drows[:, 33] != -1).long())
+    table = 4 * int(cols.sum()) + 4 * ds.light_tab.numel()
+    total = read + write + table
+    return (total / PEAK_BYTES * 1e3, "bytes"), {
+        "bytes": total, "live": count(live), "emissive": count(emissive),
+        "cand": count(sh.cand), "visible_prev": count(visible),
+        "distinct_rows": int(distinct.numel())}
+
+
+def finish_bound(cand, shadowed):
+    """B6's finishing add's bound, (ms, "bytes"): every lane reads its
+    any-hit flag, a candidate its answer, and a lane that saw the light
+    reads its pending and L and writes L."""
+    visible = int((cand & ~shadowed).sum())
+    total = int(cand.numel()) + int(cand.sum()) + 36 * visible
+    return (total / PEAK_BYTES * 1e3, "bytes"), {"bytes": total, "visible": visible}
+
+
+def restored_ms(fn, restore, reps):
+    """Median and least ms of fn() by CUDA events over `reps` calls after
+    two warm-ups, restore() before each outside the events.  A device sleep
+    ahead of the start event keeps the card busy while the host queues the
+    call, so a kernel's time leaves out the host's; an eager twin that
+    issues for longer than the sleep is timed with its host issue."""
+    times = []
+    for _ in range(reps + 2):
+        restore()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)  # about a millisecond
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    times = sorted(times[2:])
+    return times[len(times) // 2], times[0]
+
+
+def _max_abs_err(pairs):
+    """The largest |a - b| over (a, b) float pairs; inf where shapes differ."""
+    err = 0.0
+    for a, b in pairs:
+        if a.shape != b.shape:
+            return float("inf")
+        if a.numel():
+            err = max(err, float((a.double() - b.double()).abs().max()))
+    return err
+
+
+def phase23(dev, smi, runs, reps=30):
+    """B6 against its twins, bit for bit, and its times beside its bound, on
+    bounces 0 and 1 and the finishing add of each of `runs`' scenes: (label,
+    ds, camera, options) at the main path's size.  Returns (record, the
+    largest |B6 - twin| of the bounces and of the finishing adds, the
+    times of the first run's bounce 0 and finishing add)."""
+    from caitlynrenderer_tpu_torch.core.camera import generate_rays
+    from caitlynrenderer_tpu_torch.ops import shade
+    from caitlynrenderer_tpu_torch.render import integrator, sampling
+
+    t23 = time.perf_counter()
+    rec = {"device": smi, "bounces": [], "finish": []}
+    err = {"bounce": 0.0, "finish": 0.0}
+    for label, ds, camera, options in runs:
+        w, h = options.width, options.height
+        n = w * h
+        uni = sampling.pixel_uniforms(sampling.sample_key(sampling.prng_key(0), 0),
+                                      torch.arange(n, dtype=torch.int32, device=dev),
+                                      options.max_depth)
+        o, d = generate_rays(camera, w, h, uni)
+        check(integrator.fused_shading(ds, o, d, uni, options),
+              f"{label}: the main path does not shade through B6")
+        state = shade.PathState(torch.ones(n, dtype=torch.bool, device=dev),
+                                torch.ones((n, 3), device=dev), torch.zeros((n, 3), device=dev),
+                                torch.ones(n, device=dev))
+        og = torch.zeros(n, dtype=torch.int32, device=dev)
+        exact = options.exact_reference_nee
+        prev = None
+        for bounce in (0, 1):
+            _, tri, _, _, grp = integrator._closest_hit_raw(ds, o, d, state.alive, options, og)
+            if grp is not None:
+                og = torch.clamp(grp, min=0)
+            saved = shade.PathState(*(x.clone() for x in state))
+            work = shade.PathState(*(x.clone() for x in state))
+            twin = shade.PathState(*(x.clone() for x in state))
+            rays = (torch.empty_like(o), torch.empty_like(d))
+            twin_rays = (torch.empty_like(o), torch.empty_like(d))
+
+            def restore(st=work):
+                for x, y in zip(st, saved):
+                    x.copy_(y)
+
+            def kernel(tri=tri, prev=prev, bounce=bounce, rays=rays):
+                return shade.shade_bounce(ds.shade_tab, ds.light_tab, o, d, tri, uni, bounce,
+                                          work, prev, exact, rays)
+
+            def plain(tri=tri, prev=prev, bounce=bounce, rays=twin_rays):
+                return integrator.shade_bounce_plain(ds, o, d, tri, uni, bounce, twin, prev,
+                                                     exact, rays)
+
+            k_ms, k_min = restored_ms(kernel, restore, reps)
+            t_ms, t_min = restored_ms(plain, lambda: restore(twin), max(reps // 3, 3))
+            restore()
+            restore(twin)
+            sh, want = kernel(), plain()
+            torch.cuda.synchronize()
+            equal = (torch.equal(work.alive, twin.alive) and torch.equal(sh.cand, want.cand)
+                     and all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in (
+                         (work.T, twin.T), (work.L, twin.L), (work.prev_pdf, twin.prev_pdf),
+                         (sh.o, want.o), (sh.d, want.d), (sh.ldir, want.ldir),
+                         (sh.t_max, want.t_max),
+                         (sh.pending[sh.cand], want.pending[want.cand]))))
+            e = _max_abs_err([(work.T, twin.T), (work.L, twin.L),
+                              (work.prev_pdf, twin.prev_pdf), (sh.o, want.o), (sh.d, want.d),
+                              (sh.ldir, want.ldir), (sh.t_max, want.t_max),
+                              (sh.pending[sh.cand], want.pending[want.cand])])
+            check(equal and e == 0.0, f"{label} bounce {bounce}: B6 differs from its twin "
+                  f"(max |diff| {e})")
+            err["bounce"] = max(err["bounce"], e)
+            bound, counts = shade_bound(ds, tri, saved.alive, sh, prev, bounce)
+            row = {"scene": label, "bounce": bounce, "lanes": n, **counts, "bound_ms": bound[0],
+                   "ms": k_ms, "min_ms": k_min, "share_pct": 100.0 * bound[0] / k_ms,
+                   "plain_ms": t_ms, "plain_min_ms": t_min, "max_abs_err": e}
+            rec["bounces"].append(row)
+            print(f"  {label} bounce {bounce}: {n} lanes, {counts['live']} live, "
+                  f"{counts['cand']} any-hit; B6 {k_ms:.4f} ms (least {k_min:.4f}), bound "
+                  f"{bound[0]:.4f} ms by {counts['bytes']} bytes ({row['share_pct']:.1f} %), "
+                  f"twin {t_ms:.3f} ms; outputs equal bit for bit", flush=True)
+            shadowed = integrator._occluded(ds, sh.o, sh.ldir, sh.t_max, sh.cand, options, og)
+            state, o, d, prev = work, sh.o, sh.d, (sh.cand, shadowed, sh.pending)
+
+        # The finishing add of bounce 1's NEE, on copies of the path's L.
+        L0 = state.L.clone()
+        L_k, L_t = L0.clone(), L0.clone()
+        f_ms, f_min = restored_ms(lambda: shade.shade_finish(L_k, *prev),
+                                  lambda: L_k.copy_(L0), reps)
+        p_ms, p_min = restored_ms(lambda: integrator.shade_finish_plain(L_t, *prev),
+                                  lambda: L_t.copy_(L0), max(reps // 3, 3))
+        L_k.copy_(L0)
+        L_t.copy_(L0)
+        shade.shade_finish(L_k, *prev)
+        integrator.shade_finish_plain(L_t, *prev)
+        torch.cuda.synchronize()
+        e = _max_abs_err([(L_k, L_t)])
+        check(torch.equal(L_k.view(torch.int32), L_t.view(torch.int32)) and e == 0.0,
+              f"{label}: B6's finishing add differs from its twin (max |diff| {e})")
+        err["finish"] = max(err["finish"], e)
+        bound, counts = finish_bound(prev[0], prev[1])
+        row = {"scene": label, "after_bounce": 1, "lanes": n, **counts, "bound_ms": bound[0],
+               "ms": f_ms, "min_ms": f_min, "share_pct": 100.0 * bound[0] / f_ms,
+               "plain_ms": p_ms, "plain_min_ms": p_min, "max_abs_err": e}
+        rec["finish"].append(row)
+        print(f"  {label} finishing add: {counts['visible']} lanes see the light; B6 "
+              f"{f_ms:.4f} ms, bound {bound[0]:.4f} ms ({row['share_pct']:.1f} %), twin "
+              f"{p_ms:.3f} ms; L equal bit for bit", flush=True)
+    rec["seconds"] = time.perf_counter() - t23
+    print(f"  phase 23: {rec['seconds']:.3f} s", flush=True)
+    return rec, err, {"bounce": rec["bounces"][0], "finish": rec["finish"][0]}
+
+
 def main():
     with SbvhBuild() as sbvh_grid1m:
         return run(sbvh_grid1m)
@@ -2442,6 +2668,7 @@ def run(sbvh_grid1m):
     from caitlynrenderer_tpu_torch.device import get_device
     from caitlynrenderer_tpu_torch.ops import _build
     from caitlynrenderer_tpu_torch.ops import mt_brute as mt
+    from caitlynrenderer_tpu_torch.ops import shade as b6
     from caitlynrenderer_tpu_torch.ops import threefry as tf
     from caitlynrenderer_tpu_torch.ops import traverse_bvh as tb
     from caitlynrenderer_tpu_torch.ops import traverse_cw8 as cw8
@@ -2457,7 +2684,7 @@ def run(sbvh_grid1m):
 
     # -------------------------------------------------------------- phase 2
     phase("2 build")
-    names = ("mt_brute", "traverse_mega", "traverse_cw8", "traverse_bvh", "threefry")
+    names = ("mt_brute", "traverse_mega", "traverse_cw8", "traverse_bvh", "threefry", "shade")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc each, all at once
         infos = list(pool.map(lambda name: _build.build(name, force=True), names))
     for info in infos:
@@ -2577,6 +2804,7 @@ def run(sbvh_grid1m):
 
     mt.reset_launches()
     tf.reset_launches()
+    b6.reset_launches()
     captures = progressive.graph_counts["captures"]
     ds_main = upload_scene(scene, options.accel, dev)
     state = progressive.init_state(DEMO, DEMO, 0, dev)
@@ -2591,6 +2819,7 @@ def run(sbvh_grid1m):
     torch.cuda.synchronize()
     launches = dict(mt.launches)
     b5_main = dict(tf.launches)  # B5 on the main path: the kernels line's count
+    b6_main = dict(b6.launches)  # and B6's
     samples = 2 * spp + progressive.graph_counts["captures"] - captures
     check(launches["closest"] == 3 * samples and launches["anyhit"] == 3 * samples,
           f"unexpected launch counts {launches}")
@@ -2598,6 +2827,9 @@ def run(sbvh_grid1m):
           "the twin ran on the card's path")
     check(b5_main == {"pixel": samples, "lane": 0, "pixel_twin": 0, "lane_twin": 0},
           f"B5 did not draw every sample of the main path: {b5_main}")
+    check(b6_main == b6_launches(ds_main, o0, d0, u0, options, samples)
+          and b6_main["bounce"] == 3 * samples,
+          f"B6 did not shade every bounce of the main path: {b6_main}")
     check(bool(torch.isfinite(state.accum).all()), "non-finite radiance")
     check(tuple(img.shape) == (DEMO, DEMO, 3), f"image shape {tuple(img.shape)}")
     check(float(img.mean()) > 0.05, "image is black")
@@ -2605,7 +2837,7 @@ def run(sbvh_grid1m):
     ms_per_frame = elapsed / spp * 1e3
     print(f"  rays_per_sample {rays_per_sample} rays_per_sec {rays_per_sec:.1f} "
           f"ms_per_frame {ms_per_frame:.3f} alive_per_bounce {alive_per_bounce} "
-          f"mean pixel {float(img.mean()):.4f} launches {launches}, B5 {b5_main}")
+          f"mean pixel {float(img.mean()):.4f} launches {launches}, B5 {b5_main}, B6 {b6_main}")
 
     # -------------------------------------------------------------- phase 6
     phase("6 kernel and twin times")
@@ -3224,6 +3456,16 @@ def run(sbvh_grid1m):
     del g4
     print(json.dumps({"phase22": rec22}))
 
+    # ------------------------------------------------------------- phase 23
+    phase("23 B6: the shading kernel")
+    rec23, err_b6, b6_rows = phase23(dev, smi, [
+        (f"cornell {DEMO}x{DEMO} brute (B1)", ds_main, camera, demo_opts),
+        ("grid1m 1024x1024 wide (B2)", mds, grid_cam,
+         RenderOptions(width=1024, height=1024, max_depth=6, accel="wide",
+                       families=scene_families(grid1m))),
+    ])
+    print(json.dumps({"phase23": rec23}))
+
     # Bounds at the shapes each row's time was taken at: B1 on the 700x700
     # cornell primary rays (closest) and their shadow rays (any-hit), B2, B3
     # and B4 (bvh2) on grid100k's 65536 primary rays.
@@ -3261,6 +3503,15 @@ def run(sbvh_grid1m):
          "library_ms": None}
         for q, n_launch in (("pixel", b5_main["pixel"]),
                             ("lane", grad["config5"]["b5_launches"]["lane"]))
+    ] + [
+        # B6 on the 700x700 cornell's bounce 0 and the finishing add of
+        # its bounce 1 (launches from phase 5).  No PyTorch call shades a
+        # bounce.
+        {"name": f"shade_{q}", "route": "cuda", "source": b6.SOURCE, "replaces": b6.REPLACES,
+         "launches": b6_main[q], "max_abs_err": err_b6[q], "ms": b6_rows[q]["ms"],
+         "plain_ms": b6_rows[q]["plain_ms"], "bound_ms": b6_rows[q]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None}
+        for q in ("bounce", "finish")
     ]}
     loaded = sorted(k for k in sys.modules
                     if any(k == f or k.startswith(f + ".") for f in FORBIDDEN))

@@ -2,9 +2,13 @@
 the card.  It covers every node that runs on the device, adds no node (a
 capture of the same samples without it has as many), puts the traversal
 kernels (B1, B2) in the query group and the sampler (B5) in raygen; and
-in a traced replay the five groups' kernels that are none of the
-hand-written ones add up to the render stage's, as the benchmark's trace
-reader counts them.
+in a traced replay the groups' kernels that are none of the traversal
+kernels or B5 add up to the render stage's, as the benchmark's trace
+reader counts them.  Both scenes are Lambert-only, so the card shades
+them through kernel B6 (group shade; no node in hit, nee or bounce); each
+test runs them again on the torch path (`fused_shading` patched false),
+whose hit, nee and bounce groups the Disney, mirror, glass, textured and
+sky-lit scenes still take.
 
 Marked `cuda`; every test skips (inside the fixture) when torch sees no
 CUDA device: `python -m pytest tests/ -m cuda -q` on an NVIDIA card."""
@@ -20,6 +24,7 @@ from caitlynrenderer_tpu_torch.core.camera import camera_tensors
 from caitlynrenderer_tpu_torch.io.builtin_scenes import displaced_grid
 from caitlynrenderer_tpu_torch.core.types import RenderOptions, make_camera
 from caitlynrenderer_tpu_torch.ops import _build
+from caitlynrenderer_tpu_torch.render import integrator as integ
 from caitlynrenderer_tpu_torch.render import progressive
 from caitlynrenderer_tpu_torch.scene import required_stack, scene_families, upload_scene
 from caitlynrenderer_tpu_torch.utils import config, metrics
@@ -31,6 +36,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOML = os.path.join(ROOT, "scenes", "cornell.toml")
 SPP = 4
 QUERY_KERNELS = {"mt_brute_kernel", "mega_kernel"}
+# The groups a capture's nodes fall in, by shading path: B6 does the hit,
+# nee and bounce groups' work, and rr issues nothing with roulette off.
+SHADING_GROUPS = {"fused": {"raygen", "query", "shade"},
+                  "torch": set(metrics.GROUPS) - {"shade"}}
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +49,9 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _setup(accel, dev):
+def _setup(accel, dev, shading, monkeypatch):
+    if shading == "torch":
+        monkeypatch.setattr(integ, "fused_shading", lambda *a, **k: False)
     if accel == "brute":
         cfg = config.load_config(TOML)
         scene, camera, options = render_setup(cfg, os.path.dirname(TOML), width=96, height=64,
@@ -54,17 +65,19 @@ def _setup(accel, dev):
     return ds, camera, options._replace(max_stack=required_stack(ds))
 
 
+@pytest.mark.parametrize("shading", ["fused", "torch"])
 @pytest.mark.parametrize("accel", ["brute", "wide"])
-def test_graph_phase_map_covers_every_node_and_adds_none(dev, accel):
+def test_graph_phase_map_covers_every_node_and_adds_none(dev, accel, shading, monkeypatch):
     progressive.clear_graphs()
-    ds, camera, options = _setup(accel, dev)
+    ds, camera, options = _setup(accel, dev, shading, monkeypatch)
     w, h = options.width, options.height
     state = progressive.init_state(w, h, 5, dev)
     progressive.render_steps(ds, camera, state, w, h, options, SPP)
     graph, = progressive._graphs.values()
     assert graph.phases is not None
     assert sum(graph.phase_nodes.values()) == graph.nodes and "none" not in graph.phase_nodes
-    assert set(graph.phase_nodes) == set(metrics.GROUPS)
+    assert set(graph.phase_nodes) == SHADING_GROUPS[shading]
+    assert graph.fused_shading is (shading == "fused")
     entries = metrics.expand(graph.phases)
     nodes, chain = _build.graph_nodes(graph.graph.raw_cuda_graph())
     assert chain and len(entries) == sum(name is not None for _, _, name in nodes)
@@ -75,6 +88,8 @@ def test_graph_phase_map_covers_every_node_and_adds_none(dev, accel):
             assert metrics.phase_group(phase) == "query", (phase, name)
         if family == "threefry_pixel_kernel":
             assert phase == "sample.uniforms"
+        if family.startswith("shade_"):
+            assert metrics.phase_group(phase) == "shade", (phase, name)
     assert sum(metrics.kernel_family(n) in QUERY_KERNELS for _, n in entries) == 2 * SPP * (
         options.max_depth)
 
@@ -92,10 +107,12 @@ def test_graph_phase_map_covers_every_node_and_adds_none(dev, accel):
     progressive.clear_graphs()
 
 
+@pytest.mark.parametrize("shading", ["fused", "torch"])
 @pytest.mark.parametrize("accel", ["brute", "wide"])
-def test_traced_replay_groups_add_up_to_the_integrator(dev, accel, tmp_path):
+def test_traced_replay_groups_add_up_to_the_integrator(dev, accel, shading, monkeypatch,
+                                                       tmp_path):
     progressive.clear_graphs()
-    ds, camera, options = _setup(accel, dev)
+    ds, camera, options = _setup(accel, dev, shading, monkeypatch)
     w, h = options.width, options.height
     state = progressive.init_state(w, h, 5, dev)
     state = progressive.render_steps(ds, camera, state, w, h, options, SPP)
@@ -118,7 +135,7 @@ def test_traced_replay_groups_add_up_to_the_integrator(dev, accel, tmp_path):
             group = metrics.phase_group(phase)
             other[group] = other.get(group, 0.0) + e["dur"] / 1e3
     # Under brute force the queries are B1 alone: no other kernel.
-    assert None not in other and set(other) >= set(metrics.GROUPS) - {"query"}
-    assert set(other) <= set(metrics.GROUPS)
+    assert None not in other and set(other) >= SHADING_GROUPS[shading] - {"query"}
+    assert set(other) <= SHADING_GROUPS[shading]
     assert sum(other.values()) == pytest.approx(integrator, rel=0.01)
     progressive.clear_graphs()

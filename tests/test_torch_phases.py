@@ -109,13 +109,13 @@ def test_eager_sample_ops_all_inside_named_phases(accel):
 
 def test_phase_groups():
     """Each phase's group: launch, sample and raygen phases are raygen; a
-    bounce's queries are query; rr and bounce are bounce; others stand
-    alone."""
+    bounce's queries are query; rr and bounce are bounce; B6's shade is
+    shade; others stand alone."""
     group = metrics.phase_group
     assert [group(p) for p in ("launch.replay", "sample.keys", "raygen")] == ["raygen"] * 3
     assert [group(f"b{b}.{p}") for b, p in ((0, "closest"), (5, "anyhit"))] == ["query"] * 2
-    assert [group(p) for p in ("b1.hit", "b2.nee", "b3.rr", "b12.bounce")] == [
-        "hit", "nee", "bounce", "bounce"]
+    assert [group(p) for p in ("b1.hit", "b2.nee", "b3.rr", "b12.bounce", "b2.shade")] == [
+        "hit", "nee", "bounce", "bounce", "shade"]
     assert group("resolve") == "resolve" and group(None) is None
 
 
@@ -156,8 +156,9 @@ def test_capture_phase_map_covers_every_node(monkeypatch, accel):
     nodes, phases = marks.node_phases(0)
     assert len(phases) == len(nodes) == len(fake.nodes) > 100
     assert None not in phases
+    # CPU tensors run the torch path's shading: no "shade" group (B6).
     groups = {metrics.phase_group(p) for p in phases}
-    assert groups == set(metrics.GROUPS)
+    assert groups == set(metrics.GROUPS) - {"shade"}
     assert {p for p in phases if p.startswith("b")} >= {
         f"b{b}.{p}" for b in range(options.max_depth) for p in BOUNCE_PHASES}
     pairs = [(p, name) for (_, _, name), p in zip(nodes, phases)]

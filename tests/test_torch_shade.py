@@ -1,0 +1,478 @@
+"""Kernel B6 (ops/shade.py, csrc/shade.cu): one bounce's Lambert shading on
+the no-grad render path, and the predicate that chooses it.
+
+CPU: `fused_shading` on stand-in scenes whose tensors say cuda:0 (true for
+the Lambert cornell, false for each case the torch path keeps: CPU
+tensors, the Disney, mirror and glass families, a texture, the
+environment, the ray-count stats, a scene tensor requiring grad under grad
+mode, no light); `trace_paths` on CPU tensors in those cases runs the
+torch path and launches nothing of B6; the fused loop with the kernel's
+plain twins passed in the kernels' place (`trace_paths_fused` on CPU
+tensors) equals the torch path bit for bit; the wrapper's checks; the C
+struct and constants against their Python counterparts; the "shade"
+phase group.
+
+Card (marked `cuda`, skipped without a card): B6 against its twin on one
+bounce of the 700x700 cornell, every output bit for bit; the fused path
+against the torch path (`fused_shading` patched false) bit for bit on the
+accumulation, eager and through a 16-sample CUDA graph, on the cornell
+and on displaced_grid(224) under wide and bvh2, for both values of
+exact_reference_nee and with Russian roulette from bounce 0; B6's
+launches and the graph's "shade" nodes; tiled and sharded renders through
+B6.  Tolerance: none, every comparison is bit for bit (the kernel rounds
+each torch op once, in its order, under --fmad=false).  This file imports
+neither jax nor the reference package.
+"""
+
+import ctypes
+import importlib.util
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from caitlynrenderer_tpu_torch.cli import render_setup
+from caitlynrenderer_tpu_torch.core import math as cm
+from caitlynrenderer_tpu_torch.core.camera import generate_rays
+from caitlynrenderer_tpu_torch.core.types import MaterialType, RenderOptions, make_camera
+from caitlynrenderer_tpu_torch.io.builtin_scenes import cornell_box, displaced_grid, procedural_sky
+from caitlynrenderer_tpu_torch.io.obj import load_obj
+from caitlynrenderer_tpu_torch.ops import shade
+from caitlynrenderer_tpu_torch.render import integrator, progressive, sampling
+from caitlynrenderer_tpu_torch.scene import required_stack, scene_families, upload_scene
+from caitlynrenderer_tpu_torch.utils import config, metrics
+
+# Small tensors: one intra-op thread per test process keeps parallel test
+# workers from oversubscribing the CPU.
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOML = os.path.join(ROOT, "scenes", "cornell.toml")
+with open(os.path.join(ROOT, shade.SOURCE)) as _f:
+    SOURCE = _f.read()
+W, H = 16, 12
+
+
+def _cornell(accel="brute", width=W, height=H, dev="cpu", **overrides):
+    cfg = config.load_config(TOML)
+    scene, camera, options = render_setup(cfg, os.path.dirname(TOML), width=width,
+                                          height=height, accel=accel)
+    return upload_scene(scene, accel, dev), camera, options._replace(**overrides)
+
+
+def _grid(accel, resolution, width, height, dev="cpu", **overrides):
+    scene = displaced_grid(resolution)[0]
+    camera = make_camera([5.0, 9.0, 11.0], [5.0, 2.0, 5.0], 50.0)
+    ds = upload_scene(scene, accel, dev)
+    options = RenderOptions(width=width, height=height, max_depth=4, accel=accel,
+                            families=scene_families(scene), **overrides)
+    return ds, camera, options._replace(max_stack=required_stack(ds))
+
+
+def _inputs(ds, camera, options, key=(7, 11)):
+    """A sample's camera rays and uniforms on the scene's device."""
+    w, h = options.width, options.height
+    ids = torch.arange(w * h, dtype=torch.int32, device=ds.device)
+    uni = sampling.pixel_uniforms(key, ids, options.max_depth)
+    o, d = generate_rays(camera, w, h, uni)
+    return o, d, uni
+
+
+def _no_launches():
+    return all(v == 0 for v in shade.launches.values())
+
+
+# --------------------------------------------------------------------------
+# CPU: the predicate, the torch path's cases, the twins, the wrapper
+# --------------------------------------------------------------------------
+
+
+class _SaysCuda(torch.Tensor):
+    """A CPU tensor whose `device` says cuda:0: the predicate and the
+    wrapper's checks see it as a card's tensor."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _cuda(x):
+    return x.as_subclass(_SaysCuda)
+
+
+def _stand_in(case):
+    """(ds, o, d, uniforms, options, with_stats) of a predicate case on the
+    Lambert cornell whose tensors say cuda:0."""
+    ds, camera, options = _cornell()
+    o, d, uni = _inputs(ds, camera, options)
+    ds = ds._replace(shade_tab=_cuda(ds.shade_tab), light_tab=_cuda(ds.light_tab))
+    o, d, uni = _cuda(o), _cuda(d), _cuda(uni)
+    with_stats = case == "with_stats"
+    if case == "cpu":
+        o = o.as_subclass(torch.Tensor)
+    elif case in ("disney", "mirror", "glass"):
+        options = options._replace(families=("lambert", case))
+    elif case == "textured":
+        sc = ds.scene._replace(textures=torch.zeros((1, 2, 2, 3)), texcoords=torch.zeros((3, 2)))
+        ds = ds._replace(scene=sc)
+    elif case == "use_env_map":
+        options = options._replace(use_env_map=True)
+    elif case in ("grad", "grad_without_grad_mode"):
+        ds = ds._replace(shade_tab=_cuda(ds.shade_tab.as_subclass(torch.Tensor).clone()
+                                         .requires_grad_()))
+    elif case == "no_light":
+        ds = ds._replace(light_tab=_cuda(ds.light_tab.as_subclass(torch.Tensor)[:0]))
+    return ds, o, d, uni, options, with_stats
+
+
+PREDICATE_CASES = {"lambert": True, "grad_without_grad_mode": True, "cpu": False,
+                   "disney": False, "mirror": False, "glass": False, "textured": False,
+                   "use_env_map": False, "with_stats": False, "grad": False, "no_light": False}
+
+
+@pytest.mark.parametrize("case", list(PREDICATE_CASES))
+def test_fused_shading_predicate(case):
+    """The fused path is taken for the Lambert cornell on the card, also
+    when a scene tensor requires grad outside grad mode, and not in each
+    case the torch path keeps."""
+    ds, o, d, uni, options, with_stats = _stand_in(case)
+    if case == "grad_without_grad_mode":
+        with torch.no_grad():
+            assert integrator.fused_shading(ds, o, d, uni, options, with_stats)
+        assert not integrator.fused_shading(ds, o, d, uni, options, with_stats)
+        return
+    assert integrator.fused_shading(ds, o, d, uni, options, with_stats) is PREDICATE_CASES[case]
+
+
+def _torch_path_case(case, textured_dir):
+    """(ds, camera, options) of a CPU render the torch path keeps."""
+    ds, camera, options = _cornell()
+    if case in ("disney", "mirror", "glass"):
+        floor = {"disney": MaterialType.DISNEY, "mirror": MaterialType.MIRROR,
+                 "glass": MaterialType.GLASS}[case]
+        scene = cornell_box(floor_type=int(floor))[0]
+        ds = upload_scene(scene, "brute", "cpu")
+        options = options._replace(families=scene_families(scene))
+        assert case in options.families
+    elif case == "textured":
+        spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                      os.path.join(ROOT, "chip_smoke.py"))
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        scene, translation = load_obj(smoke.write_textured_scene(str(textured_dir)), tex_size=16)
+        pos = np.array([0.0, 1.0, 4.0], np.float32) + translation
+        camera = make_camera(pos, pos + np.array([0, 0, -1], np.float32), 40.0)
+        ds = upload_scene(scene, "brute", "cpu")
+        options = options._replace(families=scene_families(scene))
+        assert ds.scene.textures is not None and ds.scene.texcoords.shape[0] > 0
+    elif case == "use_env_map":
+        scene = cornell_box()[0]._replace(env_map=procedural_sky(16, 32))
+        ds = upload_scene(scene, "brute", "cpu")
+        options = options._replace(use_env_map=True)
+    return ds, camera, options
+
+
+@pytest.mark.parametrize("case", ["lambert", "disney", "mirror", "glass", "textured",
+                                  "use_env_map", "with_stats", "grad"])
+def test_trace_paths_on_cpu_runs_the_torch_path(case, tmp_path, monkeypatch):
+    """On CPU tensors `trace_paths` runs the torch path in every case:
+    B6 launches nothing, its twins are not called, and the fused loop is
+    not entered."""
+    monkeypatch.setattr(integrator, "trace_paths_fused",
+                        lambda *a, **k: pytest.fail("the fused loop ran on CPU tensors"))
+    ds, camera, options = _torch_path_case(case, tmp_path)
+    o, d, uni = _inputs(ds, camera, options)
+    shade.reset_launches()
+    if case == "grad":
+        table = ds.shade_tab.clone().requires_grad_()
+        L = integrator.trace_paths(ds._replace(shade_tab=table), o, d, uni, options)
+        L.sum().backward()
+        assert table.grad is not None and bool(torch.isfinite(table.grad).all())
+    else:
+        out = integrator.trace_paths(ds, o, d, uni, options, with_stats=case == "with_stats")
+        L = out[0] if case == "with_stats" else out
+    L = L.detach()
+    assert bool(torch.isfinite(L).all()) and float(L.sum()) > 0
+    assert _no_launches()
+
+
+FUSED_CASES = {
+    "cornell_brute": ("cornell", "brute", {}),
+    "cornell_wide": ("cornell", "wide", {}),
+    "cornell_cwbvh": ("cornell", "cwbvh", {}),
+    "cornell_bvh2": ("cornell", "bvh2", {}),
+    "cornell_exact_nee": ("cornell", "brute", {"exact_reference_nee": True}),
+    "cornell_rr_from_0": ("cornell", "brute", {"rr_start": 0}),
+    "grid_wide": ("grid", "wide", {}),
+    "grid_bvh2_rr_from_1": ("grid", "bvh2", {"rr_start": 1}),
+}
+
+
+def _fused_case(name, dev="cpu", width=W, height=H, resolution=24):
+    kind, accel, overrides = FUSED_CASES[name]
+    if kind == "cornell":
+        ds, camera, options = _cornell(accel, width, height, dev, **overrides)
+        if accel == "bvh2":
+            options = options._replace(max_stack=required_stack(ds))
+        return ds, camera, options
+    return _grid(accel, resolution, width, height, dev, **overrides)
+
+
+@pytest.mark.parametrize("name", list(FUSED_CASES))
+def test_fused_loop_with_twins_equals_torch_path(name):
+    """The fused loop (`trace_paths_fused`) with the kernel's plain twins
+    in B6's place returns the torch path's radiance bit for bit: one twin
+    call a bounce and one finishing call, the caller's rays untouched."""
+    ds, camera, options = _fused_case(name)
+    o, d, uni = _inputs(ds, camera, options)
+    want = integrator.trace_paths(ds, o, d, uni, options)
+    o0, d0 = o.clone(), d.clone()
+    calls = {"bounce": 0, "finish": 0}
+
+    def bounce_fn(*args):
+        calls["bounce"] += 1
+        return integrator.shade_bounce_plain(*args)
+
+    def finish_fn(*args):
+        calls["finish"] += 1
+        integrator.shade_finish_plain(*args)
+
+    shade.reset_launches()
+    got = integrator.trace_paths_fused(ds, o, d, uni, options, bounce_fn, finish_fn)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert calls == {"bounce": options.max_depth, "finish": 1} and _no_launches()
+    assert torch.equal(o, o0) and torch.equal(d, d0)
+
+
+def test_phase_group_of_shade():
+    """A bounce's `shade` span (B6) is the "shade" group, beside the torch
+    path's hit, nee and bounce."""
+    assert "shade" in metrics.GROUPS
+    assert metrics.phase_group("b2.shade") == "shade"
+    assert metrics.phase_group("b0.shade") == "shade"
+    assert metrics.kernel_family("_ZN12_GLOBAL__N_119shade_bounce_kernelENS_4ArgsE") == (
+        "shade_bounce_kernel")
+
+
+def test_args_struct_is_the_sources():
+    """ctypes' _Args lists the C struct's fields in its order, with its
+    types."""
+    body = re.search(r"struct ShadeArgs \{(.*?)\n\};", SOURCE, re.S).group(1)
+    fields = re.findall(r"^\s*([\w ]+?\*?)\s*(\w+);", body, re.M)
+    ctype = {"long long": ctypes.c_longlong, "int": ctypes.c_int, "float": ctypes.c_float}
+    want = [(name, ctypes.c_void_p if t.endswith("*") else ctype[t]) for t, name in fields]
+    assert shade._Args._fields_ == want and len(want) == 26
+
+
+def _constant(name):
+    return float(re.search(rf"constexpr float {name} = static_cast<float>\(([^)]+)\);",
+                           SOURCE).group(1))
+
+
+def test_kernel_constants_are_the_twins():
+    """The kernel's constants are the twins' Python scalars (rounded to
+    float as torch rounds them) and the tables' widths."""
+    assert _constant("kEps") == integrator.EPS == cm.EPS
+    assert _constant("kRayOffset") == integrator.RAY_OFFSET
+    assert int(re.search(r"constexpr int kRow = (\d+);", SOURCE).group(1)) == shade.SHADE_COLS
+    assert int(re.search(r"constexpr int kLightRow = (\d+);", SOURCE).group(1)) == (
+        shade.LIGHT_COLS)
+    ds, _, _ = _cornell()
+    assert ds.shade_tab.shape[1] == shade.SHADE_COLS and ds.light_tab.shape[1] == shade.LIGHT_COLS
+
+
+def _wrapper_args(n=8, n_u=25):
+    f32 = torch.float32
+    tabs = (_cuda(torch.zeros((4, 50))), _cuda(torch.zeros((2, 17))))
+    rays = (_cuda(torch.zeros((n, 3))), _cuda(torch.zeros((n, 3))),
+            _cuda(torch.zeros(n, dtype=torch.int32)), _cuda(torch.zeros((n, n_u))))
+    state = shade.PathState(_cuda(torch.ones(n, dtype=torch.bool)), _cuda(torch.ones((n, 3))),
+                            _cuda(torch.zeros((n, 3))), _cuda(torch.zeros(n, dtype=f32)))
+    return tabs, rays, state
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("cpu", ValueError, "CUDA tensors only"),
+    ("tri dtype", TypeError, "tri has dtype"),
+    ("T shape", ValueError, "T has shape"),
+    ("uniforms too short", ValueError, "hold no bounce 3"),
+    ("uniforms not contiguous", ValueError, "uniforms must be contiguous"),
+    ("no light", ValueError, "at least one light"),
+    ("prev pending dtype", TypeError, "pending has dtype"),
+])
+def test_shade_bounce_refuses_bad_inputs(case, error, match):
+    """The wrapper raises before any launch on what the kernel does not
+    take."""
+    (shade_tab, light_tab), (o, d, tri, uni), state = _wrapper_args()
+    bounce, prev = 1, None
+    if case == "cpu":
+        o = o.as_subclass(torch.Tensor)
+    elif case == "tri dtype":
+        tri = _cuda(torch.zeros(8, dtype=torch.int64))
+    elif case == "T shape":
+        state = state._replace(T=_cuda(torch.ones((8, 4))))
+    elif case == "uniforms too short":
+        bounce = 3
+    elif case == "uniforms not contiguous":
+        uni = _cuda(torch.zeros((25, 8))).t()
+    elif case == "no light":
+        light_tab = light_tab[:0]
+    elif case == "prev pending dtype":
+        prev = (_cuda(torch.ones(8, dtype=torch.bool)), _cuda(torch.zeros(8, dtype=torch.bool)),
+                _cuda(torch.zeros((8, 3), dtype=torch.float64)))
+    shade.reset_launches()
+    with pytest.raises(error, match=match):
+        shade.shade_bounce(shade_tab, light_tab, o, d, tri, uni, bounce, state, prev)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        shade.shade_finish(torch.zeros((8, 3)), torch.ones(8, dtype=torch.bool),
+                           torch.zeros(8, dtype=torch.bool), torch.zeros((8, 3)))
+    assert _no_launches()
+
+
+# --------------------------------------------------------------------------
+# Card
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel B6 has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _bits_equal(a, b):
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _torch_path(monkeypatch):
+    monkeypatch.setattr(integrator, "fused_shading", lambda *a, **k: False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounce,exact", [(0, False), (1, False), (1, True)])
+def test_b6_bounce_equals_twin_on_the_card(dev, bounce, exact):
+    """One launch of B6 against its plain twin on the card (torch's CUDA
+    ops) on the 700x700 cornell's primary rays, with a random state and a
+    random previous NEE: every output bit for bit."""
+    ds, camera, options = _cornell("brute", 700, 700, dev)
+    o, d, uni = _inputs(ds, camera, options)
+    n = o.shape[0]
+    _, tri, _, _, _ = integrator._closest_hit_raw(
+        ds, o, d, torch.ones(n, dtype=torch.bool, device=dev), options,
+        torch.zeros(n, dtype=torch.int32, device=dev))
+    g = torch.Generator().manual_seed(5)
+    state = shade.PathState(torch.rand(n, generator=g) < 0.9, torch.rand((n, 3), generator=g),
+                            torch.rand((n, 3), generator=g), torch.rand(n, generator=g))
+    prev = (torch.rand(n, generator=g) < 0.5, torch.rand(n, generator=g) < 0.3,
+            torch.rand((n, 3), generator=g)) if bounce else None
+    state = shade.PathState(*(x.to(dev) for x in state))
+    prev = tuple(x.to(dev) for x in prev) if prev else None
+    twin_state = shade.PathState(*(x.clone() for x in state))
+    shade.reset_launches()
+    got = shade.shade_bounce(ds.shade_tab, ds.light_tab, o, d, tri, uni, bounce, state, prev,
+                             exact)
+    want = integrator.shade_bounce_plain(ds, o, d, tri, uni, bounce, twin_state, prev, exact)
+    torch.cuda.synchronize()
+    assert shade.launches["bounce"] == 1
+    assert torch.equal(state.alive, twin_state.alive) and torch.equal(got.cand, want.cand)
+    for name in ("T", "L", "prev_pdf"):
+        assert _bits_equal(getattr(state, name), getattr(twin_state, name)), name
+    for name in ("o", "d", "ldir", "t_max"):
+        assert _bits_equal(getattr(got, name), getattr(want, name)), name
+    assert _bits_equal(got.pending[got.cand], want.pending[want.cand])
+    assert 0 < int(got.cand.sum()) < int(state.alive.sum()) < n
+
+
+CARD_CASES = ["cornell_brute", "cornell_exact_nee", "cornell_rr_from_0", "grid_wide",
+              "grid_bvh2_rr_from_1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CARD_CASES)
+def test_fused_render_equals_torch_path_on_the_card(dev, name, monkeypatch):
+    """Four eager samples through B6 ≡ four through the torch path, bit for
+    bit on the accumulation (700x700 cornell; displaced_grid(224) at
+    256x256 under wide and bvh2): max_depth B6 launches and one finishing
+    launch a sample, none on the torch path."""
+    w = 700 if name.startswith("cornell") else 256
+    ds, camera, options = _fused_case(name, dev, w, w, resolution=224)
+    depth, spp = options.max_depth, 4
+
+    def render():
+        st = progressive.init_state(w, w, 3, dev)
+        for _ in range(spp):
+            st = progressive.render_step(ds, camera, st, w, w, options)
+        return st.accum
+
+    shade.reset_launches()
+    got = render()
+    assert shade.launches == {"bounce": depth * spp, "finish": spp, "bounce_twin": 0,
+                              "finish_twin": 0}
+    with monkeypatch.context() as m:
+        _torch_path(m)
+        shade.reset_launches()
+        want = render()
+        assert _no_launches()
+    assert _bits_equal(got, want) and float(want.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_fused_graph_equals_torch_path_on_the_card(dev, monkeypatch):
+    """A 16-sample CUDA graph of the 700x700 cornell through B6 ≡ 16 eager
+    torch-path samples bit for bit.  The graph holds max_depth B6 nodes
+    and one finishing node a sample, all in the "shade" group, and no node
+    in hit, nee or bounce; its record says fused_shading."""
+    ds, camera, options = _cornell("brute", 700, 700, dev)
+    w = h = 700
+    depth, spp = options.max_depth, 16
+    progressive.clear_graphs()
+    with monkeypatch.context() as m:
+        _torch_path(m)
+        eager = progressive.init_state(w, h, 9, dev)
+        for _ in range(spp):
+            eager = progressive.render_step(ds, camera, eager, w, h, options)
+    shade.reset_launches()
+    graph = progressive.render_steps(ds, camera, progressive.init_state(w, h, 9, dev), w, h,
+                                     options, spp)
+    torch.cuda.synchronize()
+    assert _bits_equal(graph.accum, eager.accum)
+    (g,) = progressive._graphs.values()
+    assert g.fused_shading and metrics.last_records["graph_capture"]["fused_shading"] is True
+    assert g.launches["shade"] == {"bounce": depth * spp, "finish": spp, "bounce_twin": 0,
+                                   "finish_twin": 0}
+    assert g.phase_nodes["shade"] == (depth + 1) * spp
+    assert not {"hit", "nee", "bounce"} & set(g.phase_nodes)
+    # The replay adds the graph's launches; the capture's warm-up sample its own.
+    assert shade.launches["bounce"] == depth * (spp + 1)
+    progressive.clear_graphs()
+
+
+@pytest.mark.cuda
+def test_tiled_and_sharded_renders_take_b6_on_the_card(dev, monkeypatch):
+    """A 2x3-tiled render and the 1x1 sharded step run the same no-grad
+    trace_paths: through B6, each ≡ the torch path's untiled render bit for
+    bit."""
+    from caitlynrenderer_tpu_torch.parallel.mesh import SINGLE
+    from caitlynrenderer_tpu_torch.parallel.render import init_sharded_state, sharded_render_step
+    from caitlynrenderer_tpu_torch.render.tiled import accumulate_tiled
+
+    ds, camera, options = _cornell("brute", 120, 90, dev)
+    w, h, spp = options.width, options.height, 2
+    with monkeypatch.context() as m:
+        _torch_path(m)
+        want = progressive.init_state(w, h, 0, dev)
+        for _ in range(spp):
+            want = progressive.render_step(ds, camera, want, w, h, options)
+    shade.reset_launches()
+    tiled = accumulate_tiled(ds, camera, options._replace(num_tiles_x=2, num_tiles_y=3), spp, 0)
+    assert shade.launches["bounce"] == options.max_depth * spp * 6
+    assert _bits_equal(tiled, want.accum)
+    shade.reset_launches()
+    state = init_sharded_state(SINGLE, w, h, 0, dev)
+    for _ in range(spp):
+        state = sharded_render_step(ds, camera, state, SINGLE, w, h, options)
+    assert shade.launches["bounce"] == options.max_depth * spp
+    assert _bits_equal(state.accum, want.accum)
