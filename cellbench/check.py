@@ -6,8 +6,9 @@ drawn from the seed:
 - the accumulation the run left (the samples of its current image);
 - the last display image that reached host memory (a completed image in
   an offline mix, the last frame shown in an interactive one).
-The reference traces every one of those pixels' samples under the
-image's key and adds them in the program's order.
+The reference (the configuration's own, `manifest.reference`) traces
+every one of those pixels' samples under the image's key and adds them
+in the program's order.
 
 Numbers, each against its limit in the configuration's `check.limits`:
 - `accum_rel_l1`: sum |program - reference| / sum |reference| over the
@@ -22,8 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cellbench import seeds
-from cellbench.reference import sampler, tracer
+from cellbench import manifest, seeds
+from cellbench.reference import sampler
 
 NUMBERS = ("accum_rel_l1", "accum_worst_pixel", "image_rel_l1")
 
@@ -44,12 +45,15 @@ def worst_pixel(p, r) -> float:
 
 
 class Reference:
-    """The reference of one configuration at one seed on `device`."""
+    """The reference of one configuration at one seed on `device`: the
+    module the configuration names (`tracer` where it names none), its
+    arithmetic in `dtype`."""
 
     def __init__(self, cfg: dict, sc: dict, cam: dict, seed: int, device,
                  dtype=torch.float32):
         self.cfg, self.cam, self.seed = cfg, cam, seed
-        self.scene = tracer.load_scene(sc, device, dtype)
+        self.tracer = manifest.reference(cfg)
+        self.scene = self.tracer.load_scene(sc, device, dtype)
         self.pixels = seeds.check_pixels(seed, cfg["width"] * cfg["height"],
                                          cfg["check"]["pixels"])
         self.ids = torch.as_tensor(self.pixels, dtype=torch.int64, device=device)
@@ -60,16 +64,17 @@ class Reference:
         of image number `image`."""
         if (image, samples) not in self._acc:
             key = sampler.base_key(seeds.image_seed(self.seed, image))
-            acc = tracer.accumulate(self.scene, self.cam, self.cfg["width"], self.cfg["height"],
-                                    self.cfg["max_depth"], key, samples, self.ids)
-            self._acc[(image, samples)] = acc
+            cfg = self.cfg
+            self._acc[(image, samples)] = self.tracer.accumulate(
+                self.scene, self.cam, cfg["width"], cfg["height"], cfg["max_depth"], key, samples,
+                self.ids)
         return self._acc[(image, samples)].cpu().numpy()
 
     def display(self, image: int, samples: int) -> np.ndarray:
         """(P, 3): the compared pixels' display values, resolved on the
         reference's device."""
         self.accum(image, samples)
-        return tracer.display(self._acc[(image, samples)], samples).cpu().numpy()
+        return self.tracer.display(self._acc[(image, samples)], samples).cpu().numpy()
 
     def display_rows(self, img: np.ndarray) -> np.ndarray:
         """The compared pixels' rows of a display image (row 0 at the top)."""

@@ -1,8 +1,8 @@
-"""The control of the output check: the plain reference put in the
-program's place, its arithmetic in bfloat16 (the precision below the
-configuration's float32; each sample's radiance is added in float32),
-held against the float32 reference by the numbers and limits of the
-check.  A sound check reads it as not correct.
+"""The control of the output check: the configuration's plain reference
+put in the program's place, its arithmetic in bfloat16 (the precision
+below the configuration's float32; each sample's radiance is added in
+float32), held against the float32 reference by the numbers and limits
+of the check.  A sound check reads it as not correct.
 
     python3 -m cellbench.control --workload <cell> --seeds 1,2,3 \
         --samples <accumulated> [--display-samples <of a display image>]

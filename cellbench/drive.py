@@ -24,8 +24,8 @@ import numpy as np
 import torch
 
 from cellbench import check, manifest, seeds, trace
-from cellbench.program import CaptureLog, Renderer
-from cellbench.reference import sampler, tracer
+from cellbench.program import CaptureLog, Renderer, phase_groups
+from cellbench.reference import sampler
 from cellbench.scenes import builtin
 
 TRACE_SECONDS = 0.3  # length of the traced segment, at least one launch
@@ -33,11 +33,12 @@ TRACE_SECONDS = 0.3  # length of the traced segment, at least one launch
 
 class Context:
     """What a per-layer reader reads: `spans` (host-clock seconds and lists
-    of them, by name), `records` (the program's graph_capture records),
-    `trace` (trace.summarize's dict of the traced segment, or None),
-    `samples_traced`, the cell's `cfg` and `mix`, and `sample_queries()`:
-    the closest-hit and any-hit rays of one sample of every pixel, traced
-    by the reference."""
+    of them, by name), `records` (the program's graph_capture records) and
+    `record(kind)`, `trace` (trace.summarize's dict of the traced segment,
+    or None) through `trace_ms` and `phase_ms`, `samples_traced`, the
+    cell's `cfg` and `mix`, and `sample_queries()`: the closest-hit and
+    any-hit rays of one sample of every pixel, traced by the
+    configuration's reference."""
 
     def __init__(self, run: "Run"):
         self.cfg, self.mix = run.cfg, run.mix
@@ -48,12 +49,31 @@ class Context:
     def sample_queries(self):
         return self._run.sample_queries()
 
+    def record(self, kind: str) -> dict | None:
+        """The program's last record of kind `kind` (`upload`,
+        `graph_capture`, ...) logged during set-up; None where none was."""
+        recs = self._run.captures.by_kind.get(kind)
+        return recs[-1] if recs else None
+
     def trace_ms(self, stage: str, *classes) -> float | None:
         """Device milliseconds a sample of the kernel classes `classes` in
         stage `stage` of the traced segment; None where none ran."""
         if not self.trace or not self.samples_traced:
             return None
-        row = self.trace["stage_ms"].get(stage, {})
+        return self._per_sample(self.trace["stage_ms"].get(stage, {}), classes)
+
+    def phase_ms(self, group: str | None, *classes) -> float | None:
+        """Device milliseconds a sample of the kernel classes `classes`
+        (every class where none are given) in the program's phase group
+        `group` (utils/metrics.phase_group: raygen, query, hit, nee,
+        bounce, shade, ...; None for what no phase places) over the
+        traced segment; None where no such operation fell in it."""
+        if not self.trace or not self.samples_traced or "phase_ms" not in self.trace:
+            return None
+        row = self.trace["phase_ms"].get(group, {})
+        return self._per_sample(row, classes or tuple(row))
+
+    def _per_sample(self, row: dict, classes) -> float | None:
         if not any(c in row for c in classes):
             return None
         return sum(row.get(c, 0.0) for c in classes) / self.samples_traced
@@ -158,7 +178,7 @@ class Run:
 
     def traced_segment(self):
         samples = 0
-        with trace.Segment() as seg:
+        with trace.Segment(attribute=phase_groups) as seg:
             t0 = time.perf_counter()
             while not samples or time.perf_counter() - t0 < TRACE_SECONDS:
                 samples += self.step()
@@ -178,7 +198,8 @@ class Run:
 
     def sample_queries(self):
         """The rays of the queries of sample 0 of image 0, every pixel,
-        as the reference traces them."""
+        as the configuration's reference traces them."""
+        tracer = manifest.reference(self.cfg)
         ref = tracer.load_scene(self.sc, self.device)
         w, h, depth = self.cfg["width"], self.cfg["height"], self.cfg["max_depth"]
         ids = torch.arange(w * h, dtype=torch.int64, device=self.device)
@@ -250,5 +271,14 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, traced: bool, de
             f"compared {len(pixels)} pixels: "
             + ", ".join(f"{k} image {a[0]} of {a[1]} samples" for k, a in answers.items())
             + f"; the reference took {t_ref:.3f} s"]
+    if traced and run.trace and "phase_ms" in run.trace:
+        n = run.samples_traced
+        stages = {st: sum(row.values()) / n for st, row in run.trace["stage_ms"].items()}
+        groups = {g: sum(row.values()) / n for g, row in run.trace["phase_ms"].items()}
+        info.append(f"device ms a sample: render stage {stages.get('render', 0.0)!r} of all "
+                    f"stages {sum(stages.values())!r}; by phase group "
+                    + ", ".join(f"{g} {v!r}" for g, v in sorted(
+                        (g, v) for g, v in groups.items() if g is not None))
+                    + f"; in no phase group {groups.get(None, 0.0)!r}")
     info += [f"check {k} {v!r} limit {lim!r}" for k, v, lim in rows]
     return result, info

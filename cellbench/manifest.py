@@ -5,6 +5,10 @@ by the names the manifest gives them.
     cellbench/configs/<config>.json   a configuration (the manifest's "file")
     cellbench/traffic/<mix>.json      a traffic mix's parameters
     cellbench/metrics/<metric>.py     a per-layer metric's reader: read(ctx)
+    cellbench/reference/<name>.py     a plain reference, named by a configuration's
+                                      "reference" (tracer where it names none)
+    cellbench/scenes/<generator>.py   a scene generator outside builtin.GENERATORS:
+                                      make(**args)
 """
 
 from __future__ import annotations
@@ -134,13 +138,27 @@ def traffic(name: str) -> dict:
         return json.load(f)
 
 
-def reader(name: str):
-    """The `read(ctx)` function of per-layer metric `name`."""
-    path = os.path.join(HERE, "metrics", f"{name}.py")
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"no reader for per-layer metric {name!r} at {path}")
-    spec = importlib.util.spec_from_file_location("cellbench.metrics." + re.sub(r"\W", "_", name),
-                                                  path)
+def by_file(folder: str, name: str, what: str):
+    """The module of file cellbench/<folder>/<name>.py, loaded from its
+    path; FileNotFoundError naming that path where there is none (a name
+    never falls back to another module)."""
+    path = os.path.join(HERE, folder, f"{name}.py")
+    if not NAME.match(name) or not os.path.isfile(path):
+        raise FileNotFoundError(f"no {what} {name!r} at {path}")
+    spec = importlib.util.spec_from_file_location(
+        f"cellbench.{folder}." + re.sub(r"\W", "_", name), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name: str):
+    """The `read(ctx)` function of per-layer metric `name`."""
+    return by_file("metrics", name, "reader for per-layer metric").read
+
+
+def reference(cfg: dict):
+    """The plain reference module of configuration file `cfg`: the one its
+    "reference" names, `tracer` where it names none (the interface is in
+    cellbench/reference/__init__.py)."""
+    return by_file("reference", cfg.get("reference", "tracer"), "plain reference")

@@ -3,9 +3,13 @@ drives it: its scene and camera types filled from the benchmark's own
 arrays, its scene upload, its progressive loop and its resolve.  This is
 the only module of the benchmark that imports the program.
 
-The program logs one `graph_capture` record for each CUDA graph it
-captures (its capture and instantiate seconds and its node count);
-`CaptureLog` keeps them for the per-layer readers.
+The program logs its records as "<kind> <json>" lines: one
+`graph_capture` for each CUDA graph it captures (its capture and
+instantiate seconds and its node count), one `upload` for each scene
+upload (the seconds of its steps), and others; `CaptureLog` keeps them by
+kind for the per-layer readers.  `phase_groups` gives each device
+operation of a trace the program's phase group, by the program's own
+attribution.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 from caitlynrenderer_tpu_torch import scene as pscene
 from caitlynrenderer_tpu_torch.core.types import Camera, Lights, Materials, RenderOptions, SceneArrays
 from caitlynrenderer_tpu_torch.render import progressive
+from caitlynrenderer_tpu_torch.utils import metrics
 
 from cellbench.scenes.builtin import CAMERA_FIELDS, LIGHT_FIELDS, MATERIAL_FIELDS
 
@@ -93,17 +98,38 @@ class Renderer:
         progressive.clear_graphs()
 
 
+def phase_groups(events) -> list:
+    """[(event, group or None)] for each device operation of a Chrome
+    trace's events (its "traceEvents"): the program's phase of it
+    (`utils/metrics.attribute` against the phase maps of the CUDA graphs
+    cached now: take it before `Renderer.release`), as its phase group
+    (`utils/metrics.phase_group`: raygen, query, hit, nee, bounce, shade,
+    ...); None where no map or span places the operation."""
+    return [(e, metrics.phase_group(phase))
+            for e, phase in metrics.attribute(events, progressive.phase_maps())]
+
+
 class CaptureLog(logging.Handler):
-    """Keeps the program's `graph_capture` log records while attached."""
+    """Keeps the program's log records while attached: `by_kind`, the
+    records of each kind in the order logged; `records`, the
+    `graph_capture` ones."""
 
     def __init__(self):
         super().__init__(logging.INFO)
-        self.records: list = []
+        self.by_kind: dict = {}
+
+    @property
+    def records(self) -> list:
+        return self.by_kind.get("graph_capture", [])
 
     def emit(self, record: logging.LogRecord) -> None:
-        msg = record.getMessage()
-        if msg.startswith("graph_capture "):
-            self.records.append(json.loads(msg[len("graph_capture "):]))
+        kind, _, body = record.getMessage().partition(" ")
+        try:
+            rec = json.loads(body)
+        except ValueError:  # a line that is no record
+            return
+        if isinstance(rec, dict):
+            self.by_kind.setdefault(kind, []).append(rec)
 
     def __enter__(self):
         log = logging.getLogger(LOGGER)

@@ -7,19 +7,30 @@ plain reference, so a change to the program's own scene generators cannot
 move the yardstick.  A scene is a dict of numpy arrays with the layout of
 the program's `SceneArrays` (vertices, normals, texcoords, tri_v, tri_vn,
 tri_vt, and `materials` and `lights` as dicts of arrays).
+
+A configuration's scene names a generator: one of `GENERATORS` below, or
+the module cellbench/scenes/<generator>.py, whose `make(**args)` returns
+such a dict (it may build one with `SceneBuilder` and set any column of
+the material arrays itself); `make_scene` holds it to the layout.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from cellbench import manifest
+
 DIFFUSE = 0  # the material type id of a Lambert surface
 
 MATERIAL_FIELDS = ("albedo", "emission", "specular", "disney", "disney2", "tex_ind")
 LIGHT_FIELDS = ("p", "u", "v", "n", "e", "area_pdf")
+# The geometry's arrays: columns and dtype.
+GEOMETRY = {"vertices": (3, np.float32), "normals": (3, np.float32),
+            "texcoords": (2, np.float32), "tri_v": (4, np.int32), "tri_vn": (4, np.int32),
+            "tri_vt": (4, np.int32)}
 
 
-class _SceneBuilder:
+class SceneBuilder:
     """Accumulates triangles and materials into a scene dict."""
 
     def __init__(self):
@@ -128,7 +139,7 @@ def cornell_box() -> dict:
     """The classic Cornell box in [0, 5.56]^3, its light a 1.3 x 1.1 quad
     just below the ceiling, with the tall and the short box: 36 Lambert
     triangles."""
-    b = _SceneBuilder()
+    b = SceneBuilder()
     white = b.add_material(albedo=(0.73, 0.73, 0.73))
     red = b.add_material(albedo=(0.65, 0.05, 0.05))
     green = b.add_material(albedo=(0.12, 0.45, 0.15))
@@ -166,7 +177,7 @@ def displaced_grid(resolution: int = 224, extent: float = 10.0) -> dict:
     v11 = v10 + 1
     tris = np.concatenate([np.stack([v00, v10, v01], axis=1),
                            np.stack([v01, v10, v11], axis=1)], axis=0).astype(np.int32)
-    b = _SceneBuilder()
+    b = SceneBuilder()
     white = b.add_material(albedo=(0.75, 0.72, 0.68))
     light = b.add_material(emission=(30.0, 30.0, 30.0))
     b.add_quad((extent * 0.3, extent * 0.9, extent * 0.3), (extent * 0.7, extent * 0.9, extent * 0.3),
@@ -189,11 +200,45 @@ GENERATORS = {"cornell_box": cornell_box, "displaced_grid": displaced_grid}
 
 def make_scene(spec: dict) -> dict:
     """The scene of a configuration's `scene` entry: {"generator": name,
-    "args": {keyword: value}}."""
-    if spec["generator"] not in GENERATORS:
-        raise ValueError(f"unknown scene generator {spec['generator']!r} "
-                         f"(known: {', '.join(sorted(GENERATORS))})")
-    return GENERATORS[spec["generator"]](**spec.get("args", {}))
+    "args": {keyword: value}}, a generator of `GENERATORS` or else of
+    cellbench/scenes/<name>.py (FileNotFoundError naming the file where
+    there is none)."""
+    name, args = spec["generator"], spec.get("args", {})
+    if name in GENERATORS:
+        return GENERATORS[name](**args)
+    sc = manifest.by_file("scenes", name, "scene generator").make(**args)
+    problems = layout_problems(sc)
+    if problems:
+        raise ValueError(f"scene generator {name!r}: " + "; ".join(problems))
+    return sc
+
+
+def layout_problems(sc: dict) -> list:
+    """How `sc` departs from the layout `SceneBuilder.build` gives: its
+    keys, the materials' and lights' fields, and each array's columns,
+    dtype and rows; empty where it keeps to it."""
+    groups = {"materials": MATERIAL_FIELDS, "lights": LIGHT_FIELDS}
+    if set(sc) != set(GEOMETRY) | set(groups):
+        return [f"keys {sorted(sc)}"]
+    bad = [f"{g} fields {sorted(sc[g])}" for g, fields in groups.items()
+           if set(sc[g]) != set(fields)]
+    if bad:
+        return bad
+    # (name, array, columns, dtype, the arrays whose rows it shares)
+    arrays = [(k, sc[k], cols, dt, "triangles" if k.startswith("tri_") else k)
+              for k, (cols, dt) in GEOMETRY.items()]
+    arrays += [(f"materials.{k}", sc["materials"][k], 4, np.float32, "materials")
+               for k in MATERIAL_FIELDS]
+    arrays += [(f"lights.{k}", sc["lights"][k], 2 if k == "area_pdf" else 3, np.float32,
+                "lights") for k in LIGHT_FIELDS]
+    rows = {}
+    for name, a, cols, dt, shared in arrays:
+        if not (isinstance(a, np.ndarray) and a.dtype == dt and a.shape[1:] == (cols,)):
+            bad.append(f"{name} is not an array of {cols} {np.dtype(dt).name} columns")
+        else:
+            rows.setdefault(shared, set()).add(len(a))
+    return bad + [f"{shared} of unequal rows {sorted(n)}" for shared, n in rows.items()
+                  if len(n) > 1]
 
 
 def make_camera(position, look_at, fov_degrees: float = 40.0, up_hint=(0.0, 1.0, 0.0),

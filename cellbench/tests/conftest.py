@@ -30,6 +30,9 @@ def tiny_bench(tmp_path, pixels=None, image_spp=40):
     bench["workloads"].append({"name": "cornell700.interactive", "config": "cornell700",
                                "traffic": "interactive", "chips": 1,
                                "why": "one sample a launch, every frame resolved to host"})
+    for m in bench["per_layer"]:
+        if "cornell700.offline" in m["workloads"]:
+            m["workloads"].append("cornell700.interactive")
     for c in bench["configs"]:
         cfg = manifest.config(bench, c["name"])
         if c["name"] == "grid1m":

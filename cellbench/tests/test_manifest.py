@@ -99,7 +99,16 @@ def test_a_cell_added_by_entries_alone_is_valid(tmp_path):
     bench["configs"].append(dict(bench["configs"][0], name="cornell512", file=str(path)))
     bench["workloads"].append(dict(bench["workloads"][0], name="cornell512.offline",
                                    config="cornell512"))
+    # Every per-layer metric names its cells: a new cell reports those that
+    # name it, and none without asking.
+    assert manifest.validate(bench) == ["cell 'cornell512.offline' reports too few metrics"]
+    phases = ("raygen_ms_per_sample", "query_ms_per_sample", "shade_ms_per_sample")
+    for m in bench["per_layer"]:
+        if m["name"] in phases:
+            m["workloads"].append("cornell512.offline")
     assert manifest.validate(bench) == []
     assert manifest.config(bench, "cornell512")["width"] == 512
     assert {m["name"] for m in manifest.cell_metrics(bench, "cornell512.offline", "end_to_end")} \
         == {"frame_ms", "setup_s"}
+    assert {m["name"] for m in manifest.cell_metrics(bench, "cornell512.offline", "per_layer")} \
+        == set(phases)

@@ -1,18 +1,25 @@
 """The device trace of a traced segment, reduced to what the per-layer
 readers and the result line take: device time by kernel class in each
-stage of the loop, the device's busy seconds in the window, the device
-operations that took most time and the longest idle gaps.
+stage of the loop and in each of the program's phase groups, the
+device's busy seconds in the window, the device operations that took
+most time and the longest idle gaps.
 
 A segment runs under `torch.profiler` (CPU and CUDA activities), each
 stage of the loop inside `record_function("cellbench.<stage>")` and the
 whole inside "cellbench.window".  Kernels inside a CUDA-graph replay are
 traced one by one.  A device operation belongs to the stage whose span
-holds the host call that issued it (matched by correlation id).
+holds the host call that issued it (matched by correlation id).  Its
+phase group is the program's to give: a segment given `attribute` (the
+program adapter's `phase_groups`, which this module does not import)
+hands it the segment's Chrome trace.
 """
 
 from __future__ import annotations
 
 import bisect
+import json
+import os
+import tempfile
 from collections import defaultdict
 from contextlib import contextmanager
 
@@ -53,7 +60,13 @@ def stage(name: str):
 
 class Segment:
     """Profiles the block of `with Segment() as seg:`; on exit reads the
-    trace into `summary` (None when the profiler saw no device work)."""
+    trace into `summary` (None when the profiler saw no device work).
+    With `attribute` (Chrome trace events -> [(device event, phase group
+    or None)]) the summary also has "phase_ms": {group: {class: ms}},
+    the None group holding what no phase places."""
+
+    def __init__(self, attribute=None):
+        self.attribute = attribute
 
     def __enter__(self):
         self.prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -68,7 +81,25 @@ class Segment:
         self.prof.__exit__(*exc)
         if exc[0] is None:
             self.summary = summarize(self.prof.profiler.kineto_results.events())
+            if self.summary is not None and self.attribute is not None:
+                self.summary["phase_ms"] = phase_ms(self.attribute(self.chrome_events()))
         return False
+
+    def chrome_events(self) -> list:
+        """The trace's "traceEvents", as `export_chrome_trace` writes them."""
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            self.prof.export_chrome_trace(path)
+            with open(path) as f:
+                return json.load(f)["traceEvents"]
+
+
+def phase_ms(attributed) -> dict:
+    """{group: {kernel class: device ms}} of [(Chrome trace event, group)]."""
+    out = defaultdict(lambda: defaultdict(float))
+    for e, group in attributed:
+        out[group][kernel_class(e["name"])] += e["dur"] / 1e3
+    return {g: dict(row) for g, row in out.items()}
 
 
 def short_name(name: str) -> str:
