@@ -351,10 +351,11 @@ class Surface(NamedTuple):
     dis_p: Optional[bsdf.DisneyParams]
 
 
-def surface(ds: DeviceScene, hf: HitFrame, families) -> Surface:
+def surface(ds: DeviceScene, hf: HitFrame, families, phase: str = "bsdf") -> Surface:
     """The Surface of a HitFrame's rows.  Only the families named in
     `families` are traced (the reference's static specialization); every
-    type that is neither Lambert nor specular takes the Disney BRDF."""
+    type that is neither Lambert nor specular takes the Disney BRDF, whose
+    mask and parameters are gathered in span `phase`."""
     rows = hf.rows
     mat_type = torch.round(rows[:, 29]).to(torch.int64)
     albedo = _albedo_from_rows(ds.scene, rows, hf.u, hf.v)
@@ -365,8 +366,9 @@ def surface(ds: DeviceScene, hf: HitFrame, families) -> Surface:
         specular = torch.zeros_like(hf.keep)
     disney = dis_p = None
     if "disney" in families:
-        disney = ~specular & ~_type_is(mat_type, _LAMBERT_IDS)
-        dis_p = bsdf.params_from_rows(rows, albedo)
+        with metrics.span(phase):
+            disney = ~specular & ~_type_is(mat_type, _LAMBERT_IDS)
+            dis_p = bsdf.params_from_rows(rows, albedo)
     return Surface(
         albedo=albedo,
         ior=rows[:, 37],
@@ -401,10 +403,10 @@ def light_sample(light_tab, hit_point, n_flip, u_lp, u_l1, u_l2, alive, specular
     return lrows, ldir, dist, cos_mtl, cos_light, cand, torch.where(cand, dist - EPS, 0.0)
 
 
-def continuation(hf: HitFrame, surf: Surface, d, T, u_b1, u_b2, u_lobe):
+def continuation(hf: HitFrame, surf: Surface, d, T, u_b1, u_b2, u_lobe, phase: str = "bsdf"):
     """The continuation ray of every lane by its family: a cosine-weighted
-    Lambert sample about n_flip, a Disney BRDF sample, a mirror
-    reflection, or a glass reflection or refraction chosen by u_lobe
+    Lambert sample about n_flip, a Disney BRDF sample (in span `phase`), a
+    mirror reflection, or a glass reflection or refraction chosen by u_lobe
     against Fresnel.  Returns (d, T, pdf, is_specular, ok, origin): the unit
     direction, the throughput the path carries on with, the direction's
     pdf (1 for a delta lobe), whether it was a delta lobe, where the path
@@ -419,14 +421,16 @@ def continuation(hf: HitFrame, surf: Surface, d, T, u_b1, u_b2, u_lobe):
 
     if surf.disney is not None:
         disney = surf.disney
-        dis_dir, dis_f, dis_pdf = bsdf.sample(surf.dis_p, n_flip, -d, u_lobe, u_b1, u_b2)
-        dis_ok = dis_pdf > 1e-9
-        dis_T = T * torch.where(dis_ok[:, None],
-                                dis_f / torch.clamp(dis_pdf, min=1e-9)[:, None], 0.0)
-        new_d = torch.where(disney[:, None], dis_dir, diff_dir)
-        new_T = torch.where(disney[:, None], dis_T, T * surf.albedo)
-        new_pdf = torch.where(disney, torch.clamp(dis_pdf, min=1e-9), diff_pdf)
-        ok = ~disney | dis_ok
+        lambert_T = T * surf.albedo
+        with metrics.span(phase):
+            dis_dir, dis_f, dis_pdf = bsdf.sample(surf.dis_p, n_flip, -d, u_lobe, u_b1, u_b2)
+            dis_ok = dis_pdf > 1e-9
+            dis_T = T * torch.where(dis_ok[:, None],
+                                    dis_f / torch.clamp(dis_pdf, min=1e-9)[:, None], 0.0)
+            new_d = torch.where(disney[:, None], dis_dir, diff_dir)
+            new_T = torch.where(disney[:, None], dis_T, lambert_T)
+            new_pdf = torch.where(disney, torch.clamp(dis_pdf, min=1e-9), diff_pdf)
+            ok = ~disney | dis_ok
     else:
         new_d = diff_dir
         new_T = T * surf.albedo
@@ -467,6 +471,10 @@ def continuation(hf: HitFrame, surf: Surface, d, T, u_b1, u_b2, u_lobe):
     return cm.normalize(new_d), new_T, new_pdf, new_spec, ok, origin
 
 
+# The shading families kernel B6 takes.
+FUSED_FAMILIES = ("lambert",)
+
+
 def fused_shading(ds: DeviceScene, o, d, uniforms, options: RenderOptions,
                   with_stats: bool = False) -> bool:
     """Whether `trace_paths` shades each bounce with kernel B6 (ops/shade.py,
@@ -478,12 +486,18 @@ def fused_shading(ds: DeviceScene, o, d, uniforms, options: RenderOptions,
     sc = ds.scene
     tensors = (o, d, uniforms, ds.shade_tab, ds.light_tab)
     return (all(x.device.type == "cuda" for x in tensors)
-            and tuple(options.families) == ("lambert",)
+            and tuple(options.families) == FUSED_FAMILIES
             and (sc.textures is None or sc.texcoords.shape[0] == 0)
             and not options.use_env_map
             and ds.light_tab.shape[0] > 0
             and not with_stats
             and not (torch.is_grad_enabled() and any(x.requires_grad for x in tensors)))
+
+
+def torch_families(options: RenderOptions) -> tuple:
+    """The families of options.families that kernel B6 does not shade: each
+    keeps `trace_paths` on the torch path."""
+    return tuple(f for f in options.families if f not in FUSED_FAMILIES)
 
 
 def shade_bounce_plain(ds: DeviceScene, o, d, tri, uniforms, bounce: int,
@@ -587,7 +601,9 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
     (radiance, stats) when with_stats.  stats counts the ray queries
     actually issued: "rays_closest", "rays_anyhit" (int tensors),
     "alive_per_bounce" ((max_depth,) tensor of live lanes entering each
-    closest-hit query) and "anyhit_per_bounce" (the any-hit candidates of
+    closest-hit query), "disney_per_bounce" ((max_depth,): the live lanes
+    that shade their hit with the Disney BRDF, 0 where options.families
+    leaves it out) and "anyhit_per_bounce" (the any-hit candidates of
     each bounce's NEE; empty without lights).
 
     uniforms: (N, 4 + 7*max_depth), layout in render/sampling.py; the first
@@ -614,10 +630,11 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
         # The origin-group hint of the wide BVH (the CWBVH's: origin window):
         # the group that produced each ray's origin (0 for primary rays).
         og = torch.zeros(n, dtype=torch.int32, device=dev)
-    alive_per_bounce, anyhit_per_bounce = [], []
+    alive_per_bounce, anyhit_per_bounce, disney_per_bounce = [], [], []
 
     # Each bounce's phases are spans b<bounce>.rr, .closest, .hit, .nee
-    # (holding .anyhit) and .bounce (utils/metrics).
+    # (holding .anyhit) and .bounce (utils/metrics); the Disney BRDF's
+    # work inside hit, nee and bounce is span .bsdf.
     for bounce in range(options.max_depth):
         b = f"b{bounce}."
         with metrics.span(b + "rr"):
@@ -639,12 +656,15 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
                 L = L + torch.where((alive & ~got)[:, None], T * sample_env(env_map, d), 0.0)
             alive = got
 
-            surf = surface(ds, hf, options.families)
+            surf = surface(ds, hf, options.families, b + "bsdf")
             hit_light = got & (hf.rows[:, 33] != -1)
             if num_lights > 0:
                 L = L + torch.where(hit_light[:, None],
                                     _emitted(light_tab, d, hf, T, prev_pdf, is_specular), 0.0)
                 alive = alive & ~hit_light
+            if with_stats:
+                disney_per_bounce.append((alive & surf.disney).sum() if surf.disney is not None
+                                         else torch.zeros((), dtype=torch.int64, device=dev))
 
         # NEE with MIS: one light sample per vertex, visibility by any-hit.
         if num_lights > 0:
@@ -661,15 +681,16 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
                 f_nee, bsdf_pdf = _lambert_toward(surf.albedo, cos_mtl,
                                                   options.exact_reference_nee)
                 if surf.disney is not None:
-                    f_dis, pdf_dis = bsdf.eval_pdf(surf.dis_p, hf.n_flip, -d, ldir)
-                    f_nee = torch.where(surf.disney[:, None], f_dis, f_nee)
-                    bsdf_pdf = torch.where(surf.disney, pdf_dis, bsdf_pdf)
+                    with metrics.span(b + "bsdf"):
+                        f_dis, pdf_dis = bsdf.eval_pdf(surf.dis_p, hf.n_flip, -d, ldir)
+                        f_nee = torch.where(surf.disney[:, None], f_dis, f_nee)
+                        bsdf_pdf = torch.where(surf.disney, pdf_dis, bsdf_pdf)
                 contrib = _nee_contrib(T, lrows, f_nee, pdf_light, bsdf_pdf)
                 L = L + torch.where(visible[:, None], contrib, 0.0)
 
         with metrics.span(b + "bounce"):
             d, new_T, prev_pdf, is_specular, ok, o = continuation(hf, surf, d, T, u_b1, u_b2,
-                                                                   u_lobe)
+                                                                   u_lobe, b + "bsdf")
             alive = alive & ok
             T = torch.where(alive[:, None], new_T, T)
 
@@ -680,6 +701,7 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
         "rays_closest": sum(alive_per_bounce, zero),
         "rays_anyhit": sum(anyhit_per_bounce, zero),
         "alive_per_bounce": torch.stack(alive_per_bounce),
+        "disney_per_bounce": torch.stack(disney_per_bounce),
         "anyhit_per_bounce": (torch.stack(anyhit_per_bounce) if anyhit_per_bounce
                               else torch.zeros(0, dtype=torch.int64, device=dev)),
     }

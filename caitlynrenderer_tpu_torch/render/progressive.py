@@ -26,7 +26,8 @@ from caitlynrenderer_tpu_torch.core.camera import camera_tensors, copy_camera, h
 from caitlynrenderer_tpu_torch.core.types import Camera, RenderOptions
 from caitlynrenderer_tpu_torch.ops import _build
 from caitlynrenderer_tpu_torch.render import sampling
-from caitlynrenderer_tpu_torch.render.integrator import check_supported, render_sample
+from caitlynrenderer_tpu_torch.render.integrator import (check_supported, render_sample,
+                                                          torch_families)
 from caitlynrenderer_tpu_torch.scene import DeviceScene
 from caitlynrenderer_tpu_torch.utils import metrics
 
@@ -137,8 +138,10 @@ class SampleGraph:
     None where the graph is not one chain of nodes.  phase_nodes: the
     graph's nodes by phase group, {group: n}, "none" for nodes outside
     every span.  fused_shading: whether the graph shades with kernel B6
-    (render/integrator.fused_shading), read from its kernel nodes.  Each
-    capture logs a "graph_capture" record of them."""
+    (render/integrator.fused_shading), read from its kernel nodes.
+    torch_families: the shading families that keep a graph without B6 on
+    the torch path (integrator.torch_families; empty where it has B6).
+    Each capture logs a "graph_capture" record of them."""
 
     def __init__(self, ds: DeviceScene, camera: Camera, state: RenderState, width: int,
                  height: int, options: RenderOptions, spp: int, lens: bool):
@@ -198,6 +201,7 @@ class SampleGraph:
             self.graph.instantiate()
             self.instantiate_s = time.perf_counter() - t0
         self.fused_shading = self.launches["shade"]["bounce"] > 0
+        self.torch_families = [] if self.fused_shading else list(torch_families(options))
         self.phases = self.phase_nodes = None
         if phases is not None:
             self.phases = metrics.run_length((phase, name) for (_, _, name), phase
@@ -210,7 +214,7 @@ class SampleGraph:
             "device": str(dev), "nodes": self.nodes, "launches": self.launches,
             "warmup_s": round(self.warmup_s, 6), "capture_s": round(self.capture_s, 6),
             "instantiate_s": round(self.instantiate_s, 6), "phase_nodes": self.phase_nodes,
-            "fused_shading": self.fused_shading})
+            "fused_shading": self.fused_shading, "torch_families": self.torch_families})
 
     def _load(self, camera: Camera, state: RenderState) -> None:
         self.accum.copy_(state.accum)

@@ -109,10 +109,13 @@ def log_record(kind: str, record: Dict[str, Any]) -> None:
 PREFIX = "caitlyn."
 # The groups of phases, by what the card does in them.  "shade" is a
 # bounce's kernel B6, which does the work of "hit", "nee" and "bounce" on
-# the fused path (render/integrator.trace_paths_fused).
-GROUPS = ("raygen", "query", "hit", "nee", "bounce", "shade")
+# the fused path (render/integrator.trace_paths_fused).  "bsdf" is the
+# Disney BRDF's work on the torch path (its parameters, its value and pdf
+# toward the light, its sample), a span inside a bounce's hit, nee and
+# bounce.
+GROUPS = ("raygen", "query", "hit", "nee", "bounce", "shade", "bsdf")
 _BOUNCE_GROUPS = {"closest": "query", "anyhit": "query", "hit": "hit", "nee": "nee",
-                  "rr": "bounce", "bounce": "bounce", "shade": "shade"}
+                  "rr": "bounce", "bounce": "bounce", "shade": "shade", "bsdf": "bsdf"}
 _BOUNCE_PHASE = re.compile(r"^b\d+\.(\w+)$")
 _NULL = contextlib.nullcontext()
 # The PhaseCapture of the CUDA-graph capture running, if any.
@@ -137,7 +140,8 @@ def phase_group(phase: Optional[str]) -> Optional[str]:
     """The group (GROUPS) of a phase: "raygen" for `launch.*`, `sample.*`
     and `raygen`; "query" for a bounce's `closest` and `anyhit`; "hit";
     "nee" (its `anyhit` apart); "bounce" for `rr` and `bounce`; "shade"
-    for a bounce's `shade` (kernel B6 on the fused path).  Any other
+    for a bounce's `shade` (kernel B6 on the fused path); "bsdf" for a
+    bounce's `bsdf` (the Disney BRDF's work on the torch path).  Any other
     phase is a group of its own (`capture`, `resolve`); None stays None."""
     if phase is None:
         return None

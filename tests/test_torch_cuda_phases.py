@@ -34,12 +34,14 @@ pytestmark = pytest.mark.cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOML = os.path.join(ROOT, "scenes", "cornell.toml")
+DISNEY_TOML = os.path.join(ROOT, "scenes", "cornell_disney.toml")
 SPP = 4
 QUERY_KERNELS = {"mt_brute_kernel", "mega_kernel"}
 # The groups a capture's nodes fall in, by shading path: B6 does the hit,
-# nee and bounce groups' work, and rr issues nothing with roulette off.
+# nee and bounce groups' work, and rr issues nothing with roulette off;
+# these Lambert scenes leave the Disney BRDF's group, bsdf, empty.
 SHADING_GROUPS = {"fused": {"raygen", "query", "shade"},
-                  "torch": set(metrics.GROUPS) - {"shade"}}
+                  "torch": set(metrics.GROUPS) - {"shade", "bsdf"}}
 
 
 @pytest.fixture(scope="module")
@@ -78,6 +80,7 @@ def test_graph_phase_map_covers_every_node_and_adds_none(dev, accel, shading, mo
     assert sum(graph.phase_nodes.values()) == graph.nodes and "none" not in graph.phase_nodes
     assert set(graph.phase_nodes) == SHADING_GROUPS[shading]
     assert graph.fused_shading is (shading == "fused")
+    assert metrics.last_records["graph_capture"]["torch_families"] == []
     entries = metrics.expand(graph.phases)
     nodes, chain = _build.graph_nodes(graph.graph.raw_cuda_graph())
     assert chain and len(entries) == sum(name is not None for _, _, name in nodes)
@@ -138,4 +141,43 @@ def test_traced_replay_groups_add_up_to_the_integrator(dev, accel, shading, monk
     assert None not in other and set(other) >= SHADING_GROUPS[shading] - {"query"}
     assert set(other) <= SHADING_GROUPS[shading]
     assert sum(other.values()) == pytest.approx(integrator, rel=0.01)
+    progressive.clear_graphs()
+
+
+def test_disney_graph_names_its_families_and_its_bsdf_nodes(dev):
+    """The Disney-floor cornell at 4 bounces on the card: its graph keeps
+    the torch path, its record names the family that kept it there, its
+    bsdf group holds nodes (the span adds none: a capture without the
+    phase map has as many), and its accumulation is finite and equals the
+    same samples rendered eagerly, bit for bit."""
+    progressive.clear_graphs()
+    cfg = config.load_config(DISNEY_TOML)
+    scene, camera, options = render_setup(cfg, os.path.dirname(DISNEY_TOML), width=96,
+                                          height=64, accel="brute")
+    options = options._replace(max_depth=4)
+    ds = upload_scene(scene, "brute", dev)
+    w, h = options.width, options.height
+    state = progressive.init_state(w, h, 5, dev)
+    got = progressive.render_steps(ds, camera, state, w, h, options, SPP)
+    eager = state
+    for _ in range(SPP):
+        eager = progressive.render_step(ds, camera, eager, w, h, options)
+    torch.cuda.synchronize(dev)
+    graph, = progressive._graphs.values()
+    rec = metrics.last_records["graph_capture"]
+    assert not graph.fused_shading and rec["torch_families"] == ["disney"]
+    assert set(graph.phase_nodes) == set(metrics.GROUPS) - {"shade"}
+    assert rec["phase_nodes"]["bsdf"] == graph.phase_nodes["bsdf"] > 0
+    assert bool(torch.isfinite(got.accum).all()) and float(got.accum.sum()) > 0
+    assert torch.equal(got.accum, eager.accum)
+    plain = torch.cuda.CUDAGraph(keep_graph=True)
+    frame = torch.zeros((), dtype=torch.int64, device=dev)
+    key = (torch.zeros_like(frame), torch.ones_like(frame))
+    body = (ds, camera_tensors(camera, dev), torch.zeros_like(state.accum), frame, key, w, h,
+            options)
+    before = _build.launch_counts()
+    with torch.no_grad(), torch.cuda.graph(plain):
+        progressive.accumulate(*body, SPP, False)
+    _build.set_launch_counts(before)
+    assert len(_build.graph_nodes(plain.raw_cuda_graph())[0]) == graph.nodes
     progressive.clear_graphs()

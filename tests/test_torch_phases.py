@@ -4,9 +4,11 @@ sample inside a named phase, each bounce's phases carrying its index, and
 the radiance unchanged by the profiler; the phase map of a CUDA-graph
 capture, emulated here with one node per dispatched op; `attribute` on
 synthetic Chrome-trace events (a graph launch's operations by position,
-eager ones by the innermost span, nothing on a mismatch); the "upload"
-record of `upload_scene`; and `cli render --profile` with its "scene",
-"rays" and "profile" records.  The graph itself runs on the card:
+eager ones by the innermost span, nothing on a mismatch); the Disney
+BRDF's `bsdf` span (no node added, no phase on a Lambert scene), the live
+Disney lanes `trace_paths` counts and the families `torch_families`
+names; the "upload" record of `upload_scene`; and `cli render --profile`
+with its "scene", "rays" and "profile" records.  The graph itself runs on the card:
 tests/test_torch_cuda_phases.py."""
 
 import json
@@ -31,13 +33,14 @@ from caitlynrenderer_tpu_torch.utils import config, metrics
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOML = os.path.join(ROOT, "scenes", "cornell.toml")
+DISNEY_TOML = os.path.join(ROOT, "scenes", "cornell_disney.toml")
 W, H = 12, 10
 BOUNCE_PHASES = ("rr", "closest", "hit", "nee", "anyhit", "bounce")
 
 
-def _cornell(accel="brute", **overrides):
-    cfg = config.load_config(TOML)
-    scene, camera, options = render_setup(cfg, os.path.dirname(TOML), width=W, height=H,
+def _cornell(accel="brute", toml=TOML, **overrides):
+    cfg = config.load_config(toml)
+    scene, camera, options = render_setup(cfg, os.path.dirname(toml), width=W, height=H,
                                           accel=accel, **overrides)
     ds = upload_scene(scene, accel, "cpu")
     return ds, camera, options
@@ -110,12 +113,13 @@ def test_eager_sample_ops_all_inside_named_phases(accel):
 def test_phase_groups():
     """Each phase's group: launch, sample and raygen phases are raygen; a
     bounce's queries are query; rr and bounce are bounce; B6's shade is
-    shade; others stand alone."""
+    shade; the Disney BRDF's bsdf is bsdf; others stand alone."""
     group = metrics.phase_group
     assert [group(p) for p in ("launch.replay", "sample.keys", "raygen")] == ["raygen"] * 3
     assert [group(f"b{b}.{p}") for b, p in ((0, "closest"), (5, "anyhit"))] == ["query"] * 2
-    assert [group(p) for p in ("b1.hit", "b2.nee", "b3.rr", "b12.bounce", "b2.shade")] == [
-        "hit", "nee", "bounce", "bounce", "shade"]
+    assert [group(p) for p in ("b1.hit", "b2.nee", "b3.rr", "b12.bounce", "b2.shade",
+                               "b2.bsdf")] == ["hit", "nee", "bounce", "bounce", "shade", "bsdf"]
+    assert "bsdf" in metrics.GROUPS
     assert group("resolve") == "resolve" and group(None) is None
 
 
@@ -156,9 +160,10 @@ def test_capture_phase_map_covers_every_node(monkeypatch, accel):
     nodes, phases = marks.node_phases(0)
     assert len(phases) == len(nodes) == len(fake.nodes) > 100
     assert None not in phases
-    # CPU tensors run the torch path's shading: no "shade" group (B6).
+    # CPU tensors run the torch path's shading: no "shade" group (B6), and
+    # a Lambert scene no "bsdf" group (the Disney BRDF).
     groups = {metrics.phase_group(p) for p in phases}
-    assert groups == set(metrics.GROUPS) - {"shade"}
+    assert groups == set(metrics.GROUPS) - {"shade", "bsdf"}
     assert {p for p in phases if p.startswith("b")} >= {
         f"b{b}.{p}" for b in range(options.max_depth) for p in BOUNCE_PHASES}
     pairs = [(p, name) for (_, _, name), p in zip(nodes, phases)]
@@ -167,6 +172,87 @@ def test_capture_phase_map_covers_every_node(monkeypatch, accel):
     assert all(metrics.phase_group(p) == "raygen" for p in phases[:3])
     want = progressive.accumulate(*body, 2, False)
     assert torch.equal(got, want)
+
+
+def _fake_capture_of_accumulate(monkeypatch, ds, camera, options, marked):
+    """The fake capture's nodes of `progressive.accumulate` (2 samples), and
+    its phases where `marked` (under capture_phases), else None."""
+    fake = _FakeCapture()
+    monkeypatch.setattr(_build, "capture_tail", fake.tail)
+    monkeypatch.setattr(_build, "graph_nodes", lambda raw: (fake.nodes, True))
+    accum = torch.zeros((W * H, 3))
+    frame = torch.zeros((), dtype=torch.int64)
+    key = (torch.zeros_like(frame), torch.ones_like(frame))
+    body = (ds, camera_tensors(camera, "cpu"), accum, frame, key, W, H, options)
+    if not marked:
+        with torch.no_grad(), fake:
+            progressive.accumulate(*body, 2, False)
+        return fake.nodes, None
+    with torch.no_grad(), fake, metrics.capture_phases(0) as marks:
+        progressive.accumulate(*body, 2, False)
+    return marks.node_phases(0)
+
+
+@pytest.mark.parametrize("floor", ["lambert", "disney"])
+def test_bsdf_span_adds_no_node(monkeypatch, floor):
+    """The Disney BRDF's span marks the graph and adds no node: a capture
+    with the phase map has as many nodes as one without.  A Lambert scene
+    has no bsdf phase; the Disney floor's has each bounce's, inside its
+    hit, nee and bounce, and the bsdf group holds the BRDF's nodes."""
+    ds, camera, options = _cornell(toml=TOML if floor == "lambert" else DISNEY_TOML)
+    assert ("disney" in options.families) is (floor == "disney")
+    plain, _ = _fake_capture_of_accumulate(monkeypatch, ds, camera, options, False)
+    nodes, phases = _fake_capture_of_accumulate(monkeypatch, ds, camera, options, True)
+    assert len(nodes) == len(plain) and None not in phases
+    bsdf = {p for p in phases if metrics.phase_group(p) == "bsdf"}
+    if floor == "lambert":
+        assert bsdf == set()
+    else:
+        assert bsdf == {f"b{b}.bsdf" for b in range(options.max_depth)}
+        share = sum(metrics.phase_group(p) == "bsdf" for p in phases) / len(phases)
+        assert 0.2 < share < 0.8, share
+
+
+@pytest.mark.parametrize("floor", ["lambert", "disney"])
+def test_disney_per_bounce_counts_live_disney_lanes(floor):
+    """`trace_paths`' disney_per_bounce: at bounce 0 the camera rays that hit
+    the Disney floor (the box's first two triangles), found here by the
+    plain brute-force query; at every bounce no more than the live lanes;
+    0 on every bounce of a Lambert scene."""
+    from caitlynrenderer_tpu_torch.core.camera import generate_rays
+    from caitlynrenderer_tpu_torch.ops.intersect import intersect_brute
+    from caitlynrenderer_tpu_torch.render import sampling
+    from caitlynrenderer_tpu_torch.render.integrator import trace_paths
+
+    ds, camera, options = _cornell(toml=TOML if floor == "lambert" else DISNEY_TOML)
+    options = options._replace(width=48, height=40, max_depth=4)
+    uni = sampling.draw_uniforms(sampling.prng_key(3), 48 * 40, options.max_depth, "cpu")
+    o, d = generate_rays(camera, 48, 40, uni)
+    _, stats = trace_paths(ds, o, d, uni, options, with_stats=True)
+    dis, alive = stats["disney_per_bounce"], stats["alive_per_bounce"]
+    assert dis.shape == alive.shape == (options.max_depth,)
+    assert bool((dis <= alive).all())
+    if floor == "lambert":
+        assert dis.tolist() == [0] * options.max_depth
+        return
+    _, tri, _, _ = intersect_brute(o, d, ds.scene.vertices, ds.scene.tri_v)
+    assert int(dis[0]) == int(((tri >= 0) & (tri <= 1)).sum()) > 0
+    assert bool((dis[1:] > 0).all()) and bool((dis < alive).all())
+
+
+def test_torch_families_name_what_keeps_the_torch_path():
+    """`integrator.torch_families`, which the graph_capture record carries
+    beside fused_shading: the families kernel B6 does not shade, from the
+    scene's own families."""
+    from caitlynrenderer_tpu_torch.core.types import RenderOptions
+    from caitlynrenderer_tpu_torch.render.integrator import torch_families
+
+    _, _, lambert = _cornell()
+    _, _, dis = _cornell(toml=DISNEY_TOML)
+    assert torch_families(lambert) == ()
+    assert torch_families(dis) == ("disney",)
+    assert torch_families(RenderOptions()) == tuple(
+        f for f in RenderOptions().families if f != "lambert") != ()
 
 
 def test_capture_phase_map_refuses_a_fork(monkeypatch):
@@ -294,6 +380,7 @@ def test_cli_render_profile_and_records(tmp_path, caplog):
     assert rays["rays"] == 48 and len(rays["alive_per_bounce"]) == len(
         rays["anyhit_per_bounce"]) == 3
     assert rays["alive_per_bounce"][0] == 48
+    assert rays["disney_per_bounce"] == [0, 0, 0]
     assert sum(rays["alive_per_bounce"]) == rays["rays_closest"]
     assert sum(rays["anyhit_per_bounce"]) == rays["rays_anyhit"]
     profile, = recs["profile"]

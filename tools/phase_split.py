@@ -12,9 +12,10 @@ replayed.  Writes OUT.json: device milliseconds a sample by phase and by
 phase group, each by kernel class (`cellbench.trace.kernel_class`); the
 benchmark's own integrator and traversal times of the same segment; the
 traced frame; the run's `upload` and `graph_capture` records; and the
-instrumented pass's `rays` record (live lanes and any-hit candidates a
-bounce).  Prints the card's name and power limit and a summary.  Needs an
-NVIDIA card; run from the repository's root with PYTHONPATH=.
+instrumented pass's `rays` record (live lanes, those shading with the
+Disney BRDF and any-hit candidates a bounce).  Prints the card's name and
+power limit and a summary.  Needs an NVIDIA card; run from the
+repository's root with PYTHONPATH=.
 """
 
 import argparse
