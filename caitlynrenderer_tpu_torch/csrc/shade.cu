@@ -1,12 +1,13 @@
-// One bounce's Lambert shading for Hopper (sm_90a): kernel B6.
+// One bounce's Lambert and Disney shading for Hopper (sm_90a): kernel B6.
 //
 // Replaces no Pallas kernel.  It is the port's counterpart of the bounce
 // body that XLA fuses in caitlynrenderer_tpu/render/integrator.py:336-694
-// (hit frame, emissive MIS, NEE set-up and contribution, cosine-weighted
-// continuation), on the no-grad render path of a scene whose families are
-// Lambert alone, with no texture and no environment.  The torch code of
-// render/integrator.py (`hit_frame`, `surface`, `light_sample`,
-// `continuation`; `shade_bounce_plain`, `shade_finish_plain`) is its plain
+// (hit frame, emissive MIS, NEE set-up and contribution, continuation, the
+// Disney branch at :534-622), on the no-grad render path of a scene whose
+// families are Lambert, or Lambert and Disney, with no texture and no
+// environment.  The torch code of render/integrator.py (`hit_frame`,
+// `surface`, `light_sample`, `bsdf_toward`, `continuation`;
+// `shade_bounce_plain`, `shade_finish_plain`) and ops/bsdf.py is its plain
 // twin, which the CPU and autograd paths still run.
 //
 // shade_bounce_kernel, one thread a lane, one launch a bounce between the
@@ -27,24 +28,39 @@
 // t_max = 0 and a unit placeholder direction, keeps T, and adds nothing.
 // shade_finish_kernel is step 1 alone, after the last bounce's any-hit.
 //
+// The kernel is a template on kDisney.  shade_bounce_kernel<false> shades
+// every lane as Lambert (a scene of the Lambert family alone).  In
+// shade_bounce_kernel<true> a lane whose material is not a Lambert type
+// takes the Disney BRDF (ops/bsdf.py) instead, from its row's columns 37-44:
+// in 4, f and the pdf toward the light from `eval_pdf`; in 5, a direction
+// from `sample` (the lobe picked by u_lobe), T *= f / pdf and prev_pdf =
+// max(pdf, 1e-9), and the path ends where pdf <= 1e-9.  Every lobe is
+// evaluated for every Disney lane (diffuse with subsurface, sheen, GGX,
+// clearcoat), as the torch code evaluates them.  Two instantiations keep
+// the Lambert one's registers and code those of a kernel without the
+// branch.
+//
 // Every expression is evaluated in the torch code's order with one
-// rounding per torch op (--fmad=false, IEEE sqrtf, division, cosf, sinf),
-// and each constant is the float the torch op rounds its Python scalar to
-// (double first, then float: static_cast<float> of the double literal).
-// A division by the Python scalar pi is a product with its float
-// reciprocal, as PyTorch's CUDA division by a host scalar computes it.
+// rounding per torch op (--fmad=false, IEEE sqrtf and division, cosf, sinf,
+// logf, powf: the functions torch's CUDA ops call), and each constant is
+// the float the torch op rounds its Python scalar to (double first, then
+// float: static_cast<float> of the double literal, or of the Python
+// expression the code folds).  A division by the Python scalar pi is a
+// product with its float reciprocal, as PyTorch's CUDA division by a host
+// scalar computes it; `1.0 / x` is torch's reciprocal, an IEEE division.
 // clamp propagates NaN as torch.clamp does.
 //
 // What bounds it on an H100: device memory.  A live lane reads its state
 // (o, d, T, L, prev_pdf, the flags, five uniforms, the previous NEE's
 // pending, ~100 B) and a shading row (~120 B of 200, once per lane; rows
 // repeat across lanes and stay in L1/L2 on small scenes) and writes ~70 B;
-// a dead lane reads 1-2 B and writes 18 B.  The arithmetic (~250 FP32
-// operations a live lane, two of them trig) is far below the memory's
-// rate.  So the design keeps a lane's whole bounce in registers, reads
-// each input once, writes each output once, and lets a dead lane leave
-// after its few stores; the outputs are (N, 3) rows, so a warp's stores
-// cover consecutive bytes.
+// a dead lane reads 1-2 B and writes 18 B.  A Disney lane reads 36 B more
+// (eight row columns and a sixth uniform).  The arithmetic (~250 FP32
+// operations a live Lambert lane, two of them trig; ~600 more a Disney
+// lane) is far below the memory's rate.  So the design keeps a lane's
+// whole bounce in registers, reads each input once, writes each output
+// once, and lets a dead lane leave after its few stores; the outputs are
+// (N, 3) rows, so a warp's stores cover consecutive bytes.
 
 #include <cuda_runtime.h>
 
@@ -89,12 +105,37 @@ constexpr int kLightRow = 17;  // columns of the light table
 constexpr float kEps = static_cast<float>(1e-4);          // integrator.EPS
 constexpr float kRayOffset = static_cast<float>(2e-4);    // integrator.RAY_OFFSET
 constexpr float kTiny = static_cast<float>(1e-20);        // clamps and normalize
-constexpr float kCosFloor = static_cast<float>(1e-8);     // light cosine, pdf floor
+constexpr float kCosFloor = static_cast<float>(1e-8);     // light cosine, pdf, bsdf floors
 constexpr float kOnbFloor = static_cast<float>(1e-7);     // core/math.onb
 constexpr float kPole = static_cast<float>(-0.9999999);   // core/math.onb
 constexpr float kPdfCap = static_cast<float>(1e12);       // _power_heuristic
 constexpr float kTwoPi = static_cast<float>(2.0 * 3.141592653589793);
 constexpr float kInvPi = 1.0f / static_cast<float>(3.141592653589793);
+
+// core/types.LAMBERT_TYPES (DIFFUSE 0, LIGHT_DIFFUSE 16) as a bit mask of
+// material type ids: a row of another type is shaded by the Disney BRDF.
+constexpr unsigned long long kLambertTypes = (1ull << 0) | (1ull << 16);
+
+// ops/bsdf.py's Python scalars, as its torch ops round them.
+constexpr float kPi = static_cast<float>(3.141592653589793);       // math.pi
+constexpr float kRoughMin = static_cast<float>(0.02);              // roughness clamp
+constexpr float kIorMin = static_cast<float>(1.01);                // ior clamp
+constexpr float kAlphaMin = static_cast<float>(1e-4);              // alpha, GTR1 a2
+constexpr float kGtr1Max = static_cast<float>(0.9999);             // GTR1 a2
+constexpr float kCosMin = static_cast<float>(1e-6);                // ndv, ndl
+constexpr float kBsdfTiny = static_cast<float>(1e-12);             // GTR, sampling
+constexpr float kGtr1Neg = static_cast<float>(-1e-12);             // GTR1's denominator
+constexpr float kBelowOne = static_cast<float>(1.0 - 1e-12);       // sampling's cos
+constexpr float kPdfMin = static_cast<float>(1e-9);                // continuation
+constexpr float kLumR = static_cast<float>(0.2126);                // core/math.luminance
+constexpr float kLumG = static_cast<float>(0.7152);
+constexpr float kLumB = static_cast<float>(0.0722);
+constexpr float kSpecBias = static_cast<float>(0.08);              // specular lobe weight
+constexpr float kCcSlope = static_cast<float>(0.001 - 0.1);        // lerp(0.1, 0.001, gloss)
+constexpr float kCcBase = static_cast<float>(0.1);
+constexpr float kCcF0 = static_cast<float>(0.04);                  // clearcoat Fresnel
+constexpr float kCcF1 = static_cast<float>(0.96);
+constexpr float kSsScale = static_cast<float>(1.25);               // subsurface
 
 struct V3 {
   float x, y, z;
@@ -122,10 +163,14 @@ __device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.
 
 __device__ __forceinline__ V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
 
-// torch.clamp(v, min=lo) and torch.clamp(v, lo, hi): NaN passes through
+// torch.clamp(v, min=lo), (v, max=hi) and (v, lo, hi): NaN passes through
 // (v != v only for NaN: fast math is never on).
 __device__ __forceinline__ float clamp_min(float v, float lo) {
   return v != v ? v : fmaxf(v, lo);
+}
+
+__device__ __forceinline__ float clamp_max(float v, float hi) {
+  return v != v ? v : fminf(v, hi);
 }
 
 __device__ __forceinline__ float clamp(float v, float lo, float hi) {
@@ -151,6 +196,190 @@ __device__ __forceinline__ float light_pdf(float dist, float area, float cos_lig
   return dist * dist / clamp_min(area * clamp_min(cos_light, kCosFloor), kTiny) * pdf_select;
 }
 
+// ---- The Disney BRDF (ops/bsdf.py), one lane ----------------------------
+
+// bsdf.DisneyParams, from a row by bsdf.params_from_rows (scene.py's column
+// map: 37 ior, 38:42 disney, 42:46 disney2).
+struct Disney {
+  V3 base;
+  float roughness, metallic, spec_tint, sheen, clearcoat, clearcoat_gloss, subsurface, ior;
+};
+
+__device__ __forceinline__ Disney disney_params(const float* row, V3 base) {
+  return {base,
+          clamp(__ldg(row + 38), kRoughMin, 1.0f),
+          __ldg(row + 39),
+          __ldg(row + 40),
+          __ldg(row + 41),
+          __ldg(row + 42),
+          __ldg(row + 43),
+          __ldg(row + 44),
+          clamp_min(__ldg(row + 37), kIorMin)};
+}
+
+__device__ __forceinline__ float luminance(V3 c) {
+  return (c.x * kLumR + c.y * kLumG) + c.z * kLumB;
+}
+
+__device__ __forceinline__ float schlick(float m) {
+  m = clamp(1.0f - m, 0.0f, 1.0f);
+  const float m2 = m * m;
+  return m * (m2 * m2);
+}
+
+__device__ __forceinline__ float gtr2(float ndh, float a) {
+  const float a2 = a * a;
+  const float t = ((a2 - 1.0f) * ndh) * ndh + 1.0f;
+  return a2 / clamp_min((t * kPi) * t, kBsdfTiny);
+}
+
+__device__ __forceinline__ float gtr1(float ndh, float a) {
+  const float a2 = clamp(a * a, kAlphaMin, kGtr1Max);
+  const float t = ((a2 - 1.0f) * ndh) * ndh + 1.0f;
+  return (a2 - 1.0f) / clamp_max((logf(a2) * kPi) * t, kGtr1Neg);
+}
+
+__device__ __forceinline__ float smith_g_ggx(float ndv, float a) {
+  const float a2 = a * a;
+  const float b = ndv * ndv;
+  return 1.0f / clamp_min(ndv + sqrtf((a2 + b) - a2 * b), kCosFloor);
+}
+
+// bsdf._tint: the base color over its luminance, white where that is 0.
+__device__ __forceinline__ V3 tint(V3 c) {
+  const float lum = luminance(c);
+  if (!(lum > 0.0f)) return {1.0f, 1.0f, 1.0f};
+  const float den = clamp_min(lum, kCosFloor);
+  return {c.x / den, c.y / den, c.z / den};
+}
+
+// bsdf._spec_f0, one channel: f0 of the dielectric, tinted, blended with
+// the base color by metallic.
+__device__ __forceinline__ float spec_f0(float f0s, float spec_tint, float tint_c,
+                                         float metallic, float base_c) {
+  const float dielectric = f0s * ((1.0f - spec_tint) + spec_tint * tint_c);
+  return dielectric * (1.0f - metallic) + base_c * metallic;
+}
+
+__device__ __forceinline__ V3 spec_f0(const Disney& p) {
+  const float q = (p.ior - 1.0f) / (p.ior + 1.0f);
+  const float f0s = q * q;
+  const V3 t = tint(p.base);
+  return {spec_f0(f0s, p.spec_tint, t.x, p.metallic, p.base.x),
+          spec_f0(f0s, p.spec_tint, t.y, p.metallic, p.base.y),
+          spec_f0(f0s, p.spec_tint, t.z, p.metallic, p.base.z)};
+}
+
+// bsdf._lobe_weights: the (diffuse, specular, clearcoat) sampling weights.
+__device__ __forceinline__ V3 lobe_weights(const Disney& p) {
+  const float w_diff = (1.0f - p.metallic) * luminance(p.base);
+  const float w_spec = luminance(spec_f0(p)) + kSpecBias;
+  const float w_cc = p.clearcoat * 0.25f;
+  const float total = clamp_min((w_diff + w_spec) + w_cc, kCosFloor);
+  return {w_diff / total, w_spec / total, w_cc / total};
+}
+
+// bsdf.eval_pdf: the cos-premultiplied BRDF toward l and its sampling pdf,
+// both 0 where l lies under the surface.
+__device__ __forceinline__ float eval_pdf(const Disney& p, V3 n, V3 v, V3 l, V3& f) {
+  const float ndv = clamp_min(dot(n, v), kCosMin);
+  const float ndl = dot(n, l);
+  const bool valid = ndl > kCosMin;
+  const float ndl_c = clamp_min(ndl, kCosMin);
+  const V3 h = normalize({v.x + l.x, v.y + l.y, v.z + l.z});
+  const float ndh = clamp(dot(n, h), 0.0f, 1.0f);
+  const float ldh = clamp(dot(l, h), 0.0f, 1.0f);
+  const float a = clamp_min(p.roughness * p.roughness, kAlphaMin);
+
+  // Diffuse (Burley retro-reflection) and the subsurface approximation.
+  const float fl = schlick(ndl_c);
+  const float fv = schlick(ndv);
+  const float fd90 = ((ldh * 2.0f) * ldh) * p.roughness + 0.5f;
+  const float fd = ((fd90 - 1.0f) * fl + 1.0f) * ((fd90 - 1.0f) * fv + 1.0f);
+  const float fss90 = (ldh * ldh) * p.roughness;
+  const float fss = ((fss90 - 1.0f) * fl + 1.0f) * ((fss90 - 1.0f) * fv + 1.0f);
+  const float ss = (fss * (1.0f / clamp_min(ndl_c + ndv, kCosMin) - 0.5f) + 0.5f) * kSsScale;
+  const float diff_mix = fd * (1.0f - p.subsurface) + ss * p.subsurface;
+
+  // Sheen, GGX specular (metallic workflow), clearcoat (GTR1).
+  const float s_ldh = schlick(ldh);
+  const V3 t = tint(p.base);
+  const float d_spec = gtr2(ndh, a);
+  const V3 f0 = spec_f0(p);
+  const float g_spec = smith_g_ggx(ndl_c, a) * smith_g_ggx(ndv, a);
+  const float a_cc = p.clearcoat_gloss * kCcSlope + kCcBase;
+  const float d_cc = gtr1(ndh, a_cc);
+  const float f_cc = s_ldh * kCcF1 + kCcF0;
+  const float g_cc = smith_g_ggx(ndl_c, 0.25f) * smith_g_ggx(ndv, 0.25f);
+  const float f_clearcoat = ((((p.clearcoat * 0.25f) * d_cc) * f_cc) * g_cc) * 0.25f;
+  const float dielectric = 1.0f - p.metallic;
+  const float base[3] = {p.base.x, p.base.y, p.base.z};
+  const float tints[3] = {t.x, t.y, t.z};
+  const float f0s[3] = {f0.x, f0.y, f0.z};
+  float out[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float f_diffuse = (base[c] * kInvPi) * diff_mix;
+    const float f_sheen = (p.sheen * ((1.0f - p.spec_tint) + p.spec_tint * tints[c])) * s_ldh;
+    const float fresnel = f0s[c] + (1.0f - f0s[c]) * s_ldh;
+    const float f_specular = ((d_spec * fresnel) * g_spec) * 0.25f;
+    out[c] = (((f_diffuse + f_sheen) * dielectric + f_specular) + f_clearcoat) * ndl_c;
+  }
+
+  // The pdf: the lobe mixture.
+  const V3 w = lobe_weights(p);
+  const float pdf_diff = ndl_c * kInvPi;
+  const float pdf_spec = (d_spec * ndh) / clamp_min(ldh * 4.0f, kCosFloor);
+  const float pdf_cc = (d_cc * ndh) / clamp_min(ldh * 4.0f, kCosFloor);
+  const float pdf = (w.x * pdf_diff + w.y * pdf_spec) + w.z * pdf_cc;
+  f = valid ? V3{out[0], out[1], out[2]} : V3{0.0f, 0.0f, 0.0f};
+  return valid ? pdf : 0.0f;
+}
+
+// core/math.local_to_world of a local direction in the basis (ub, vb, n).
+__device__ __forceinline__ V3 to_world(V3 ub, V3 vb, V3 n, float lx, float ly, float lz) {
+  return {(ub.x * lx + vb.x * ly) + n.x * lz, (ub.y * lx + vb.y * ly) + n.y * lz,
+          (ub.z * lx + vb.z * ly) + n.z * lz};
+}
+
+// core/math.reflect(d, h): d - 2 (d . h) h.
+__device__ __forceinline__ V3 reflect(V3 d, V3 h) {
+  const float k = dot(d, h) * 2.0f;
+  return {d.x - k * h.x, d.y - k * h.y, d.z - k * h.z};
+}
+
+// A half-vector about n with cos^2 theta = ct2 and azimuth 2 pi u1
+// (bsdf._sample_ggx_h and _sample_gtr1_h after ct2), reflected: the
+// outgoing direction of incident d.
+__device__ __forceinline__ V3 reflect_about_half(V3 d, V3 ub, V3 vb, V3 n, float ct2, float u1) {
+  const float phi = u1 * kTwoPi;
+  const float ct = sqrtf(clamp(ct2, kBsdfTiny, kBelowOne));
+  const float st = sqrtf(clamp(1.0f - ct2, kBsdfTiny, kBelowOne));
+  return reflect(d, to_world(ub, vb, n, st * cosf(phi), st * sinf(phi), ct));
+}
+
+// bsdf.sample: the lobe picked by u_lobe against the lobe weights, a
+// direction sampled within it (l_diff: the cosine-weighted one, already
+// made), normalized; f and the pdf toward it from eval_pdf.
+__device__ __forceinline__ V3 disney_sample(const Disney& p, V3 n, V3 ub, V3 vb, V3 d,
+                                            V3 l_diff, float u_lobe, float u1, float u2,
+                                            V3& f, float& pdf) {
+  const V3 w = lobe_weights(p);
+  const float a = clamp_min(p.roughness * p.roughness, kAlphaMin);
+  const float a_cc = p.clearcoat_gloss * kCcSlope + kCcBase;
+  const float ct2_spec = (1.0f - u2) / clamp_min(((a * a) - 1.0f) * u2 + 1.0f, kBsdfTiny);
+  const V3 l_spec = reflect_about_half(d, ub, vb, n, ct2_spec, u1);
+  const float a2 = clamp(a_cc * a_cc, kAlphaMin, kGtr1Max);
+  const float ct2_cc = (1.0f - powf(a2, 1.0f - u2)) / clamp_min(1.0f - a2, kCosFloor);
+  const V3 l_cc = reflect_about_half(d, ub, vb, n, ct2_cc, u1);
+  const float w_ds = w.x + w.y;
+  const bool pick_spec = u_lobe >= w.x && u_lobe < w_ds;
+  const bool pick_cc = u_lobe >= w_ds;
+  const V3 l = normalize(pick_cc ? l_cc : (pick_spec ? l_spec : l_diff));
+  pdf = eval_pdf(p, n, {-d.x, -d.y, -d.z}, l, f);
+  return l;
+}
+
 // What a lane that shades nothing more writes: no any-hit query, and the
 // next query's ray unchanged where it is written to a buffer of its own.
 __device__ __forceinline__ void leave(const ShadeArgs& a, long long i) {
@@ -163,6 +392,7 @@ __device__ __forceinline__ void leave(const ShadeArgs& a, long long i) {
   }
 }
 
+template <bool kDisney>
 __global__ void __launch_bounds__(kBlock) shade_bounce_kernel(const ShadeArgs a) {
   const long long i = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
   if (i >= a.n) return;
@@ -251,12 +481,24 @@ __global__ void __launch_bounds__(kBlock) shade_bounce_kernel(const ShadeArgs a)
   a.t_max[i] = c ? dist - kEps : 0.0f;
   store3(a.ldir + 3 * i, ld);
   const V3 alb = ldg3(row + 26);
+  // The Disney BRDF's lanes (integrator.surface): a type that is not Lambert.
+  bool disney = false;
+  Disney p;
+  if constexpr (kDisney) {
+    const int type = static_cast<int>(rintf(__ldg(row + 29)));
+    disney = type < 0 || type > 63 || !((kLambertTypes >> type) & 1ull);
+    if (disney) p = disney_params(row, alb);
+  }
   if (c) {
     const float pdf = light_pdf(dist, __ldg(lr + 15), -cos_light, a.pdf_select);
     const float cos_pos = clamp_min(cos_mtl, 0.0f);
     const float f_scale = cos_pos * kInvPi;
-    const V3 f = a.exact_nee ? alb : scale(alb, f_scale);
-    const float w = power_heuristic(pdf, cos_pos * kInvPi);
+    V3 f = a.exact_nee ? alb : scale(alb, f_scale);
+    float bsdf_pdf = cos_pos * kInvPi;
+    if constexpr (kDisney) {
+      if (disney) bsdf_pdf = eval_pdf(p, nf, {-d.x, -d.y, -d.z}, ld, f);
+    }
+    const float w = power_heuristic(pdf, bsdf_pdf);
     const float k = w / clamp_min(pdf, kTiny);
     const V3 le = ldg3(lr + 12);
     store3(a.pending + 3 * i,
@@ -264,7 +506,8 @@ __global__ void __launch_bounds__(kBlock) shade_bounce_kernel(const ShadeArgs a)
   }
 
   // 5. The continuation (core/math.cosine_hemisphere_dir, onb,
-  // local_to_world; integrator.continuation's Lambert lobe).
+  // local_to_world; integrator.continuation's Lambert lobe, and its Disney
+  // sample, whose diffuse lobe is that direction).
   const float r = sqrtf(u_b1);
   const float phi = u_b2 * kTwoPi;
   const float lx = r * cosf(phi), ly = r * sinf(phi);
@@ -281,6 +524,24 @@ __global__ void __launch_bounds__(kBlock) shade_bounce_kernel(const ShadeArgs a)
   }
   const V3 dir = {(ub.x * lx + vb.x * ly) + nf.x * lz, (ub.y * lx + vb.y * ly) + nf.y * lz,
                   (ub.z * lx + vb.z * ly) + nf.z * lz};
+  if constexpr (kDisney) {
+    if (disney) {
+      V3 f;
+      float pdf;
+      const V3 l = disney_sample(p, nf, ub, vb, d, dir, ur[5], u_b1, u_b2, f, pdf);
+      const float pdf_c = clamp_min(pdf, kPdfMin);
+      a.prev_pdf[i] = pdf_c;
+      if (pdf > kPdfMin) {
+        store3(a.T + 3 * i, {T.x * (f.x / pdf_c), T.y * (f.y / pdf_c), T.z * (f.z / pdf_c)});
+      } else {
+        a.alive[i] = false;  // no pdf: the path ends, T kept
+      }
+      store3(a.o_out + 3 * i, hp);
+      store3(a.d_out + 3 * i, normalize(l));
+      if (l_read) store3(a.L + 3 * i, L);
+      return;
+    }
+  }
   a.prev_pdf[i] = clamp_min(lz, kCosFloor) * kInvPi;
   store3(a.T + 3 * i, {T.x * alb.x, T.y * alb.y, T.z * alb.z});
   store3(a.o_out + 3 * i, hp);
@@ -307,13 +568,19 @@ unsigned blocks(long long n) { return static_cast<unsigned>((n + kBlock - 1) / k
 // (PyTorch's current stream), does not synchronise, and returns
 // cudaGetLastError() so a refused launch is reported to the caller.
 
-extern "C" int shade_bounce(const ShadeArgs* args, int device, void* stream) {
+// disney: launch shade_bounce_kernel<true> (a scene of the Lambert and
+// Disney families), else shade_bounce_kernel<false> (Lambert alone).
+extern "C" int shade_bounce(const ShadeArgs* args, int disney, int device, void* stream) {
   if (args->n < 0 || args->num_lights < 1 || args->u_base < 0 || args->u_base + 7 > args->n_u)
     return static_cast<int>(cudaErrorInvalidValue);
   if (args->n == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  shade_bounce_kernel<<<blocks(args->n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(*args);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (disney)
+    shade_bounce_kernel<true><<<blocks(args->n), kBlock, 0, s>>>(*args);
+  else
+    shade_bounce_kernel<false><<<blocks(args->n), kBlock, 0, s>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
 

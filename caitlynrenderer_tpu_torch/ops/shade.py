@@ -1,10 +1,15 @@
-"""One bounce's Lambert shading on the card: kernel B6 (csrc/shade.cu).
+"""One bounce's Lambert and Disney shading on the card: kernel B6
+(csrc/shade.cu).
 
 No Pallas kernel stands behind it: it is the bounce body that XLA fuses in
 caitlynrenderer_tpu/render/integrator.py:336-694 (hit frame, emissive MIS,
 NEE set-up and contribution, continuation), for the no-grad render path
-of a Lambert-only scene with no texture and no environment
-(`render/integrator.fused_shading`).
+of a scene of the Lambert family, or of the Lambert and Disney families,
+with no texture and no environment (`render/integrator.fused_shading`).
+The families a bounce is handed pick the kernel's instantiation:
+`shade_bounce_kernel<true>` where they hold "disney" (a lane of a type
+that is not Lambert takes the Disney BRDF of ops/bsdf.py), else
+`shade_bounce_kernel<false>`, which has no Disney code.
 
 `shade_bounce` launches `shade_bounce_kernel` once a bounce, between the
 closest-hit and the any-hit query; it first adds the previous bounce's NEE
@@ -19,9 +24,10 @@ one rounding an op, so the two agree bit for bit.
 The path state is updated in place: alive, T, L and prev_pdf; o_out and
 d_out may be the input rays' own tensors.
 
-`launches` counts the two kernels' launches ("bounce", "finish"); its
-twin keys, which every kernel module's counter has, stay 0: nothing
-calls the twins in the kernels' place outside the tests.
+`launches` counts the kernels' launches ("bounce" the Lambert
+instantiation, "bounce_disney" the Disney one, "finish"); its twin keys,
+which every kernel module's counter has, stay 0: nothing calls the twins
+in the kernels' place outside the tests.
 """
 
 from __future__ import annotations
@@ -36,11 +42,14 @@ from caitlynrenderer_tpu_torch.ops import _build
 SOURCE = "caitlynrenderer_tpu_torch/csrc/shade.cu"
 REPLACES = "caitlynrenderer_tpu/render/integrator.py:336-694 (XLA-fused, no Pallas kernel)"
 
-launches = _build.launch_counter("shade", {"bounce": "shade_bounce_kernel",
+launches = _build.launch_counter("shade", {"bounce": "shade_bounce_kernelILb0E",
+                                           "bounce_disney": "shade_bounce_kernelILb1E",
                                            "finish": "shade_finish_kernel"})
 
 SHADE_COLS, LIGHT_COLS = 50, 17
 UNIFORMS_A_BOUNCE = 7
+# The shading families the kernel takes.
+FAMILIES = ("lambert", "disney")
 
 
 class _Args(ctypes.Structure):
@@ -56,7 +65,9 @@ class _Args(ctypes.Structure):
 
 
 _SIGNATURES = {
-    "shade_bounce": (ctypes.c_int, [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]),
+    # args, disney, device, stream
+    "shade_bounce": (ctypes.c_int, [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]),
     # n, cand, shadowed, pending, L, device, stream
     "shade_finish": (ctypes.c_int, [ctypes.c_longlong] + [ctypes.c_void_p] * 4
                      + [ctypes.c_int, ctypes.c_void_p]),
@@ -107,15 +118,21 @@ def _check_nee(n, nee, dev) -> None:
 
 def shade_bounce(shade_tab, light_tab, o, d, tri, uniforms, bounce: int, state: PathState,
                  prev: Optional[tuple] = None, exact_nee: bool = False,
-                 out: Optional[tuple] = None) -> Shaded:
+                 out: Optional[tuple] = None, families=("lambert",)) -> Shaded:
     """Bounce `bounce` of every lane: `prev` is the previous bounce's
     (cand, shadowed, pending), None on the first bounce.  o, d: (N, 3) f32
     rays of this bounce's closest-hit query; tri: (N,) int32, its answer;
     uniforms: (N, 4 + 7 * max_depth) f32; shade_tab (T, 50) and light_tab
     (L >= 1, 17) f32.  `out` = (o_out, d_out) receives the next rays (new
-    tensors where it is None; it may be (o, d) themselves)."""
+    tensors where it is None; it may be (o, d) themselves).  `families`,
+    the scene's shading families (of FAMILIES), picks the instantiation:
+    the Disney one where it holds "disney"."""
     dev = o.device
     _require_cuda(dev)
+    if not set(families) <= set(FAMILIES):
+        raise ValueError(f"the shading kernel shades the families {FAMILIES}, got "
+                         f"{tuple(families)}")
+    disney = "disney" in families
     n = o.shape[0]
     f32 = torch.float32
     for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("T", state.T, (n, 3)),
@@ -151,10 +168,10 @@ def shade_bounce(shade_tab, light_tab, o, d, tri, uniforms, bounce: int, state: 
                  res.pending.data_ptr())
     lib = _build.load("shade", _SIGNATURES)
     with torch.cuda.device(dev):
-        rc = lib.shade_bounce(ctypes.byref(args), dev.index,
+        rc = lib.shade_bounce(ctypes.byref(args), int(disney), dev.index,
                               torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on(rc, lib.shade_error_string, "shade_bounce")
-    launches["bounce"] += 1
+    launches["bounce_disney" if disney else "bounce"] += 1
     return res
 
 

@@ -21,10 +21,10 @@ order of the arithmetic are the reference's, so the tests can hold the
 two against each other per pixel.  A vertex's steps (`hit_frame`, `surface`,
 `light_sample`, `continuation`) are functions of their own, so that
 chip_smoke.py builds the kernels' bounce and shadow ray sets with the
-integrator's code.  On the card a Lambert-only scene rendered
-without grad shades each bounce in one launch of kernel B6 (ops/shade.py,
-`trace_paths_fused`, chosen by `fused_shading`); those steps are its
-plain twin, bit for bit.
+integrator's code.  On the card a scene of the Lambert family, or of the
+Lambert and Disney families, rendered without grad shades each bounce in
+one launch of kernel B6 (ops/shade.py, `trace_paths_fused`, chosen by
+`fused_shading`); those steps are its plain twin, bit for bit.
 
 Shading: the four families of the reference (Lambert, the Disney BRDF
 of ops/bsdf.py for every microfacet type, mirror, glass), textured albedo
@@ -245,6 +245,20 @@ def _lambert_toward(albedo, cos_mtl, exact_reference_nee: bool):
     else:
         f_nee = albedo * (cos_pos / math.pi)[:, None]
     return f_nee, cos_pos / math.pi
+
+
+def bsdf_toward(surf, n_flip, d, ldir, cos_mtl, exact_reference_nee: bool,
+                phase: str = "bsdf"):
+    """The BSDF's value toward the light (cos-premultiplied) and its pdf,
+    by family: Lambert's (`_lambert_toward`), and the Disney BRDF's
+    `bsdf.eval_pdf` on Disney lanes (in span `phase`)."""
+    f_nee, bsdf_pdf = _lambert_toward(surf.albedo, cos_mtl, exact_reference_nee)
+    if surf.disney is not None:
+        with metrics.span(phase):
+            f_dis, pdf_dis = bsdf.eval_pdf(surf.dis_p, n_flip, -d, ldir)
+            f_nee = torch.where(surf.disney[:, None], f_dis, f_nee)
+            bsdf_pdf = torch.where(surf.disney, pdf_dis, bsdf_pdf)
+    return f_nee, bsdf_pdf
 
 
 def _nee_contrib(T, lrows, f_nee, pdf_light, bsdf_pdf):
@@ -471,22 +485,24 @@ def continuation(hf: HitFrame, surf: Surface, d, T, u_b1, u_b2, u_lobe, phase: s
     return cm.normalize(new_d), new_T, new_pdf, new_spec, ok, origin
 
 
-# The shading families kernel B6 takes.
-FUSED_FAMILIES = ("lambert",)
+# The shading families kernel B6 takes: ("lambert", "disney").
+FUSED_FAMILIES = shade.FAMILIES
 
 
 def fused_shading(ds: DeviceScene, o, d, uniforms, options: RenderOptions,
                   with_stats: bool = False) -> bool:
     """Whether `trace_paths` shades each bounce with kernel B6 (ops/shade.py,
     `trace_paths_fused`) rather than the torch code below: the rays, the
-    uniforms and the scene's tables on CUDA, the Lambert family alone, no
-    texture, no environment, at least one light (without one the torch code
-    skips the emissive MIS and NEE), no ray-count stats, and nothing the
-    bounce reads requiring grad while grad mode is on."""
+    uniforms and the scene's tables on CUDA, families of FUSED_FAMILIES
+    alone and Lambert among them, no texture, no environment, at least one
+    light (without one the torch code skips the emissive MIS and NEE), no
+    ray-count stats, and nothing the bounce reads requiring grad while grad
+    mode is on."""
     sc = ds.scene
     tensors = (o, d, uniforms, ds.shade_tab, ds.light_tab)
     return (all(x.device.type == "cuda" for x in tensors)
-            and tuple(options.families) == FUSED_FAMILIES
+            and "lambert" in options.families
+            and set(options.families) <= set(FUSED_FAMILIES)
             and (sc.textures is None or sc.texcoords.shape[0] == 0)
             and not options.use_env_map
             and ds.light_tab.shape[0] > 0
@@ -502,21 +518,23 @@ def torch_families(options: RenderOptions) -> tuple:
 
 def shade_bounce_plain(ds: DeviceScene, o, d, tri, uniforms, bounce: int,
                        state: shade.PathState, prev=None, exact_nee: bool = False,
-                       out=None) -> shade.Shaded:
+                       out=None, families=("lambert",)) -> shade.Shaded:
     """Kernel B6's plain twin (`ops/shade.shade_bounce`, the same arguments
-    with the scene for its tables): the torch path's bounce on a
-    Lambert-only scene, from the closest hit's triangles `tri` to the
-    any-hit query's rays and the continuation, updating `state` in place.
-    Where the kernel leaves a value undefined (pending outside cand) the
-    twin writes 0; a lane that shades nothing more gets the kernel's
-    placeholder shadow direction (0, 0, 1) and keeps its ray."""
+    with the scene for its tables): the torch path's bounce on a scene of
+    the shading families `families` (of FUSED_FAMILIES), from the closest
+    hit's triangles `tri` to the any-hit query's rays and the
+    continuation, updating `state` in place.  Where the kernel leaves a
+    value undefined (pending outside cand) the twin writes 0; a lane that
+    shades nothing more gets the kernel's placeholder shadow direction
+    (0, 0, 1) and keeps its ray; a Disney lane whose sample has no pdf
+    ends with its T, its next ray and prev_pdf written."""
     alive, T, L, prev_pdf = state
     if prev is not None:
         shade_finish_plain(L, *prev)
     u_lp, u_l1, u_l2, u_b1, u_b2, u_lobe, _ = bounce_uniforms(uniforms, bounce)
     zero = torch.zeros_like(u_lp)
     hf = hit_frame(ds, o, d, zero, tri, zero, zero)
-    surf = surface(ds, hf, ("lambert",))
+    surf = surface(ds, hf, families)
     got = alive & hf.keep
     hit_light = got & (hf.rows[:, 33] != -1)
     is_specular = torch.full_like(alive, bounce == 0)
@@ -526,16 +544,16 @@ def shade_bounce_plain(ds: DeviceScene, o, d, tri, uniforms, bounce: int,
     lrows, ldir, dist, cos_mtl, cos_light, cand, t_max = light_sample(
         ds.light_tab, hf.point, hf.n_flip, u_lp, u_l1, u_l2, live, surf.specular)
     pdf_light = _light_pdf(dist, lrows[:, 15], -cos_light, 1.0 / ds.light_tab.shape[0])
-    f_nee, bsdf_pdf = _lambert_toward(surf.albedo, cos_mtl, exact_nee)
+    f_nee, bsdf_pdf = bsdf_toward(surf, hf.n_flip, d, ldir, cos_mtl, exact_nee)
     pending = torch.where(cand[:, None], _nee_contrib(T, lrows, f_nee, pdf_light, bsdf_pdf), 0.0)
-    new_d, new_T, new_pdf, _, _, origin = continuation(hf, surf, d, T, u_b1, u_b2, u_lobe)
+    new_d, new_T, new_pdf, _, ok, origin = continuation(hf, surf, d, T, u_b1, u_b2, u_lobe)
     keep = live[:, None]
     o_out, d_out = out if out is not None else (torch.empty_like(o), torch.empty_like(d))
     o_out.copy_(torch.where(keep, origin, o))
     d_out.copy_(torch.where(keep, new_d, d))
-    T.copy_(torch.where(keep, new_T, T))
+    T.copy_(torch.where((live & ok)[:, None], new_T, T))
     prev_pdf.copy_(torch.where(live, new_pdf, prev_pdf))
-    alive.copy_(live)
+    alive.copy_(live & ok)
     up = torch.zeros_like(ldir)
     up[:, 2] = 1.0
     return shade.Shaded(o_out, d_out, torch.where(keep, ldir, up), t_max, cand, pending)
@@ -586,7 +604,8 @@ def trace_paths_fused(ds: DeviceScene, o, d, uniforms, options: RenderOptions,
             # From bounce 1 on the next rays overwrite this bounce's, which
             # are the fused loop's own buffers.
             sh = bounce_fn(ds, o, d, tri, uniforms, bounce, state, prev,
-                           options.exact_reference_nee, (o, d) if bounce else None)
+                           options.exact_reference_nee, (o, d) if bounce else None,
+                           options.families)
         with metrics.span(b + "anyhit"):
             shadowed = _occluded(ds, sh.o, sh.ldir, sh.t_max, sh.cand, options, og)
         o, d, prev = sh.o, sh.d, (sh.cand, shadowed, sh.pending)
@@ -609,9 +628,10 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
     uniforms: (N, 4 + 7*max_depth), layout in render/sampling.py; the first
     4 (raygen) entries are unused here.
 
-    Where `fused_shading` holds (a Lambert-only scene rendered on the card
-    without grad or stats) this is `trace_paths_fused`, kernel B6; every
-    other case runs the torch code below.
+    Where `fused_shading` holds (a scene of the Lambert, or the Lambert and
+    Disney, families rendered on the card without grad or stats) this is
+    `trace_paths_fused`, kernel B6; every other case runs the torch code
+    below.
     """
     check_supported(ds, options)
     if fused_shading(ds, o, d, uniforms, options, with_stats):
@@ -677,14 +697,8 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
                     shadowed = _occluded(ds, hf.point, ldir, shadow_t, cand, options, og)
                 visible = cand & ~shadowed
                 pdf_light = _light_pdf(dist, lrows[:, 15], -cos_light, 1.0 / num_lights)
-                # The BSDF's value toward the light and its pdf, by family.
-                f_nee, bsdf_pdf = _lambert_toward(surf.albedo, cos_mtl,
-                                                  options.exact_reference_nee)
-                if surf.disney is not None:
-                    with metrics.span(b + "bsdf"):
-                        f_dis, pdf_dis = bsdf.eval_pdf(surf.dis_p, hf.n_flip, -d, ldir)
-                        f_nee = torch.where(surf.disney[:, None], f_dis, f_nee)
-                        bsdf_pdf = torch.where(surf.disney, pdf_dis, bsdf_pdf)
+                f_nee, bsdf_pdf = bsdf_toward(surf, hf.n_flip, d, ldir, cos_mtl,
+                                              options.exact_reference_nee, b + "bsdf")
                 contrib = _nee_contrib(T, lrows, f_nee, pdf_light, bsdf_pdf)
                 L = L + torch.where(visible[:, None], contrib, 0.0)
 

@@ -200,7 +200,8 @@ class SampleGraph:
             t0 = time.perf_counter()
             self.graph.instantiate()
             self.instantiate_s = time.perf_counter() - t0
-        self.fused_shading = self.launches["shade"]["bounce"] > 0
+        self.fused_shading = (self.launches["shade"]["bounce"]
+                              + self.launches["shade"]["bounce_disney"]) > 0
         self.torch_families = [] if self.fused_shading else list(torch_families(options))
         self.phases = self.phase_nodes = None
         if phases is not None:

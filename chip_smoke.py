@@ -230,9 +230,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      under wide, the two graphs' accumulations equal bit for bit; (d) both
      graphs' nodes a sample.  Its numbers are also printed as one
      {"phase22": ...} JSON line before the kernels' line.
- 23. B6, the shading kernel (ops/shade.py; every bounce of a Lambert-only
-     scene on the card), at the main paths' shapes: the 700x700 cornell
-     (B1, 3 bounces) and grid1m at 1024x1024 (B2, 6 bounces), bounce 0 on
+ 23. B6, the shading kernel (ops/shade.py; every bounce of a Lambert or
+     Lambert + Disney scene on the card), at the main paths' shapes: the
+     700x700 cornell (B1, 3 bounces) and grid1m at 1024x1024 (B2, 6
+     bounces) through its Lambert instantiation, the 700x700 Disney-floor
+     cornell (B1, 4 bounces) through its Disney one, bounce 0 on
      the camera rays, then bounce 1 on bounce 0's next rays with bounce
      0's NEE folded in, and the finishing add of bounce 1's NEE: (a) B6
      against its twins (`integrator.shade_bounce_plain`,
@@ -817,7 +819,10 @@ def b6_launches(ds, o, d, uni, options, samples):
     from caitlynrenderer_tpu_torch.render.integrator import fused_shading
 
     k = samples if fused_shading(ds, o, d, uni, options) else 0
-    return {"bounce": options.max_depth * k, "finish": k, "bounce_twin": 0, "finish_twin": 0}
+    out = {"bounce": 0, "bounce_disney": 0, "finish": k, "bounce_twin": 0,
+           "bounce_disney_twin": 0, "finish_twin": 0}
+    out["bounce_disney" if "disney" in options.families else "bounce"] = options.max_depth * k
+    return out
 
 
 def only_path(launches, name):
@@ -2454,11 +2459,14 @@ def phase22(dev, smi, frame_runs):
 # Shading-table columns a live lane of B6 reads: v0, e1, e2, the smooth
 # flag, the albedo, the emissive flag (0-8, 18, 26-28, 33); the vertex
 # normals (9-17) where the row is smooth; the light index and emission
-# (25, 30-32) where it is emissive.
+# (25, 30-32) where it is emissive.  The Disney instantiation also reads
+# the material type (29) of a row that is not emissive, and the Disney
+# parameters (37-44) of a Disney row.
 B6_ROW_COLS, B6_SMOOTH_COLS, B6_EMISSIVE_COLS = 14, 9, 4
+B6_TYPE_COLS, B6_DISNEY_COLS = 1, 8
 
 
-def shade_bound(ds, tri, alive, sh, prev, bounce):
+def shade_bound(ds, tri, alive, sh, prev, bounce, families=("lambert",)):
     """B6's bound, (ms, "bytes"), and the lane counts it rests on: the
     bytes a bounce needs over PEAK_BYTES.  Each lane's state is read and
     written as its outcome needs it: every lane reads its alive flag and
@@ -2467,8 +2475,14 @@ def shade_bound(ds, tri, alive, sh, prev, bounce):
     emissive hit after bounce 0, the previous NEE's flags and pending where
     its candidate saw the light; it writes what it changes, and t_max and
     the direction only where the any-hit query runs.  Plus the used columns
-    of each distinct shading row once, and the light table."""
+    of each distinct shading row once, and the light table.  Where
+    `families` holds "disney" (the Disney instantiation), a Disney lane
+    that goes on reads a sixth uniform, and a row its type and, for a
+    Disney row, its eight Disney parameters."""
+    from caitlynrenderer_tpu_torch.render import integrator
+
     count = lambda m: int(m.sum())  # noqa: E731
+    disney = "disney" in families
     n = int(alive.numel())
     live = alive & (tri >= 0)
     rows = ds.shade_tab[torch.clamp(tri, min=0).long()]
@@ -2476,7 +2490,11 @@ def shade_bound(ds, tri, alive, sh, prev, bounce):
     cont = live & ~emissive
     visible = (prev[0] & ~prev[1]) if prev is not None else torch.zeros_like(alive)
     adds = emissive | visible
+    dis_row = lambda r: ~integrator._type_is(torch.round(r[:, 29]).long(),  # noqa: E731
+                                             integrator._LAMBERT_IDS)
+    dis_lanes = cont & dis_row(rows) if disney else torch.zeros_like(cont)
     read = n + 4 * count(alive) + 36 * count(live) + 20 * count(cont) + 12 * count(adds)
+    read += 4 * count(dis_lanes)  # u_lobe
     if bounce:  # the previous NEE's flags and pending; prev_pdf for the MIS
         read += n + count(prev[0]) + 12 * count(visible) + 4 * count(emissive)
     write = n + 16 * count(sh.cand) + 12 * count(sh.cand)  # cand, t_max + ldir, pending
@@ -2485,12 +2503,15 @@ def shade_bound(ds, tri, alive, sh, prev, bounce):
     drows = ds.shade_tab[distinct]
     cols = (B6_ROW_COLS + B6_SMOOTH_COLS * (drows[:, 18] > 0.5).long()
             + B6_EMISSIVE_COLS * (drows[:, 33] != -1).long())
+    if disney:
+        shaded = drows[:, 33] == -1
+        cols = cols + shaded.long() * (B6_TYPE_COLS + B6_DISNEY_COLS * dis_row(drows).long())
     table = 4 * int(cols.sum()) + 4 * ds.light_tab.numel()
     total = read + write + table
     return (total / PEAK_BYTES * 1e3, "bytes"), {
         "bytes": total, "live": count(live), "emissive": count(emissive),
         "cand": count(sh.cand), "visible_prev": count(visible),
-        "distinct_rows": int(distinct.numel())}
+        "disney": count(dis_lanes), "distinct_rows": int(distinct.numel())}
 
 
 def finish_bound(cand, shadowed):
@@ -2559,7 +2580,8 @@ def phase23(dev, smi, runs, reps=30):
                                 torch.ones((n, 3), device=dev), torch.zeros((n, 3), device=dev),
                                 torch.ones(n, device=dev))
         og = torch.zeros(n, dtype=torch.int32, device=dev)
-        exact = options.exact_reference_nee
+        exact, fams = options.exact_reference_nee, options.families
+        kind = "disney" if "disney" in fams else "lambert"
         prev = None
         for bounce in (0, 1):
             _, tri, _, _, grp = integrator._closest_hit_raw(ds, o, d, state.alive, options, og)
@@ -2577,11 +2599,11 @@ def phase23(dev, smi, runs, reps=30):
 
             def kernel(tri=tri, prev=prev, bounce=bounce, rays=rays):
                 return shade.shade_bounce(ds.shade_tab, ds.light_tab, o, d, tri, uni, bounce,
-                                          work, prev, exact, rays)
+                                          work, prev, exact, rays, fams)
 
             def plain(tri=tri, prev=prev, bounce=bounce, rays=twin_rays):
                 return integrator.shade_bounce_plain(ds, o, d, tri, uni, bounce, twin, prev,
-                                                     exact, rays)
+                                                     exact, rays, fams)
 
             k_ms, k_min = restored_ms(kernel, restore, reps)
             t_ms, t_min = restored_ms(plain, lambda: restore(twin), max(reps // 3, 3))
@@ -2602,13 +2624,14 @@ def phase23(dev, smi, runs, reps=30):
             check(equal and e == 0.0, f"{label} bounce {bounce}: B6 differs from its twin "
                   f"(max |diff| {e})")
             err["bounce"] = max(err["bounce"], e)
-            bound, counts = shade_bound(ds, tri, saved.alive, sh, prev, bounce)
-            row = {"scene": label, "bounce": bounce, "lanes": n, **counts, "bound_ms": bound[0],
+            bound, counts = shade_bound(ds, tri, saved.alive, sh, prev, bounce, fams)
+            row = {"scene": label, "instantiation": kind, "bounce": bounce, "lanes": n,
+                   **counts, "bound_ms": bound[0],
                    "ms": k_ms, "min_ms": k_min, "share_pct": 100.0 * bound[0] / k_ms,
                    "plain_ms": t_ms, "plain_min_ms": t_min, "max_abs_err": e}
             rec["bounces"].append(row)
-            print(f"  {label} bounce {bounce}: {n} lanes, {counts['live']} live, "
-                  f"{counts['cand']} any-hit; B6 {k_ms:.4f} ms (least {k_min:.4f}), bound "
+            print(f"  {label} bounce {bounce} ({kind}): {n} lanes, {counts['live']} live, "
+                  f"{counts['disney']} Disney, {counts['cand']} any-hit; B6 {k_ms:.4f} ms (least {k_min:.4f}), bound "
                   f"{bound[0]:.4f} ms by {counts['bytes']} bytes ({row['share_pct']:.1f} %), "
                   f"twin {t_ms:.3f} ms; outputs equal bit for bit", flush=True)
             shadowed = integrator._occluded(ds, sh.o, sh.ldir, sh.t_max, sh.cand, options, og)
@@ -3458,11 +3481,15 @@ def run(sbvh_grid1m):
 
     # ------------------------------------------------------------- phase 23
     phase("23 B6: the shading kernel")
+    sc23, cam23, opts23 = render_setup(cornell_cfg("disney"), base_dir, width=DEMO, height=DEMO,
+                                       max_depth=4, accel="brute")
     rec23, err_b6, b6_rows = phase23(dev, smi, [
         (f"cornell {DEMO}x{DEMO} brute (B1)", ds_main, camera, demo_opts),
         ("grid1m 1024x1024 wide (B2)", mds, grid_cam,
          RenderOptions(width=1024, height=1024, max_depth=6, accel="wide",
                        families=scene_families(grid1m))),
+        (f"cornell_disney {DEMO}x{DEMO} brute (B1)", upload_scene(sc23, "brute", dev), cam23,
+         opts23),
     ])
     print(json.dumps({"phase23": rec23}))
 

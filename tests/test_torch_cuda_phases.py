@@ -7,8 +7,10 @@ kernels or B5 add up to the render stage's, as the benchmark's trace
 reader counts them.  Both scenes are Lambert-only, so the card shades
 them through kernel B6 (group shade; no node in hit, nee or bounce); each
 test runs them again on the torch path (`fused_shading` patched false),
-whose hit, nee and bounce groups the Disney, mirror, glass, textured and
-sky-lit scenes still take.
+whose hit, nee and bounce groups the mirror, glass, textured and sky-lit
+scenes still take.  The Disney-floor scene's graph is shaded by B6's
+Disney instantiation, and on the torch path (patched) fills the bsdf
+group.
 
 Marked `cuda`; every test skips (inside the fixture) when torch sees no
 CUDA device: `python -m pytest tests/ -m cuda -q` on an NVIDIA card."""
@@ -144,18 +146,23 @@ def test_traced_replay_groups_add_up_to_the_integrator(dev, accel, shading, monk
     progressive.clear_graphs()
 
 
-def test_disney_graph_names_its_families_and_its_bsdf_nodes(dev):
-    """The Disney-floor cornell at 4 bounces on the card: its graph keeps
-    the torch path, its record names the family that kept it there, its
-    bsdf group holds nodes (the span adds none: a capture without the
-    phase map has as many), and its accumulation is finite and equals the
-    same samples rendered eagerly, bit for bit."""
-    progressive.clear_graphs()
+def _disney_box(dev):
     cfg = config.load_config(DISNEY_TOML)
     scene, camera, options = render_setup(cfg, os.path.dirname(DISNEY_TOML), width=96,
                                           height=64, accel="brute")
-    options = options._replace(max_depth=4)
-    ds = upload_scene(scene, "brute", dev)
+    return upload_scene(scene, "brute", dev), camera, options._replace(max_depth=4)
+
+
+def test_disney_graph_names_its_families_and_its_bsdf_nodes(dev, monkeypatch):
+    """The Disney-floor cornell at 4 bounces on the card, on the torch path
+    (`fused_shading` patched false): its record reads no fused shading and
+    no family B6 leaves to the torch path (B6 takes Disney: only the patch
+    keeps it off), its bsdf group holds nodes (the span adds none: a
+    capture without the phase map has as many), and its accumulation is
+    finite and equals the same samples rendered eagerly, bit for bit."""
+    progressive.clear_graphs()
+    monkeypatch.setattr(integ, "fused_shading", lambda *a, **k: False)
+    ds, camera, options = _disney_box(dev)
     w, h = options.width, options.height
     state = progressive.init_state(w, h, 5, dev)
     got = progressive.render_steps(ds, camera, state, w, h, options, SPP)
@@ -165,7 +172,7 @@ def test_disney_graph_names_its_families_and_its_bsdf_nodes(dev):
     torch.cuda.synchronize(dev)
     graph, = progressive._graphs.values()
     rec = metrics.last_records["graph_capture"]
-    assert not graph.fused_shading and rec["torch_families"] == ["disney"]
+    assert not graph.fused_shading and rec["torch_families"] == []
     assert set(graph.phase_nodes) == set(metrics.GROUPS) - {"shade"}
     assert rec["phase_nodes"]["bsdf"] == graph.phase_nodes["bsdf"] > 0
     assert bool(torch.isfinite(got.accum).all()) and float(got.accum.sum()) > 0
@@ -180,4 +187,33 @@ def test_disney_graph_names_its_families_and_its_bsdf_nodes(dev):
         progressive.accumulate(*body, SPP, False)
     _build.set_launch_counts(before)
     assert len(_build.graph_nodes(plain.raw_cuda_graph())[0]) == graph.nodes
+    progressive.clear_graphs()
+
+
+def test_fused_disney_graph_shades_through_b6(dev, monkeypatch):
+    """The same Disney-floor graph without the patch: B6's Disney
+    instantiation shades it, so its record reads fused_shading and no
+    torch family, its nodes lie in raygen, query and shade alone, and its
+    accumulation equals the torch path's graph of the same samples bit for
+    bit."""
+    progressive.clear_graphs()
+    ds, camera, options = _disney_box(dev)
+    w, h = options.width, options.height
+    state = progressive.init_state(w, h, 5, dev)
+    got = progressive.render_steps(ds, camera, state, w, h, options, SPP)
+    torch.cuda.synchronize(dev)
+    graph, = progressive._graphs.values()
+    rec = metrics.last_records["graph_capture"]
+    assert graph.fused_shading and rec["fused_shading"] is True and rec["torch_families"] == []
+    assert set(graph.phase_nodes) == {"raygen", "query", "shade"}
+    shade_launches = graph.launches["shade"]
+    assert shade_launches["bounce_disney"] == options.max_depth * SPP > 0
+    assert shade_launches["bounce"] == 0 and shade_launches["finish"] == SPP
+    assert graph.phase_nodes["shade"] == (options.max_depth + 1) * SPP
+    progressive.clear_graphs()
+    with monkeypatch.context() as m:
+        m.setattr(integ, "fused_shading", lambda *a, **k: False)
+        want = progressive.render_steps(ds, camera, state, w, h, options, SPP)
+    torch.cuda.synchronize(dev)
+    assert float(got.accum.sum()) > 0 and torch.equal(got.accum, want.accum)
     progressive.clear_graphs()

@@ -243,16 +243,15 @@ def test_disney_per_bounce_counts_live_disney_lanes(floor):
 def test_torch_families_name_what_keeps_the_torch_path():
     """`integrator.torch_families`, which the graph_capture record carries
     beside fused_shading: the families kernel B6 does not shade, from the
-    scene's own families."""
+    scene's own families (B6 shades Lambert and Disney)."""
     from caitlynrenderer_tpu_torch.core.types import RenderOptions
     from caitlynrenderer_tpu_torch.render.integrator import torch_families
 
     _, _, lambert = _cornell()
     _, _, dis = _cornell(toml=DISNEY_TOML)
     assert torch_families(lambert) == ()
-    assert torch_families(dis) == ("disney",)
-    assert torch_families(RenderOptions()) == tuple(
-        f for f in RenderOptions().families if f != "lambert") != ()
+    assert torch_families(dis) == ()
+    assert torch_families(RenderOptions()) == ("mirror", "glass")
 
 
 def test_capture_phase_map_refuses_a_fork(monkeypatch):

@@ -1,32 +1,38 @@
-"""Kernel B6 (ops/shade.py, csrc/shade.cu): one bounce's Lambert shading on
-the no-grad render path, and the predicate that chooses it.
+"""Kernel B6 (ops/shade.py, csrc/shade.cu): one bounce's Lambert and Disney
+shading on the no-grad render path, and the predicate that chooses it.
 
 CPU: `fused_shading` on stand-in scenes whose tensors say cuda:0 (true for
-the Lambert cornell, false for each case the torch path keeps: CPU
-tensors, the Disney, mirror and glass families, a texture, the
-environment, the ray-count stats, a scene tensor requiring grad under grad
-mode, no light); `trace_paths` on CPU tensors in those cases runs the
-torch path and launches nothing of B6; the fused loop with the kernel's
-plain twins passed in the kernels' place (`trace_paths_fused` on CPU
-tensors) equals the torch path bit for bit; the wrapper's checks; the C
-struct and constants against their Python counterparts; the "shade"
-phase group.
+the Lambert cornell and the Disney-floor one, false for each case the
+torch path keeps: CPU tensors, the mirror and glass families, the Disney
+family without Lambert, a texture, the environment, the ray-count stats,
+a scene tensor requiring grad under grad mode, no light); `trace_paths`
+on CPU tensors in those cases runs the torch path and launches nothing of
+B6; the fused loop with the kernel's plain twins passed in the kernels'
+place (`trace_paths_fused` on CPU tensors) equals the torch path bit for
+bit, on the Lambert scenes, on the Disney-floor cornell and on a Disney
+floor with every lobe weighted (some of whose lanes end where a sample
+has no pdf); the wrapper's checks; the C struct and constants against
+their Python counterparts; the "shade" phase group and the two
+instantiations' launch keys.
 
 Card (marked `cuda`, skipped without a card): B6 against its twin on one
-bounce of the 700x700 cornell, every output bit for bit; the fused path
+bounce of the 700x700 cornell and of the 700x700 Disney-floor cornell
+(the Disney instantiation), every output bit for bit; the fused path
 against the torch path (`fused_shading` patched false) bit for bit on the
-accumulation, eager and through a 16-sample CUDA graph, on the cornell
-and on displaced_grid(224) under wide and bvh2, for both values of
-exact_reference_nee and with Russian roulette from bounce 0; B6's
-launches and the graph's "shade" nodes; tiled and sharded renders through
-B6.  Tolerance: none, every comparison is bit for bit (the kernel rounds
+accumulation, eager and through a 16-sample CUDA graph, on the cornell,
+the Disney-floor cornell and displaced_grid(224) under wide and bvh2, for
+both values of exact_reference_nee and with Russian roulette from bounce
+0; B6's launches and the graph's "shade" nodes; tiled and sharded renders
+through B6.  Tolerance: none, every comparison is bit for bit (the kernel rounds
 each torch op once, in its order, under --fmad=false).  This file imports
 neither jax nor the reference package.
 """
 
 import ctypes
 import importlib.util
+import math
 import os
+import pathlib
 import re
 
 import numpy as np
@@ -50,15 +56,40 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOML = os.path.join(ROOT, "scenes", "cornell.toml")
+DISNEY_TOML = os.path.join(ROOT, "scenes", "cornell_disney.toml")
 with open(os.path.join(ROOT, shade.SOURCE)) as _f:
     SOURCE = _f.read()
 W, H = 16, 12
 
 
-def _cornell(accel="brute", width=W, height=H, dev="cpu", **overrides):
-    cfg = config.load_config(TOML)
-    scene, camera, options = render_setup(cfg, os.path.dirname(TOML), width=width,
+def _cornell(accel="brute", width=W, height=H, dev="cpu", toml=TOML, **overrides):
+    cfg = config.load_config(toml)
+    scene, camera, options = render_setup(cfg, os.path.dirname(toml), width=width,
                                           height=height, accel=accel)
+    return upload_scene(scene, accel, dev), camera, options._replace(**overrides)
+
+
+# A Disney floor whose every lobe carries weight: roughness, metallic,
+# spec_tint, sheen (disney), clearcoat, clearcoat_gloss, subsurface
+# (disney2).  At roughness 0.3 and metallic 0.6 many GGX samples fall under
+# the surface, where the sample has no pdf and the path ends.
+LOBES = {"disney": (0.3, 0.6, 0.5, 0.7), "disney2": (0.8, 0.4, 0.5)}
+
+
+def _disney(accel="brute", width=W, height=H, dev="cpu", lobes=False, **overrides):
+    """The Disney-floor cornell at 4 bounces (the cornell_disney700 cell's
+    scene and depth); with `lobes`, its floor's parameters set to LOBES."""
+    cfg = config.load_config(DISNEY_TOML)
+    scene, camera, options = render_setup(cfg, os.path.dirname(DISNEY_TOML), width=width,
+                                          height=height, accel=accel, max_depth=4)
+    if lobes:
+        m = scene.materials
+        floor = np.nonzero(m.albedo[:, 3] == int(MaterialType.DISNEY))[0]
+        disney, disney2 = m.disney.copy(), m.disney2.copy()
+        disney[floor] = LOBES["disney"]
+        disney2[floor, :3] = LOBES["disney2"]
+        scene = scene._replace(materials=m._replace(disney=disney, disney2=disney2))
+    assert options.families == ("lambert", "disney")
     return upload_scene(scene, accel, dev), camera, options._replace(**overrides)
 
 
@@ -114,6 +145,10 @@ def _stand_in(case):
         o = o.as_subclass(torch.Tensor)
     elif case in ("disney", "mirror", "glass"):
         options = options._replace(families=("lambert", case))
+    elif case == "disney_mirror":
+        options = options._replace(families=("lambert", "disney", "mirror"))
+    elif case == "disney_alone":
+        options = options._replace(families=("disney",))
     elif case == "textured":
         sc = ds.scene._replace(textures=torch.zeros((1, 2, 2, 3)), texcoords=torch.zeros((3, 2)))
         ds = ds._replace(scene=sc)
@@ -128,15 +163,16 @@ def _stand_in(case):
 
 
 PREDICATE_CASES = {"lambert": True, "grad_without_grad_mode": True, "cpu": False,
-                   "disney": False, "mirror": False, "glass": False, "textured": False,
-                   "use_env_map": False, "with_stats": False, "grad": False, "no_light": False}
+                   "disney": True, "mirror": False, "glass": False, "disney_mirror": False,
+                   "disney_alone": False, "textured": False, "use_env_map": False,
+                   "with_stats": False, "grad": False, "no_light": False}
 
 
 @pytest.mark.parametrize("case", list(PREDICATE_CASES))
 def test_fused_shading_predicate(case):
-    """The fused path is taken for the Lambert cornell on the card, also
-    when a scene tensor requires grad outside grad mode, and not in each
-    case the torch path keeps."""
+    """The fused path is taken for the Lambert and the Lambert + Disney
+    cornell on the card, also when a scene tensor requires grad outside
+    grad mode, and not in each case the torch path keeps."""
     ds, o, d, uni, options, with_stats = _stand_in(case)
     if case == "grad_without_grad_mode":
         with torch.no_grad():
@@ -199,6 +235,11 @@ def test_trace_paths_on_cpu_runs_the_torch_path(case, tmp_path, monkeypatch):
 
 
 FUSED_CASES = {
+    "disney": ("disney", "brute", {}),
+    "disney_exact_nee": ("disney", "brute", {"exact_reference_nee": True}),
+    "disney_lobes": ("disney_lobes", "brute", {}),
+    "disney_lobes_exact_nee_rr_from_1": ("disney_lobes", "brute",
+                                         {"exact_reference_nee": True, "rr_start": 1}),
     "cornell_brute": ("cornell", "brute", {}),
     "cornell_wide": ("cornell", "wide", {}),
     "cornell_cwbvh": ("cornell", "cwbvh", {}),
@@ -212,6 +253,8 @@ FUSED_CASES = {
 
 def _fused_case(name, dev="cpu", width=W, height=H, resolution=24):
     kind, accel, overrides = FUSED_CASES[name]
+    if kind.startswith("disney"):
+        return _disney(accel, width, height, dev, kind == "disney_lobes", **overrides)
     if kind == "cornell":
         ds, camera, options = _cornell(accel, width, height, dev, **overrides)
         if accel == "bvh2":
@@ -225,7 +268,9 @@ def test_fused_loop_with_twins_equals_torch_path(name):
     """The fused loop (`trace_paths_fused`) with the kernel's plain twins
     in B6's place returns the torch path's radiance bit for bit: one twin
     call a bounce and one finishing call, the caller's rays untouched."""
-    ds, camera, options = _fused_case(name)
+    # The Disney cases at 48x40: enough lanes on the floor for every lobe.
+    size = (48, 40) if name.startswith("disney") else (W, H)
+    ds, camera, options = _fused_case(name, width=size[0], height=size[1])
     o, d, uni = _inputs(ds, camera, options)
     want = integrator.trace_paths(ds, o, d, uni, options)
     o0, d0 = o.clone(), d.clone()
@@ -246,6 +291,39 @@ def test_fused_loop_with_twins_equals_torch_path(name):
     assert torch.equal(o, o0) and torch.equal(d, d0)
 
 
+def test_disney_stand_in_samples_every_lobe_and_ends_lanes():
+    """On the Disney floor of LOBES the twin's bounce 0 samples each of the
+    diffuse, GGX and clearcoat lobes on some live Disney lane, and some
+    Disney lanes end there (the sample has no pdf); the cell's own floor
+    (metallic, sheen, clearcoat 0) samples diffuse and GGX.  The lobe
+    weights are the twin's (`bsdf._lobe_weights`)."""
+    from caitlynrenderer_tpu_torch.ops import bsdf
+
+    for lobes, want_cc in ((True, True), (False, False)):
+        ds, camera, options = _disney(width=48, height=40, lobes=lobes)
+        o, d, uni = _inputs(ds, camera, options)
+        n = o.shape[0]
+        _, tri, _, _, _ = integrator._closest_hit_raw(
+            ds, o, d, torch.ones(n, dtype=torch.bool), options, torch.zeros(n, dtype=torch.int32))
+        hf = integrator.hit_frame(ds, o, d, torch.zeros(n), tri, torch.zeros(n), torch.zeros(n))
+        surf = integrator.surface(ds, hf, options.families)
+        state = shade.PathState(torch.ones(n, dtype=torch.bool), torch.ones((n, 3)),
+                                torch.zeros((n, 3)), torch.ones(n))
+        integrator.shade_bounce_plain(ds, o, d, tri, uni, 0, state, families=options.families)
+        live = hf.keep & (hf.rows[:, 33] == -1)
+        dis = live & surf.disney
+        w_diff, w_spec, _ = bsdf._lobe_weights(surf.dis_p)
+        u_lobe = integrator.bounce_uniforms(uni, 0)[5]
+        picks = [u_lobe < w_diff, (u_lobe >= w_diff) & (u_lobe < w_diff + w_spec),
+                 u_lobe >= w_diff + w_spec]
+        counts = [int((dis & p).sum()) for p in picks]
+        assert counts[0] > 0 and counts[1] > 0 and (counts[2] > 0) is want_cc, counts
+        ended = int((dis & ~state.alive).sum())
+        assert bool(state.alive[live & ~surf.disney].all())
+        if lobes:
+            assert 0 < ended < int(dis.sum())
+
+
 def test_phase_group_of_shade():
     """A bounce's `shade` span (B6) is the "shade" group, beside the torch
     path's hit, nee and bounce."""
@@ -254,6 +332,22 @@ def test_phase_group_of_shade():
     assert metrics.phase_group("b0.shade") == "shade"
     assert metrics.kernel_family("_ZN12_GLOBAL__N_119shade_bounce_kernelENS_4ArgsE") == (
         "shade_bounce_kernel")
+
+
+def test_launch_keys_of_the_two_instantiations():
+    """The Lambert and the Disney instantiation of shade_bounce_kernel, by
+    their mangled names (a graph's nodes) and as the profiler names them:
+    one kernel family, counted under "bounce" and "bounce_disney"."""
+    from caitlynrenderer_tpu_torch.ops import _build
+
+    lam = "_ZN12_GLOBAL__N_119shade_bounce_kernelILb0EEEv9ShadeArgs"
+    dis = "_ZN12_GLOBAL__N_119shade_bounce_kernelILb1EEEv9ShadeArgs"
+    fin = "_ZN12_GLOBAL__N_119shade_finish_kernelExPKbS1_PKfPf"
+    for name in (lam, dis, "void (anonymous namespace)::shade_bounce_kernel<true>(ShadeArgs)"):
+        assert metrics.kernel_family(name) == "shade_bounce_kernel"
+    counts = _build.count_kernels([lam, lam, dis, fin])["shade"]
+    assert counts == {"bounce": 2, "bounce_disney": 1, "finish": 1, "bounce_twin": 0,
+                      "bounce_disney_twin": 0, "finish_twin": 0}
 
 
 def test_args_struct_is_the_sources():
@@ -269,6 +363,27 @@ def test_args_struct_is_the_sources():
 def _constant(name):
     return float(re.search(rf"constexpr float {name} = static_cast<float>\(([^)]+)\);",
                            SOURCE).group(1))
+
+
+def test_disney_constants_are_the_twins():
+    """The Disney branch's constants are Python scalars of the twins'
+    code (ops/bsdf.py, core/math.py, the integrator), and its Lambert mask
+    is core/types.LAMBERT_TYPES."""
+    from caitlynrenderer_tpu_torch.core.types import LAMBERT_TYPES
+    from caitlynrenderer_tpu_torch.ops import bsdf
+
+    twins = "".join(pathlib.Path(m.__file__).read_text() for m in (bsdf, cm, integrator))
+    block = SOURCE[SOURCE.index("ops/bsdf.py's Python scalars"):]
+    block = block[:block.index("\n\n")]
+    found = re.findall(r"constexpr float (\w+) = static_cast<float>\(([^;]+)\);", block)
+    assert len(found) == 19
+    for name, expr in found:
+        if name != "kPi":
+            assert expr in twins, name
+    assert _constant("kPi") == math.pi
+    bits = re.search(r"kLambertTypes = \(1ull << (\d+)\) \| \(1ull << (\d+)\);", SOURCE)
+    mask = sum(1 << int(b) for b in bits.groups())
+    assert mask == sum(1 << int(t) for t in LAMBERT_TYPES)
 
 
 def test_kernel_constants_are_the_twins():
@@ -351,13 +466,22 @@ def _torch_path(monkeypatch):
     monkeypatch.setattr(integrator, "fused_shading", lambda *a, **k: False)
 
 
+BOUNCE_CASES = [("cornell", 0, False), ("cornell", 1, False), ("cornell", 1, True),
+                ("disney", 0, False), ("disney", 1, False), ("disney_lobes", 1, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bounce,exact", [(0, False), (1, False), (1, True)])
-def test_b6_bounce_equals_twin_on_the_card(dev, bounce, exact):
+@pytest.mark.parametrize("scene,bounce,exact", BOUNCE_CASES)
+def test_b6_bounce_equals_twin_on_the_card(dev, scene, bounce, exact):
     """One launch of B6 against its plain twin on the card (torch's CUDA
-    ops) on the 700x700 cornell's primary rays, with a random state and a
-    random previous NEE: every output bit for bit."""
-    ds, camera, options = _cornell("brute", 700, 700, dev)
+    ops) on the primary rays of the 700x700 cornell (the Lambert
+    instantiation), of the Disney-floor cornell (the cornell_disney700
+    cell's scene; the Disney one) and of the LOBES floor, with a random
+    state and a random previous NEE: every output bit for bit."""
+    if scene == "cornell":
+        ds, camera, options = _cornell("brute", 700, 700, dev)
+    else:
+        ds, camera, options = _disney("brute", 700, 700, dev, scene == "disney_lobes")
     o, d, uni = _inputs(ds, camera, options)
     n = o.shape[0]
     _, tri, _, _, _ = integrator._closest_hit_raw(
@@ -372,11 +496,13 @@ def test_b6_bounce_equals_twin_on_the_card(dev, bounce, exact):
     prev = tuple(x.to(dev) for x in prev) if prev else None
     twin_state = shade.PathState(*(x.clone() for x in state))
     shade.reset_launches()
+    fams = options.families
     got = shade.shade_bounce(ds.shade_tab, ds.light_tab, o, d, tri, uni, bounce, state, prev,
-                             exact)
-    want = integrator.shade_bounce_plain(ds, o, d, tri, uni, bounce, twin_state, prev, exact)
+                             exact, families=fams)
+    want = integrator.shade_bounce_plain(ds, o, d, tri, uni, bounce, twin_state, prev, exact,
+                                         families=fams)
     torch.cuda.synchronize()
-    assert shade.launches["bounce"] == 1
+    assert shade.launches["bounce_disney" if "disney" in fams else "bounce"] == 1
     assert torch.equal(state.alive, twin_state.alive) and torch.equal(got.cand, want.cand)
     for name in ("T", "L", "prev_pdf"):
         assert _bits_equal(getattr(state, name), getattr(twin_state, name)), name
@@ -387,17 +513,18 @@ def test_b6_bounce_equals_twin_on_the_card(dev, bounce, exact):
 
 
 CARD_CASES = ["cornell_brute", "cornell_exact_nee", "cornell_rr_from_0", "grid_wide",
-              "grid_bvh2_rr_from_1"]
+              "grid_bvh2_rr_from_1", "disney", "disney_lobes_exact_nee_rr_from_1"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", CARD_CASES)
 def test_fused_render_equals_torch_path_on_the_card(dev, name, monkeypatch):
     """Four eager samples through B6 ≡ four through the torch path, bit for
-    bit on the accumulation (700x700 cornell; displaced_grid(224) at
-    256x256 under wide and bvh2): max_depth B6 launches and one finishing
-    launch a sample, none on the torch path."""
-    w = 700 if name.startswith("cornell") else 256
+    bit on the accumulation (700x700 cornell and Disney-floor cornell;
+    displaced_grid(224) at 256x256 under wide and bvh2): max_depth B6
+    launches of the scene's instantiation and one finishing launch a
+    sample, none on the torch path."""
+    w = 256 if name.startswith("grid") else 700
     ds, camera, options = _fused_case(name, dev, w, w, resolution=224)
     depth, spp = options.max_depth, 4
 
@@ -409,8 +536,10 @@ def test_fused_render_equals_torch_path_on_the_card(dev, name, monkeypatch):
 
     shade.reset_launches()
     got = render()
-    assert shade.launches == {"bounce": depth * spp, "finish": spp, "bounce_twin": 0,
-                              "finish_twin": 0}
+    want_launches = dict.fromkeys(shade.launches, 0)
+    want_launches["bounce_disney" if "disney" in options.families else "bounce"] = depth * spp
+    want_launches["finish"] = spp
+    assert shade.launches == want_launches
     with monkeypatch.context() as m:
         _torch_path(m)
         shade.reset_launches()
@@ -441,8 +570,8 @@ def test_fused_graph_equals_torch_path_on_the_card(dev, monkeypatch):
     assert _bits_equal(graph.accum, eager.accum)
     (g,) = progressive._graphs.values()
     assert g.fused_shading and metrics.last_records["graph_capture"]["fused_shading"] is True
-    assert g.launches["shade"] == {"bounce": depth * spp, "finish": spp, "bounce_twin": 0,
-                                   "finish_twin": 0}
+    assert g.launches["shade"] == {"bounce": depth * spp, "bounce_disney": 0, "finish": spp,
+                                   "bounce_twin": 0, "bounce_disney_twin": 0, "finish_twin": 0}
     assert g.phase_nodes["shade"] == (depth + 1) * spp
     assert not {"hit", "nee", "bounce"} & set(g.phase_nodes)
     # The replay adds the graph's launches; the capture's warm-up sample its own.

@@ -5,12 +5,13 @@ without the rest of the smoke run.
     python3 tools/b6_times.py OUT.json [--reps N]
 
 On the 700x700 cornell under brute force (B1) and grid1m at 1024x1024
-under wide (B2), the benchmark cells' scenes and sizes: bounce 0 on the
-camera rays, bounce 1 with bounce 0's NEE folded in, and the finishing
-add of bounce 1's NEE, each checked against its plain twin bit for bit
-and timed by CUDA events (N calls, default 30) beside its bound
-(`chip_smoke.shade_bound`, `finish_bound`: the bytes each lane's outcome
-needs over 3.35 TB/s).  Prints the card's name and power limit and one
+under wide (B2), through the Lambert instantiation, and the 700x700
+Disney-floor cornell at 4 bounces (B1) through the Disney one: the
+benchmark cells' scenes and sizes.  Bounce 0 on the camera rays, bounce 1
+with bounce 0's NEE folded in, and the finishing add of bounce 1's NEE,
+each checked against its plain twin bit for bit and timed by CUDA events
+(N calls, default 30) beside its bound (`chip_smoke.shade_bound`,
+`finish_bound`: the bytes each lane's outcome needs over 3.35 TB/s).  Prints the card's name and power limit and one
 line per bounce; writes phase 23's record to OUT.json.  Needs an NVIDIA
 card; run from the repository's root with PYTHONPATH=.
 """
@@ -51,6 +52,10 @@ def scenes(dev):
     options = RenderOptions(width=1024, height=1024, max_depth=6, accel="wide",
                             families=scene_families(scene))
     yield "grid1m 1024x1024 wide (B2)", upload_scene(scene, "wide", dev), camera, options
+    cfg = config.load_config(os.path.join(ROOT, "scenes", "cornell_disney.toml"))
+    scene, camera, options = render_setup(cfg, os.path.join(ROOT, "scenes"), width=700,
+                                          height=700, max_depth=4, accel="brute")
+    yield "cornell_disney 700x700 brute (B1)", upload_scene(scene, "brute", dev), camera, options
 
 
 def main(argv=None) -> int:
