@@ -54,7 +54,7 @@
 // (2) a warp per ray gives 65,536 warps for a 256x256 frame, where v1 had
 // 2,048, so latency is hidden by many resident warps; (3) no lane ever
 // follows another ray, so mixed octants and scattered bounce rays cost no
-// divergence, and no ray sort is needed (`og` stays unused).  Bounce rays
+// divergence, and no ray sort is needed.  Bounce rays
 // still cost more per launch than primary rays: each does as much work,
 // but together they touch more distinct worklist entries, so warps share
 // less of L2.

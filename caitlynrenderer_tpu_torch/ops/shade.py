@@ -15,19 +15,21 @@ that is not Lambert takes the Disney BRDF of ops/bsdf.py), else
 closest-hit and the any-hit query; it first adds the previous bounce's NEE
 contribution where its any-hit found the light visible.  `shade_finish`
 launches `shade_finish_kernel`, which adds the last bounce's.  Both take
-CUDA tensors only and raise on anything else, with no fallback: on CPU
-tensors render/integrator.py runs its torch path.  The plain twins
-`shade_bounce_plain` and `shade_finish_plain` there are that torch code
-cut at B6's edges; the kernel evaluates their expressions in their order,
-one rounding an op, so the two agree bit for bit.
+CUDA tensors only and raise on anything else, with no fallback: every
+other case, CPU tensors included, runs their plain twins
+`shade_bounce_plain` and `shade_finish_plain` of render/integrator.py,
+`trace_paths`' shading step for every family.  Where the kernel runs, the
+twin evaluates its expressions in its order, one rounding an op, so the
+two agree bit for bit on every output the path loop reads.
 
-The path state is updated in place: alive, T, L and prev_pdf; o_out and
-d_out may be the input rays' own tensors.
+The kernel updates the path state in place (alive, T, L and prev_pdf) and
+returns the state it was given as `Shaded.state`; o_out and d_out may be
+the input rays' own tensors.  The twin returns new tensors.
 
 `launches` counts the kernels' launches ("bounce" the Lambert
 instantiation, "bounce_disney" the Disney one, "finish"); its twin keys,
-which every kernel module's counter has, stay 0: nothing calls the twins
-in the kernels' place outside the tests.
+which every kernel module's counter has, stay 0: the twins are the
+integrator's own step, not counted.
 """
 
 from __future__ import annotations
@@ -76,20 +78,24 @@ _SIGNATURES = {
 
 
 class PathState(NamedTuple):
-    """The per-lane path state a bounce updates in place: alive (N,) bool,
-    T and L (N, 3) f32, prev_pdf (N,) f32."""
+    """The per-lane path state a bounce carries on: alive (N,) bool, T and
+    L (N, 3) f32, prev_pdf (N,) f32 (the continuation's pdf, read at the
+    next emissive hit), and specular (N,) bool, where the continuation was
+    a delta lobe (None where no lane's can be: the kernel never reads or
+    writes it)."""
 
     alive: torch.Tensor
     T: torch.Tensor
     L: torch.Tensor
     prev_pdf: torch.Tensor
+    specular: Optional[torch.Tensor] = None
 
 
 class Shaded(NamedTuple):
     """What a bounce leaves for the any-hit query and the next bounce: the
     next rays (o, d), the shadow rays' directions `ldir` and `t_max`, their
-    lanes `cand`, and the contribution `pending` (defined where cand) that
-    a visible light adds."""
+    lanes `cand`, the contribution `pending` (defined where cand) that a
+    visible light adds, and the path state after the bounce."""
 
     o: torch.Tensor
     d: torch.Tensor
@@ -97,6 +103,7 @@ class Shaded(NamedTuple):
     t_max: torch.Tensor
     cand: torch.Tensor
     pending: torch.Tensor
+    state: PathState
 
 
 def reset_launches() -> None:
@@ -154,7 +161,7 @@ def shade_bounce(shade_tab, light_tab, o, d, tri, uniforms, bounce: int, state: 
     _build.check_tensor("o_out", o_out, f32, (n, 3), dev)
     _build.check_tensor("d_out", d_out, f32, (n, 3), dev)
     res = Shaded(o_out, d_out, torch.empty_like(o), torch.empty(n, dtype=f32, device=dev),
-                 torch.empty(n, dtype=torch.bool, device=dev), torch.empty_like(o))
+                 torch.empty(n, dtype=torch.bool, device=dev), torch.empty_like(o), state)
     if n == 0:
         return res
     prev_ptrs = [x.data_ptr() for x in prev] if prev is not None else [None] * 3
@@ -175,18 +182,20 @@ def shade_bounce(shade_tab, light_tab, o, d, tri, uniforms, bounce: int, state: 
     return res
 
 
-def shade_finish(L, cand, shadowed, pending) -> None:
-    """L += pending where cand & ~shadowed, in place: the last bounce's NEE."""
+def shade_finish(L, cand, shadowed, pending):
+    """L += pending where cand & ~shadowed, in place: the last bounce's NEE.
+    Returns L."""
     dev = L.device
     _require_cuda(dev)
     n = L.shape[0]
     _build.check_tensor("L", L, torch.float32, (n, 3), dev)
     _check_nee(n, (cand, shadowed, pending), dev)
     if n == 0:
-        return
+        return L
     lib = _build.load("shade", _SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.shade_finish(n, cand.data_ptr(), shadowed.data_ptr(), pending.data_ptr(),
                               L.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on(rc, lib.shade_error_string, "shade_finish")
     launches["finish"] += 1
+    return L

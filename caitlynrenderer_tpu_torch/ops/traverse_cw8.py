@@ -21,8 +21,7 @@ and closest-hit keeps the exact lexicographic minimum of (t, tri) (the TPU
 kernel keys its minimum on t with the low 8 bits replaced by the row).  The
 TPU kernel's coherence sort, 128-ray consensus walk and chunking are not
 carried over: the kernel walks each ray with eight lanes, one per child
-slot of a node.  `og` (the origin-window sort hint) is accepted and
-checked, and changes nothing.
+slot of a node, and its results do not depend on the ray order.
 
 `launches` counts kernel launches and twin calls, so a run can show which
 path it took.
@@ -164,7 +163,7 @@ def pack_cw8(cw_nodes, cw_tris):
 # --------------------------------------------------------------------------
 
 
-def cw8_closest_plain(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, og=None):
+def cw8_closest_plain(o, d, active, cw_nodes, cw_planes, cw_bounds, depth):
     """Plain PyTorch twin of the closest-hit kernel: every window, densely.
     Returns (t, tri, window): t = INF and tri = window = -1 on a miss or an
     inactive lane; ties go to the lowest triangle id; window = tri // 32."""
@@ -186,7 +185,7 @@ def cw8_closest_plain(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, og=No
     return best_t, tri, torch.where(tri >= 0, tri // WIN, -1)
 
 
-def cw8_anyhit_plain(o, d, t_max, active, cw_nodes, cw_planes, cw_bounds, depth, og=None):
+def cw8_anyhit_plain(o, d, t_max, active, cw_nodes, cw_planes, cw_bounds, depth):
     """Plain PyTorch twin of the any-hit kernel: (N,) bool, true where an
     active ray hits some triangle at 0 <= t < t_max."""
     launches["anyhit_twin"] += 1
@@ -206,8 +205,7 @@ def cw8_anyhit_plain(o, d, t_max, active, cw_nodes, cw_planes, cw_bounds, depth,
 # --------------------------------------------------------------------------
 
 
-def _check_query(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, og, t_max=None,
-                 t_seed=None):
+def _check_query(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, t_max=None, t_seed=None):
     """Validate a CUDA query; returns (n, n8, nwin, stack, device)."""
     n, dev = o.shape[0], o.device
     f32, i32 = torch.float32, torch.int32
@@ -216,8 +214,6 @@ def _check_query(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, og, t_max=
     _build.check_tensor("active", active, torch.bool, (n,), dev)
     if t_max is not None:
         _build.check_tensor("t_max", t_max, f32, (n,), dev)
-    if og is not None:
-        _build.check_tensor("og", og, i32, (n,), dev)
     if t_seed is not None:
         _build.check_tensor("t_seed", t_seed, f32, (n,), dev)
     n8 = cw_nodes.shape[0] if cw_nodes.dim() == 2 else -1
@@ -255,13 +251,11 @@ def _stats_on_cpu(stats, t_seed, cpu):
     return cpu
 
 
-def cw8_closest(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, og=None, stats=False,
-                t_seed=None):
+def cw8_closest(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, stats=False, t_seed=None):
     """Closest hit of every active ray over the CWBVH.  Returns
     (t, tri, window), see `cw8_closest_plain`.  cw_nodes (N8, 20) int32 node
     words, cw_planes and cw_bounds from `pack_windows`, depth = the tree's
-    `node8_depth`; og = per-ray origin window (the reference's sort hint),
-    changes nothing.  CUDA tensors launch the kernel.
+    `node8_depth`.  CUDA tensors launch the kernel.
 
     stats=True (CUDA only) launches the stats variant, the same walk, and
     returns (t, tri, window, st): st["counts"] (N, 4) i32 per ray, columns
@@ -273,9 +267,9 @@ def cw8_closest(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, og=None, st
     acceptance unchanged: seeded with the closest t, the oracle walk, whose
     counts are the work the query needs."""
     args = (cw_nodes, cw_planes, cw_bounds)
-    if _stats_on_cpu(stats, t_seed, _build.is_cpu(o, d, active, *args, og, t_seed)):
-        return cw8_closest_plain(o, d, active, *args, depth, og=og)
-    n, n8, nwin, stack, dev = _check_query(o, d, active, *args, depth, og, t_seed=t_seed)
+    if _stats_on_cpu(stats, t_seed, _build.is_cpu(o, d, active, *args, t_seed)):
+        return cw8_closest_plain(o, d, active, *args, depth)
+    n, n8, nwin, stack, dev = _check_query(o, d, active, *args, depth, t_seed=t_seed)
     t = torch.full((n,), INF, dtype=torch.float32, device=dev)
     tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
     win = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -299,16 +293,16 @@ def cw8_closest(o, d, active, cw_nodes, cw_planes, cw_bounds, depth, og=None, st
     return t, tri, win
 
 
-def cw8_anyhit(o, d, t_max, active, cw_nodes, cw_planes, cw_bounds, depth, og=None, stats=False,
+def cw8_anyhit(o, d, t_max, active, cw_nodes, cw_planes, cw_bounds, depth, stats=False,
                t_seed=None):
     """Occlusion of every active ray by any triangle at 0 <= t < t_max
     ((N,) f32) over the CWBVH.  Returns (N,) bool.  CUDA tensors launch the
     kernel.  stats=True (CUDA only): returns (occ, st), st and t_seed as in
     `cw8_closest`."""
     args = (cw_nodes, cw_planes, cw_bounds)
-    if _stats_on_cpu(stats, t_seed, _build.is_cpu(o, d, t_max, active, *args, og, t_seed)):
-        return cw8_anyhit_plain(o, d, t_max, active, *args, depth, og=og)
-    n, n8, nwin, stack, dev = _check_query(o, d, active, *args, depth, og, t_max=t_max,
+    if _stats_on_cpu(stats, t_seed, _build.is_cpu(o, d, t_max, active, *args, t_seed)):
+        return cw8_anyhit_plain(o, d, t_max, active, *args, depth)
+    n, n8, nwin, stack, dev = _check_query(o, d, active, *args, depth, t_max=t_max,
                                            t_seed=t_seed)
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
     st, st_ptrs = _stats_buffers(n, n8, nwin, dev, t_seed) if stats else (None, [])

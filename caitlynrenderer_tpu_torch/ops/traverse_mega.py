@@ -17,8 +17,7 @@ the reference's (whose module imports jax); tests/test_torch_mega.py holds
 each against the original.  The reference's coherence sort (`_sort_order`,
 `_octants`) is not ported: the kernel gives each ray a warp of its own,
 computes its ray's octant itself, and its results do not depend on the ray
-order.  `og` (the origin-group sort hint) is accepted and checked, and
-changes nothing.
+order, so it takes no ray-order hint.
 
 `stats=True` (never passed by the render path) launches the kernel's stats
 variant: the same walk, which also returns what it touched (see
@@ -224,7 +223,7 @@ def _group_starts(oct_gid, oct_start, g):
 
 
 def mega_closest_plain(o, d, active, group_bounds, mega_blocks, oct_bounds,
-                       oct_gid, oct_start, oct_blk, og=None):
+                       oct_gid, oct_start, oct_blk):
     """Plain PyTorch twin of the closest-hit kernel: every group, densely.
     Returns (t, tri, group): t = INF and tri = group = -1 on a miss or an
     inactive lane; ties go to the lowest triangle id."""
@@ -253,7 +252,7 @@ def mega_closest_plain(o, d, active, group_bounds, mega_blocks, oct_bounds,
 
 
 def mega_anyhit_plain(o, d, t_max, active, group_bounds, mega_blocks, oct_bounds,
-                      oct_gid, oct_start, oct_blk, og=None):
+                      oct_gid, oct_start, oct_blk):
     """Plain PyTorch twin of the any-hit kernel: (N,) bool, true where an
     active ray hits some triangle at 0 <= t < t_max."""
     launches["anyhit_twin"] += 1
@@ -273,7 +272,7 @@ def mega_anyhit_plain(o, d, t_max, active, group_bounds, mega_blocks, oct_bounds
 
 
 def _check_query(o, d, active, group_bounds, mega_blocks, oct_bounds, oct_gid,
-                 oct_start, oct_blk, og, t_max=None):
+                 oct_start, oct_blk, t_max=None):
     """Validate a CUDA query; returns (n, g, kp, gpad, nblk, device)."""
     n, dev = o.shape[0], o.device
     f32, i32 = torch.float32, torch.int32
@@ -282,8 +281,6 @@ def _check_query(o, d, active, group_bounds, mega_blocks, oct_bounds, oct_gid,
     _build.check_tensor("active", active, torch.bool, (n,), dev)
     if t_max is not None:
         _build.check_tensor("t_max", t_max, f32, (n,), dev)
-    if og is not None:
-        _build.check_tensor("og", og, i32, (n,), dev)
     if mega_blocks.dim() != 3 or mega_blocks.shape[1] != 8 or mega_blocks.shape[2] % 384:
         raise ValueError(f"mega_blocks must be (G, 8, 3·Kp) with Kp % 128 == 0, "
                          f"got {tuple(mega_blocks.shape)}")
@@ -326,12 +323,11 @@ def _stats_ptrs(st):
 
 
 def mega_closest(o, d, active, group_bounds, mega_blocks, oct_bounds, oct_gid,
-                 oct_start, oct_blk, og=None, stats=False):
+                 oct_start, oct_blk, stats=False):
     """Closest hit of every active ray over the wide BVH.  Returns
     (t, tri, group), see `mega_closest_plain`.  mega_blocks from
-    `pack_mega`, oct_* from `pack_octants`; og = per-ray origin group
-    (the reference's sort hint), changes nothing.  CUDA tensors launch
-    the kernel.
+    `pack_mega`, oct_* from `pack_octants`.  CUDA tensors launch the
+    kernel.
 
     stats=True (CUDA only) launches the stats variant, the same walk, and
     returns (t, tri, group, st): st["counts"] (N, 5) i32 per ray, columns
@@ -340,11 +336,11 @@ def mega_closest(o, d, active, group_bounds, mega_blocks, oct_bounds, oct_gid,
     st["ent_seen"] (8, gpad) and st["blk_seen"] (8, nblk) i32, 1 where
     some ray visited the group or tested the entry's or block's box."""
     args = (group_bounds, mega_blocks, oct_bounds, oct_gid, oct_start, oct_blk)
-    if _build.is_cpu(o, d, active, *args, og):
+    if _build.is_cpu(o, d, active, *args):
         if stats:
             raise ValueError("stats=True counts the CUDA kernel's walk: give CUDA tensors")
-        return mega_closest_plain(o, d, active, *args, og=og)
-    n, g, kp, gpad, nblk, dev = _check_query(o, d, active, *args, og)
+        return mega_closest_plain(o, d, active, *args)
+    n, g, kp, gpad, nblk, dev = _check_query(o, d, active, *args)
     t = torch.full((n,), INF, dtype=torch.float32, device=dev)
     tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
     grp = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -370,17 +366,17 @@ def mega_closest(o, d, active, group_bounds, mega_blocks, oct_bounds, oct_gid,
 
 
 def mega_anyhit(o, d, t_max, active, group_bounds, mega_blocks, oct_bounds,
-                oct_gid, oct_start, oct_blk, og=None, stats=False):
+                oct_gid, oct_start, oct_blk, stats=False):
     """Occlusion of every active ray by any triangle at 0 <= t < t_max
     ((N,) f32) over the wide BVH.  Returns (N,) bool.  CUDA tensors launch
     the kernel.  stats=True (CUDA only): returns (occ, st), st as in
     `mega_closest`."""
     args = (group_bounds, mega_blocks, oct_bounds, oct_gid, oct_start, oct_blk)
-    if _build.is_cpu(o, d, t_max, active, *args, og):
+    if _build.is_cpu(o, d, t_max, active, *args):
         if stats:
             raise ValueError("stats=True counts the CUDA kernel's walk: give CUDA tensors")
-        return mega_anyhit_plain(o, d, t_max, active, *args, og=og)
-    n, g, kp, gpad, nblk, dev = _check_query(o, d, active, *args, og, t_max=t_max)
+        return mega_anyhit_plain(o, d, t_max, active, *args)
+    n, g, kp, gpad, nblk, dev = _check_query(o, d, active, *args, t_max=t_max)
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
     st = _stats_buffers(n, g, gpad, nblk, dev) if stats else None
     if n == 0 or g == 0:

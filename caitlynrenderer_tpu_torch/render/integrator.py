@@ -1,30 +1,29 @@
 """Wavefront path-tracing integrator on tensors (counterpart of
 caitlynrenderer_tpu/render/integrator.py:336-694).
 
-The whole ray batch advances bounce by bounce as dense (N, ...) tensors:
-raygen → closest hit → shade (environment on a miss, emission, NEE with a
-shadow any-hit, MIS) → scatter, with masked lanes for dead paths.  Both
-ray queries go through the scene's accelerator: ops/mt_brute under
-"brute", ops/traverse_mega under "wide", ops/traverse_cw8 under "cwbvh" and
-ops/traverse_bvh under "bvh2" and "sbvh" (the reference's XLA walk, as
-kernel B4), each of which launches its CUDA kernel for CUDA tensors.
-options.traversal chooses, as in the reference:
-"auto" takes those paths (the kernel on the card, its twin on CPU
-tensors); "pallas" insists on the hand-written kernel and raises
+The whole ray batch advances bounce by bounce as dense (N, ...) tensors,
+with masked lanes for dead paths: `trace_paths` is one loop over bounces of
+Russian roulette, the closest-hit query, the shading step (the previous
+bounce's NEE added, the hit shaded, the NEE set up, the continuation
+sampled) and the NEE's any-hit query.  The step is one launch of kernel B6
+(ops/shade.py) where `fused_shading` holds, and its plain twin
+`shade_bounce_plain` in every other case.  Both ray queries go through the
+scene's accelerator: ops/mt_brute under "brute", ops/traverse_mega under
+"wide", ops/traverse_cw8 under "cwbvh" and ops/traverse_bvh under "bvh2"
+and "sbvh" (the reference's XLA walk, as kernel B4), each of which launches
+its CUDA kernel for CUDA tensors.  options.traversal chooses, as in the
+reference: "auto" takes those paths (the kernel on the card, its twin on
+CPU tensors); "pallas" insists on the hand-written kernel and raises
 ValueError for CPU tensors; "xla", for parity with the reference on CPU
 tensors, runs the reference's plain walks where it has them, the dense
 Möller–Trumbore of ops/intersect under "brute" and the node8 walk of
-ops/traverse_cwbvh under "cwbvh" ("wide", "bvh2" and "sbvh" have one
-path each), and raises ValueError for CUDA tensors, where it would walk
-past the kernels.  The estimator, the uniform layout and the
-order of the arithmetic are the reference's, so the tests can hold the
-two against each other per pixel.  A vertex's steps (`hit_frame`, `surface`,
-`light_sample`, `continuation`) are functions of their own, so that
-chip_smoke.py builds the kernels' bounce and shadow ray sets with the
-integrator's code.  On the card a scene of the Lambert family, or of the
-Lambert and Disney families, rendered without grad shades each bounce in
-one launch of kernel B6 (ops/shade.py, `trace_paths_fused`, chosen by
-`fused_shading`); those steps are its plain twin, bit for bit.
+ops/traverse_cwbvh under "cwbvh" ("wide", "bvh2" and "sbvh" have one path
+each), and raises ValueError for CUDA tensors, where it would walk past the
+kernels.  The estimator, the uniform layout and the order of the arithmetic
+are the reference's, so the tests can hold the two against each other per
+pixel.  A vertex's steps (`hit_frame`, `surface`, `light_sample`,
+`continuation`) are functions of their own, so that chip_smoke.py builds
+the kernels' bounce and shadow ray sets with the integrator's code.
 
 Shading: the four families of the reference (Lambert, the Disney BRDF
 of ops/bsdf.py for every microfacet type, mirror, glass), textured albedo
@@ -32,9 +31,9 @@ of ops/bsdf.py for every microfacet type, mirror, glass), textured albedo
 heuristic, `exact_reference_nee`, Russian roulette (`rr_start`), the
 ray-count stats and the first-hit AOVs (`trace_aov`).  As in the
 reference, CONDUCTOR is specular (no NEE) but not MIRROR (no reflection)
-and not Disney, so it scatters as a Lambert bounce.  The wide and cwbvh
-paths thread the reference's origin-group (window) hint `og`; its
-`preorder` has no counterpart.
+and not Disney, so it scatters as a Lambert bounce.  The reference's
+ray-order hints (the origin group, `preorder`) have no counterpart: no
+query's answer depends on the order of the rays.
 
 Gradients (grad/inverse.py): the reference's detached-traversal
 estimator.  Both ray queries and Russian roulette's survival probability
@@ -162,35 +161,33 @@ def _bvh(ds: DeviceScene):
 
 
 @torch.no_grad()
-def _closest_hit_raw(ds: DeviceScene, o, d, active, options: RenderOptions, og):
+def _closest_hit_raw(ds: DeviceScene, o, d, active, options: RenderOptions):
     """Closest-hit dispatch on options.accel and options.traversal.  Returns
-    (t, tri, u, v, group): group is the wide BVH's winning group or the
-    CWBVH kernel's winning window (None under the others), and those two
-    paths' u = v = 0 (the caller refines them from the triangle).  Traversal is detached, as the
-    reference's stop_gradient makes it: nothing here records a graph, and
-    the gradient reaches t, u and v through `hit_frame`'s refinement."""
+    (t, tri, u, v); the wide and CWBVH paths' u = v = 0 (the caller refines
+    them from the triangle).  Traversal is detached, as the reference's
+    stop_gradient makes it: nothing here records a graph, and the gradient
+    reaches t, u and v through `hit_frame`'s refinement."""
     o, d = o.detach(), d.detach()
     if options.traversal == "xla" and options.accel == "brute":
         t, tri, u, v = intersect_brute(o, d, ds.scene.vertices, ds.scene.tri_v)
-        return t, torch.where(active, tri, -1), u, v, None
+        return t, torch.where(active, tri, -1), u, v
     if options.traversal == "xla" and options.accel == "cwbvh":
-        t, tri, u, v = cwbvh_closest(o, d, active, ds.cw_nodes, ds.tris9, ds.cw_depth)
-        return t, tri, u, v, None
+        return cwbvh_closest(o, d, active, ds.cw_nodes, ds.tris9, ds.cw_depth)
     if options.accel in ("wide", "cwbvh"):
         query = mega_closest if options.accel == "wide" else cw8_closest
         args = _wide(ds) if options.accel == "wide" else _cw(ds)
-        t, tri, grp = query(o, d, active, *args, og=og)
+        t, tri, _ = query(o, d, active, *args)
         zero = torch.zeros_like(t)
-        return t, tri, zero, zero, grp
+        return t, tri, zero, zero
     if options.accel in ("bvh2", "sbvh"):
         _check_stack(ds, options)
-        return (*traverse_closest(o, d, active, *_bvh(ds), max_leaf=options.max_leaf,
-                                  max_stack=options.max_stack), None)
-    return (*brute_closest(o, d, active, ds.tris9), None)
+        return traverse_closest(o, d, active, *_bvh(ds), max_leaf=options.max_leaf,
+                                max_stack=options.max_stack)
+    return brute_closest(o, d, active, ds.tris9)
 
 
 @torch.no_grad()
-def _occluded(ds: DeviceScene, o, d, t_max, active, options: RenderOptions, og):
+def _occluded(ds: DeviceScene, o, d, t_max, active, options: RenderOptions):
     """Any-hit visibility dispatch on options.accel and options.traversal;
     detached (visibility carries no gradient)."""
     o, d, t_max = o.detach(), d.detach(), t_max.detach()
@@ -200,9 +197,9 @@ def _occluded(ds: DeviceScene, o, d, t_max, active, options: RenderOptions, og):
     if options.traversal == "xla" and options.accel == "cwbvh":
         return cwbvh_anyhit(o, d, t_max, active, ds.cw_nodes, ds.tris9, ds.cw_depth)
     if options.accel == "wide":
-        return mega_anyhit(o, d, t_max, active, *_wide(ds), og=og)
+        return mega_anyhit(o, d, t_max, active, *_wide(ds))
     if options.accel == "cwbvh":
-        return cw8_anyhit(o, d, t_max, active, *_cw(ds), og=og)
+        return cw8_anyhit(o, d, t_max, active, *_cw(ds))
     if options.accel in ("bvh2", "sbvh"):
         _check_stack(ds, options)
         return traverse_anyhit(o, d, t_max, active, *_bvh(ds), max_leaf=options.max_leaf,
@@ -225,15 +222,23 @@ def _light_pdf(dist, area, cos_light, pdf_select):
     return dist * dist / area_cos * pdf_select
 
 
-def _emitted(light_tab, d, hf, T, prev_pdf, is_specular):
-    """What an emissive hit adds, T · emission · w_mis, weighted against
-    the NEE that could have sampled it (w_mis 1 after a specular bounce)."""
-    num_lights = light_tab.shape[0]
-    li_hit = torch.round(hf.rows[:, 25]).long()
-    area = light_tab[torch.clamp(li_hit, 0, num_lights - 1), 15]
-    pdf_light = _light_pdf(hf.t, area, -cm.dot(d, hf.n_flip), 1.0 / num_lights)
-    w_mis = torch.where(is_specular, 1.0, _power_heuristic(prev_pdf, pdf_light))
-    return T * hf.rows[:, 30:33] * w_mis[:, None]
+def _emitted(light_tab, d, hf, T, hit, prev_pdf, is_specular):
+    """What the emissive hits `hit` add, T · emission · w_mis (0 elsewhere):
+    w_mis = 1 on camera rays (prev_pdf None) and after a specular bounce
+    (`is_specular`, None where there was none), else the power heuristic
+    against the NEE.  prev_pdf is read as 1 off `hit`, where it is any
+    lane's leftover: a NaN that a select drops still poisons the gradient."""
+    e = T * hf.rows[:, 30:33]
+    if prev_pdf is not None:
+        num_lights = light_tab.shape[0]
+        li_hit = torch.round(hf.rows[:, 25]).long()
+        area = light_tab[torch.clamp(li_hit, 0, num_lights - 1), 15]
+        pdf_light = _light_pdf(hf.t, area, -cm.dot(d, hf.n_flip), 1.0 / num_lights)
+        w_mis = _power_heuristic(torch.where(hit, prev_pdf, 1.0), pdf_light)
+        if is_specular is not None:
+            w_mis = torch.where(is_specular, 1.0, w_mis)
+        e = e * w_mis[:, None]
+    return torch.where(hit[:, None], e, 0.0)
 
 
 def _lambert_toward(albedo, cos_mtl, exact_reference_nee: bool):
@@ -327,7 +332,8 @@ class HitFrame(NamedTuple):
 
 
 def hit_frame(ds: DeviceScene, o, d, raw_t, raw_tri, raw_u, raw_v) -> HitFrame:
-    """The HitFrame of a closest-hit query's raw answer on rays (o, d)."""
+    """The HitFrame of a closest-hit query's raw answer on rays (o, d); a
+    miss keeps raw_t, raw_u and raw_v (tensors or numbers)."""
     # index_select, not indexing: its backward is an index_add, where
     # indexing's sorts the rows' many repeated ids (every lane that hit
     # one triangle) on the card.
@@ -491,13 +497,12 @@ FUSED_FAMILIES = shade.FAMILIES
 
 def fused_shading(ds: DeviceScene, o, d, uniforms, options: RenderOptions,
                   with_stats: bool = False) -> bool:
-    """Whether `trace_paths` shades each bounce with kernel B6 (ops/shade.py,
-    `trace_paths_fused`) rather than the torch code below: the rays, the
-    uniforms and the scene's tables on CUDA, families of FUSED_FAMILIES
-    alone and Lambert among them, no texture, no environment, at least one
-    light (without one the torch code skips the emissive MIS and NEE), no
-    ray-count stats, and nothing the bounce reads requiring grad while grad
-    mode is on."""
+    """Whether `trace_paths` shades each bounce with kernel B6 (ops/shade.py)
+    rather than its plain twin: the rays, the uniforms and the scene's
+    tables on CUDA, families of FUSED_FAMILIES alone and Lambert among
+    them, no texture, no environment, at least one light, no ray-count
+    stats, and nothing the bounce reads requiring grad while grad mode is
+    on."""
     sc = ds.scene
     tensors = (o, d, uniforms, ds.shade_tab, ds.light_tab)
     return (all(x.device.type == "cuda" for x in tensors)
@@ -512,107 +517,65 @@ def fused_shading(ds: DeviceScene, o, d, uniforms, options: RenderOptions,
 
 def torch_families(options: RenderOptions) -> tuple:
     """The families of options.families that kernel B6 does not shade: each
-    keeps `trace_paths` on the torch path."""
+    keeps `trace_paths` on the plain bounce."""
     return tuple(f for f in options.families if f not in FUSED_FAMILIES)
 
 
 def shade_bounce_plain(ds: DeviceScene, o, d, tri, uniforms, bounce: int,
-                       state: shade.PathState, prev=None, exact_nee: bool = False,
-                       out=None, families=("lambert",)) -> shade.Shaded:
-    """Kernel B6's plain twin (`ops/shade.shade_bounce`, the same arguments
-    with the scene for its tables): the torch path's bounce on a scene of
-    the shading families `families` (of FUSED_FAMILIES), from the closest
-    hit's triangles `tri` to the any-hit query's rays and the
-    continuation, updating `state` in place.  Where the kernel leaves a
-    value undefined (pending outside cand) the twin writes 0; a lane that
-    shades nothing more gets the kernel's placeholder shadow direction
-    (0, 0, 1) and keeps its ray; a Disney lane whose sample has no pdf
-    ends with its T, its next ray and prev_pdf written."""
-    alive, T, L, prev_pdf = state
+                       state: shade.PathState, options: RenderOptions, prev=None,
+                       stats: Optional[list] = None) -> shade.Shaded:
+    """`trace_paths`' shading step in torch: kernel B6's plain twin
+    (`ops/shade.shade_bounce`), widened to every family, texture, the
+    environment and scenes without a light (ldir, t_max, cand and pending
+    None).  Returns new tensors, so autograd runs through it;
+    Shaded.state.specular marks the delta lobes.  It equals B6 where the
+    loop reads the outputs: ldir and pending where cand; o, d and prev_pdf
+    where the lane went on shading (alive, a hit, not emissive); elsewhere
+    they are what the arithmetic gives, where B6 holds the lane's values.
+    Spans b<k>.hit, .nee and .bounce (.bsdf inside) hold all its work;
+    `stats`, a list, gets the live lanes the Disney BRDF shades."""
+    b = f"b{bounce}."
+    alive, T, L, prev_pdf, specular = state
+    lit = ds.light_tab.shape[0] > 0
     if prev is not None:
-        shade_finish_plain(L, *prev)
-    u_lp, u_l1, u_l2, u_b1, u_b2, u_lobe, _ = bounce_uniforms(uniforms, bounce)
-    zero = torch.zeros_like(u_lp)
-    hf = hit_frame(ds, o, d, zero, tri, zero, zero)
-    surf = surface(ds, hf, families)
-    got = alive & hf.keep
-    hit_light = got & (hf.rows[:, 33] != -1)
-    is_specular = torch.full_like(alive, bounce == 0)
-    L += torch.where(hit_light[:, None],
-                     _emitted(ds.light_tab, d, hf, T, prev_pdf, is_specular), 0.0)
-    live = got & ~hit_light
-    lrows, ldir, dist, cos_mtl, cos_light, cand, t_max = light_sample(
-        ds.light_tab, hf.point, hf.n_flip, u_lp, u_l1, u_l2, live, surf.specular)
-    pdf_light = _light_pdf(dist, lrows[:, 15], -cos_light, 1.0 / ds.light_tab.shape[0])
-    f_nee, bsdf_pdf = bsdf_toward(surf, hf.n_flip, d, ldir, cos_mtl, exact_nee)
-    pending = torch.where(cand[:, None], _nee_contrib(T, lrows, f_nee, pdf_light, bsdf_pdf), 0.0)
-    new_d, new_T, new_pdf, _, ok, origin = continuation(hf, surf, d, T, u_b1, u_b2, u_lobe)
-    keep = live[:, None]
-    o_out, d_out = out if out is not None else (torch.empty_like(o), torch.empty_like(d))
-    o_out.copy_(torch.where(keep, origin, o))
-    d_out.copy_(torch.where(keep, new_d, d))
-    T.copy_(torch.where((live & ok)[:, None], new_T, T))
-    prev_pdf.copy_(torch.where(live, new_pdf, prev_pdf))
-    alive.copy_(live & ok)
-    up = torch.zeros_like(ldir)
-    up[:, 2] = 1.0
-    return shade.Shaded(o_out, d_out, torch.where(keep, ldir, up), t_max, cand, pending)
+        with metrics.span(b + "nee"):
+            L = shade_finish_plain(L, *prev)
+    with metrics.span(b + "hit"):
+        u_lp, u_l1, u_l2, u_b1, u_b2, u_lobe, _ = bounce_uniforms(uniforms, bounce)
+        hf = hit_frame(ds, o, d, 0.0, tri, 0.0, 0.0)
+        live = alive & hf.keep
+        if options.use_env_map:  # lit only through BSDF samples: w_mis = 1
+            L = L + torch.where((alive & ~live)[:, None], T * sample_env(ds.scene.env_map, d),
+                                0.0)
+        surf = surface(ds, hf, options.families, b + "bsdf")
+        if lit:
+            hit_light = live & (hf.rows[:, 33] != -1)
+            L = L + _emitted(ds.light_tab, d, hf, T, hit_light, prev_pdf if bounce else None,
+                             specular)
+            live = live & ~hit_light
+        if stats is not None:
+            stats.append((live & surf.disney).sum() if surf.disney is not None
+                         else torch.zeros((), dtype=torch.int64, device=o.device))
+    with metrics.span(b + "nee"):
+        ldir = t_max = cand = pending = None  # no light: no NEE and no any-hit query
+        if lit:
+            lrows, ldir, dist, cos_mtl, cos_light, cand, t_max = light_sample(
+                ds.light_tab, hf.point, hf.n_flip, u_lp, u_l1, u_l2, live, surf.specular)
+            pdf_light = _light_pdf(dist, lrows[:, 15], -cos_light, 1.0 / ds.light_tab.shape[0])
+            f_nee, bsdf_pdf = bsdf_toward(surf, hf.n_flip, d, ldir, cos_mtl,
+                                          options.exact_reference_nee, b + "bsdf")
+            pending = _nee_contrib(T, lrows, f_nee, pdf_light, bsdf_pdf)
+    with metrics.span(b + "bounce"):
+        new_d, new_T, new_pdf, new_spec, ok, origin = continuation(hf, surf, d, T, u_b1, u_b2,
+                                                                   u_lobe, b + "bsdf")
+        after = shade.PathState(live & ok, torch.where((live & ok)[:, None], new_T, T), L,
+                                new_pdf, new_spec)
+        return shade.Shaded(origin, new_d, ldir, t_max, cand, pending, after)
 
 
-def shade_finish_plain(L, cand, shadowed, pending) -> None:
-    """Kernel B6's finishing step's twin: L += pending where cand &
-    ~shadowed, in place."""
-    L += torch.where((cand & ~shadowed)[:, None], pending, 0.0)
-
-
-def _b6_bounce(ds: DeviceScene, *args) -> shade.Shaded:
-    """Kernel B6's bounce with the scene's tables, in `shade_bounce_plain`'s
-    signature."""
-    return shade.shade_bounce(ds.shade_tab, ds.light_tab, *args)
-
-
-def trace_paths_fused(ds: DeviceScene, o, d, uniforms, options: RenderOptions,
-                      bounce_fn=_b6_bounce, finish_fn=shade.shade_finish):
-    """`trace_paths` where `fused_shading` holds: each bounce's shading is
-    one launch of kernel B6 (`ops/shade.shade_bounce`, span b<k>.shade)
-    between its closest-hit and any-hit queries, and the last bounce's NEE
-    one launch of its finishing kernel.  Russian roulette and the queries
-    are the torch path's.  `bounce_fn` and `finish_fn` are the two launches;
-    the tests pass the plain twins (`shade_bounce_plain`,
-    `shade_finish_plain`) to run the loop on CPU tensors.  Returns radiance
-    (N, 3), bit for bit the torch path's."""
-    check_supported(ds, options)
-    n, dev = o.shape[0], o.device
-    with metrics.span("raygen"):
-        state = shade.PathState(alive=torch.ones(n, dtype=torch.bool, device=dev),
-                                T=torch.ones((n, 3), dtype=torch.float32, device=dev),
-                                L=torch.zeros((n, 3), dtype=torch.float32, device=dev),
-                                prev_pdf=torch.empty(n, dtype=torch.float32, device=dev))
-        og = torch.zeros(n, dtype=torch.int32, device=dev)
-    prev = None
-    for bounce in range(options.max_depth):
-        b = f"b{bounce}."
-        with metrics.span(b + "rr"):
-            alive, T = _roulette(options, bounce, state.alive, state.T,
-                                 bounce_uniforms(uniforms, bounce)[6])
-            state = state._replace(alive=alive, T=T)
-        with metrics.span(b + "closest"):
-            _, tri, _, _, grp = _closest_hit_raw(ds, o, d, state.alive, options, og)
-            if grp is not None:
-                og = torch.clamp(grp, min=0)
-        with metrics.span(b + "shade"):
-            # From bounce 1 on the next rays overwrite this bounce's, which
-            # are the fused loop's own buffers.
-            sh = bounce_fn(ds, o, d, tri, uniforms, bounce, state, prev,
-                           options.exact_reference_nee, (o, d) if bounce else None,
-                           options.families)
-        with metrics.span(b + "anyhit"):
-            shadowed = _occluded(ds, sh.o, sh.ldir, sh.t_max, sh.cand, options, og)
-        o, d, prev = sh.o, sh.d, (sh.cand, shadowed, sh.pending)
-    if prev is not None:
-        with metrics.span(b + "shade"):
-            finish_fn(state.L, *prev)
-    return state.L
+def shade_finish_plain(L, cand, shadowed, pending):
+    """Kernel B6's finishing step's twin: a new L + pending where cand & ~shadowed."""
+    return L + torch.where((cand & ~shadowed)[:, None], pending, 0.0)
 
 
 def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_stats: bool = False):
@@ -628,86 +591,57 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
     uniforms: (N, 4 + 7*max_depth), layout in render/sampling.py; the first
     4 (raygen) entries are unused here.
 
-    Where `fused_shading` holds (a scene of the Lambert, or the Lambert and
-    Disney, families rendered on the card without grad or stats) this is
-    `trace_paths_fused`, kernel B6; every other case runs the torch code
-    below.
+    Each bounce's phases are spans b<k>.rr, .closest, .shade (which adds
+    the last bounce's NEE too) and .anyhit (utils/metrics).
     """
     check_supported(ds, options)
-    if fused_shading(ds, o, d, uniforms, options, with_stats):
-        return trace_paths_fused(ds, o, d, uniforms, options)
+    fused = fused_shading(ds, o, d, uniforms, options, with_stats)
+    lit = ds.light_tab.shape[0] > 0
     n, dev = o.shape[0], o.device
-    num_lights = ds.light_tab.shape[0]
-    light_tab = ds.light_tab
-    env_map = ds.scene.env_map if options.use_env_map else None
-
     with metrics.span("raygen"):
-        L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-        T = torch.ones((n, 3), dtype=torch.float32, device=dev)
-        prev_pdf = torch.ones(n, dtype=torch.float32, device=dev)
-        is_specular = torch.ones(n, dtype=torch.bool, device=dev)
-        alive = torch.ones(n, dtype=torch.bool, device=dev)
-        # The origin-group hint of the wide BVH (the CWBVH's: origin window):
-        # the group that produced each ray's origin (0 for primary rays).
-        og = torch.zeros(n, dtype=torch.int32, device=dev)
-    alive_per_bounce, anyhit_per_bounce, disney_per_bounce = [], [], []
-
-    # Each bounce's phases are spans b<bounce>.rr, .closest, .hit, .nee
-    # (holding .anyhit) and .bounce (utils/metrics); the Disney BRDF's
-    # work inside hit, nee and bounce is span .bsdf.
+        # prev_pdf is first read at bounce 1, on lanes bounce 0 wrote.
+        state = shade.PathState(alive=torch.ones(n, dtype=torch.bool, device=dev),
+                                T=torch.ones((n, 3), dtype=torch.float32, device=dev),
+                                L=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+                                prev_pdf=torch.empty(n, dtype=torch.float32, device=dev))
+    alive_per_bounce, anyhit_per_bounce = [], []
+    disney_per_bounce = [] if with_stats else None
+    prev = None
     for bounce in range(options.max_depth):
         b = f"b{bounce}."
         with metrics.span(b + "rr"):
-            u_lp, u_l1, u_l2, u_b1, u_b2, u_lobe, u_rr = bounce_uniforms(uniforms, bounce)
-            alive, T = _roulette(options, bounce, alive, T, u_rr)
-
+            alive, T = _roulette(options, bounce, state.alive, state.T,
+                                 bounce_uniforms(uniforms, bounce)[6])
+            state = state._replace(alive=alive, T=T)
             if with_stats:
                 alive_per_bounce.append(alive.sum())
         with metrics.span(b + "closest"):
-            raw_t, raw_tri, raw_u, raw_v, grp = _closest_hit_raw(ds, o, d, alive, options, og)
-            if grp is not None:
-                og = torch.clamp(grp, min=0)
-        with metrics.span(b + "hit"):
-            hf = hit_frame(ds, o, d, raw_t, raw_tri, raw_u, raw_v)
-            got = alive & hf.keep
-            if env_map is not None:
-                # A miss sees the environment.  The env is lit only through
-                # BSDF samples (no NEE toward it), so its MIS weight is 1.
-                L = L + torch.where((alive & ~got)[:, None], T * sample_env(env_map, d), 0.0)
-            alive = got
-
-            surf = surface(ds, hf, options.families, b + "bsdf")
-            hit_light = got & (hf.rows[:, 33] != -1)
-            if num_lights > 0:
-                L = L + torch.where(hit_light[:, None],
-                                    _emitted(light_tab, d, hf, T, prev_pdf, is_specular), 0.0)
-                alive = alive & ~hit_light
-            if with_stats:
-                disney_per_bounce.append((alive & surf.disney).sum() if surf.disney is not None
-                                         else torch.zeros((), dtype=torch.int64, device=dev))
-
-        # NEE with MIS: one light sample per vertex, visibility by any-hit.
-        if num_lights > 0:
-            with metrics.span(b + "nee"):
-                lrows, ldir, dist, cos_mtl, cos_light, cand, shadow_t = light_sample(
-                    light_tab, hf.point, hf.n_flip, u_lp, u_l1, u_l2, alive, surf.specular)
+            tri = _closest_hit_raw(ds, o, d, state.alive, options)[1]
+        with metrics.span(b + "shade"):
+            if fused:
+                # From bounce 1 on the next rays overwrite this bounce's,
+                # which are the loop's own buffers.
+                sh = shade.shade_bounce(ds.shade_tab, ds.light_tab, o, d, tri, uniforms, bounce,
+                                        state, prev, options.exact_reference_nee,
+                                        (o, d) if bounce else None, options.families)
+            else:
+                sh = shade_bounce_plain(ds, o, d, tri, uniforms, bounce, state, options, prev,
+                                        disney_per_bounce)
+        o, d, state, prev = sh.o, sh.d, sh.state, None
+        if lit:
+            with metrics.span(b + "anyhit"):
                 if with_stats:
-                    anyhit_per_bounce.append(cand.sum())
-                with metrics.span(b + "anyhit"):
-                    shadowed = _occluded(ds, hf.point, ldir, shadow_t, cand, options, og)
-                visible = cand & ~shadowed
-                pdf_light = _light_pdf(dist, lrows[:, 15], -cos_light, 1.0 / num_lights)
-                f_nee, bsdf_pdf = bsdf_toward(surf, hf.n_flip, d, ldir, cos_mtl,
-                                              options.exact_reference_nee, b + "bsdf")
-                contrib = _nee_contrib(T, lrows, f_nee, pdf_light, bsdf_pdf)
-                L = L + torch.where(visible[:, None], contrib, 0.0)
-
-        with metrics.span(b + "bounce"):
-            d, new_T, prev_pdf, is_specular, ok, o = continuation(hf, surf, d, T, u_b1, u_b2,
-                                                                   u_lobe, b + "bsdf")
-            alive = alive & ok
-            T = torch.where(alive[:, None], new_T, T)
-
+                    anyhit_per_bounce.append(sh.cand.sum())
+                shadowed = _occluded(ds, o, sh.ldir, sh.t_max, sh.cand, options)
+            prev = (sh.cand, shadowed, sh.pending)
+    L = state.L
+    if prev is not None:
+        with metrics.span(b + "shade"):
+            if fused:
+                L = shade.shade_finish(L, *prev)
+            else:
+                with metrics.span(b + "nee"):
+                    L = shade_finish_plain(L, *prev)
     if not with_stats:
         return L
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -730,8 +664,7 @@ def trace_aov(ds: DeviceScene, o, d, options: RenderOptions):
     n = o.shape[0]
     with metrics.span("b0.closest"):
         active = torch.ones(n, dtype=torch.bool, device=o.device)
-        og = torch.zeros(n, dtype=torch.int32, device=o.device)
-        raw_t, raw_tri, raw_u, raw_v, _ = _closest_hit_raw(ds, o, d, active, options, og)
+        raw_t, raw_tri, raw_u, raw_v = _closest_hit_raw(ds, o, d, active, options)
     with metrics.span("b0.hit"):
         hf = hit_frame(ds, o, d, raw_t, raw_tri, raw_u, raw_v)
         got = hf.keep[:, None]

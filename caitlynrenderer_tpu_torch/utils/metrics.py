@@ -108,11 +108,11 @@ def log_record(kind: str, record: Dict[str, Any]) -> None:
 
 PREFIX = "caitlyn."
 # The groups of phases, by what the card does in them.  "shade" is a
-# bounce's kernel B6, which does the work of "hit", "nee" and "bounce" on
-# the fused path (render/integrator.trace_paths_fused).  "bsdf" is the
-# Disney BRDF's work on the torch path (its parameters, its value and pdf
-# toward the light, its sample), a span inside a bounce's hit, nee and
-# bounce.
+# bounce's kernel B6, which does the work of "hit", "nee" and "bounce"
+# where it shades (render/integrator.fused_shading); elsewhere the plain
+# bounce's spans hit, nee and bounce lie inside the shade span.  "bsdf" is
+# the Disney BRDF's work in the plain bounce (its parameters, its value and
+# pdf toward the light, its sample), a span inside its hit, nee and bounce.
 GROUPS = ("raygen", "query", "hit", "nee", "bounce", "shade", "bsdf")
 _BOUNCE_GROUPS = {"closest": "query", "anyhit": "query", "hit": "hit", "nee": "nee",
                   "rr": "bounce", "bounce": "bounce", "shade": "shade", "bsdf": "bsdf"}

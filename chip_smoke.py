@@ -42,7 +42,7 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      with 64-triangle groups and with 2-triangle groups (flat boxes), and
      an edge set on the latter (ragged N, ~10 % inactive lanes, rays at
      vertices and along edges, axis-aligned directions, an all-dead
-     batch, random og).  tri,
+     batch).  tri,
      group and occlusion equal on every ray, t within 1e-6 relative.
   8. B2 vs B1 at grid1m (999,700 triangles): 16384 rays, half aimed at
      triangle centroids; hit or miss equal, t within rtol 5e-4
@@ -77,7 +77,7 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      bounce rays at 700x700, 65536 rays into the 20,000-triangle soup,
      grid100k primary, bounce and scattered rays at 256x256 (the bench camera), and
      the edge set (ragged N, ~10 % inactive lanes, rays at vertices and
-     along edges, axis-aligned directions, random og, an all-dead batch,
+     along edges, axis-aligned directions, an all-dead batch,
      an empty scene).  tri, window and occlusion equal on every ray, t
      within 1e-6 relative; on every set B3's stats variant, plain and
      seeded with the closest t, returns the plain launch's answers.
@@ -239,7 +239,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      0's NEE folded in, and the finishing add of bounce 1's NEE: (a) B6
      against its twins (`integrator.shade_bounce_plain`,
      `shade_finish_plain`) on the same inputs, every output bit for bit
-     (pending where cand); (b) B6 and the twins timed (CUDA events around
+     where the loop reads it (ldir and pending where cand; o, d and
+     prev_pdf on the lanes that went on shading); (b) B6 and the twins timed (CUDA events around
      each call, queued behind a device sleep, the state restored between
      calls outside the events), beside B6's bound (`shade_bound`,
      `finish_bound`: the bytes each lane's outcome needs over 3.35 TB/s).
@@ -353,13 +354,13 @@ def compare(label, mt, o, d, active, tris9, t_max):
     return worst_abs, float(occ_diff > 0)
 
 
-def compare_mega(label, mega, o, d, active, wide, t_max, og=None):
+def compare_mega(label, mega, o, d, active, wide, t_max):
     """B2 vs its twin on one input: tri, group and occlusion equal on every
     ray, t within TOL_REL relative.  Returns the largest |dt| and the
     occlusion mismatch (0 or 1)."""
-    tk, trk, gk = mega.mega_closest(o, d, active, *wide, og=og)
+    tk, trk, gk = mega.mega_closest(o, d, active, *wide)
     tt, trt, gt = mega.mega_closest_plain(o, d, active, *wide)
-    occ_k = mega.mega_anyhit(o, d, t_max, active, *wide, og=og)
+    occ_k = mega.mega_anyhit(o, d, t_max, active, *wide)
     occ_t = mega.mega_anyhit_plain(o, d, t_max, active, *wide)
     torch.cuda.synchronize()
     tri_diff = int((trk != trt).sum())
@@ -379,14 +380,14 @@ def compare_mega(label, mega, o, d, active, wide, t_max, og=None):
     return worst_abs, float(occ_diff > 0)
 
 
-def compare_cw8(label, cw8, o, d, active, cw, t_max, og=None):
+def compare_cw8(label, cw8, o, d, active, cw, t_max):
     """B3 vs its twin on one input: tri, window and occlusion equal on every
     ray, t within TOL_REL relative; B3's stats variant, as the timed walk
     and as the oracle walk, equal to the plain launch.  Returns the largest
     |dt| and the occlusion mismatch (0 or 1)."""
-    tk, trk, wk = cw8.cw8_closest(o, d, active, *cw, og=og)
+    tk, trk, wk = cw8.cw8_closest(o, d, active, *cw)
     tt, trt, wt = cw8.cw8_closest_plain(o, d, active, *cw)
-    occ_k = cw8.cw8_anyhit(o, d, t_max, active, *cw, og=og)
+    occ_k = cw8.cw8_anyhit(o, d, t_max, active, *cw)
     occ_t = cw8.cw8_anyhit_plain(o, d, t_max, active, *cw)
     torch.cuda.synchronize()
     tri_diff = int((trk != trt).sum())
@@ -2579,48 +2580,48 @@ def phase23(dev, smi, runs, reps=30):
         state = shade.PathState(torch.ones(n, dtype=torch.bool, device=dev),
                                 torch.ones((n, 3), device=dev), torch.zeros((n, 3), device=dev),
                                 torch.ones(n, device=dev))
-        og = torch.zeros(n, dtype=torch.int32, device=dev)
         exact, fams = options.exact_reference_nee, options.families
         kind = "disney" if "disney" in fams else "lambert"
         prev = None
         for bounce in (0, 1):
-            _, tri, _, _, grp = integrator._closest_hit_raw(ds, o, d, state.alive, options, og)
-            if grp is not None:
-                og = torch.clamp(grp, min=0)
-            saved = shade.PathState(*(x.clone() for x in state))
-            work = shade.PathState(*(x.clone() for x in state))
-            twin = shade.PathState(*(x.clone() for x in state))
+            tri = integrator._closest_hit_raw(ds, o, d, state.alive, options)[1]
+            # B6's state: alive, T, L and prev_pdf (specular is None).
+            saved = shade.PathState(*(x.clone() for x in state[:4]))
+            work = shade.PathState(*(x.clone() for x in state[:4]))
             rays = (torch.empty_like(o), torch.empty_like(d))
-            twin_rays = (torch.empty_like(o), torch.empty_like(d))
 
-            def restore(st=work):
-                for x, y in zip(st, saved):
+            def restore():
+                for x, y in zip(work[:4], saved[:4]):
                     x.copy_(y)
 
             def kernel(tri=tri, prev=prev, bounce=bounce, rays=rays):
                 return shade.shade_bounce(ds.shade_tab, ds.light_tab, o, d, tri, uni, bounce,
                                           work, prev, exact, rays, fams)
 
-            def plain(tri=tri, prev=prev, bounce=bounce, rays=twin_rays):
-                return integrator.shade_bounce_plain(ds, o, d, tri, uni, bounce, twin, prev,
-                                                     exact, rays, fams)
+            def plain(tri=tri, prev=prev, bounce=bounce):
+                # The twin returns new tensors and leaves `saved` as it is.
+                return integrator.shade_bounce_plain(ds, o, d, tri, uni, bounce, saved, options,
+                                                     prev)
 
             k_ms, k_min = restored_ms(kernel, restore, reps)
-            t_ms, t_min = restored_ms(plain, lambda: restore(twin), max(reps // 3, 3))
+            t_ms, t_min = restored_ms(plain, lambda: None, max(reps // 3, 3))
             restore()
-            restore(twin)
             sh, want = kernel(), plain()
+            twin = want.state
             torch.cuda.synchronize()
+            # Compared where the loop reads them: o, d and prev_pdf on the
+            # lanes that went on shading, ldir and pending where cand.
+            went_on = (saved.alive & (tri >= 0)
+                       & (ds.shade_tab[tri.clamp(min=0).long(), 33] == -1))
+            pairs = [(work.T, twin.T), (work.L, twin.L), (sh.t_max, want.t_max),
+                     (work.prev_pdf[went_on], twin.prev_pdf[went_on]),
+                     (sh.o[went_on], want.o[went_on]), (sh.d[went_on], want.d[went_on]),
+                     (sh.ldir[sh.cand], want.ldir[sh.cand]),
+                     (sh.pending[sh.cand], want.pending[sh.cand])]
             equal = (torch.equal(work.alive, twin.alive) and torch.equal(sh.cand, want.cand)
-                     and all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in (
-                         (work.T, twin.T), (work.L, twin.L), (work.prev_pdf, twin.prev_pdf),
-                         (sh.o, want.o), (sh.d, want.d), (sh.ldir, want.ldir),
-                         (sh.t_max, want.t_max),
-                         (sh.pending[sh.cand], want.pending[want.cand]))))
-            e = _max_abs_err([(work.T, twin.T), (work.L, twin.L),
-                              (work.prev_pdf, twin.prev_pdf), (sh.o, want.o), (sh.d, want.d),
-                              (sh.ldir, want.ldir), (sh.t_max, want.t_max),
-                              (sh.pending[sh.cand], want.pending[want.cand])])
+                     and all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                             for x, y in pairs))
+            e = _max_abs_err(pairs)
             check(equal and e == 0.0, f"{label} bounce {bounce}: B6 differs from its twin "
                   f"(max |diff| {e})")
             err["bounce"] = max(err["bounce"], e)
@@ -2634,20 +2635,19 @@ def phase23(dev, smi, runs, reps=30):
                   f"{counts['disney']} Disney, {counts['cand']} any-hit; B6 {k_ms:.4f} ms (least {k_min:.4f}), bound "
                   f"{bound[0]:.4f} ms by {counts['bytes']} bytes ({row['share_pct']:.1f} %), "
                   f"twin {t_ms:.3f} ms; outputs equal bit for bit", flush=True)
-            shadowed = integrator._occluded(ds, sh.o, sh.ldir, sh.t_max, sh.cand, options, og)
+            shadowed = integrator._occluded(ds, sh.o, sh.ldir, sh.t_max, sh.cand, options)
             state, o, d, prev = work, sh.o, sh.d, (sh.cand, shadowed, sh.pending)
 
         # The finishing add of bounce 1's NEE, on copies of the path's L.
         L0 = state.L.clone()
-        L_k, L_t = L0.clone(), L0.clone()
+        L_k = L0.clone()
         f_ms, f_min = restored_ms(lambda: shade.shade_finish(L_k, *prev),
                                   lambda: L_k.copy_(L0), reps)
-        p_ms, p_min = restored_ms(lambda: integrator.shade_finish_plain(L_t, *prev),
-                                  lambda: L_t.copy_(L0), max(reps // 3, 3))
+        p_ms, p_min = restored_ms(lambda: integrator.shade_finish_plain(L0, *prev),
+                                  lambda: None, max(reps // 3, 3))
         L_k.copy_(L0)
-        L_t.copy_(L0)
         shade.shade_finish(L_k, *prev)
-        integrator.shade_finish_plain(L_t, *prev)
+        L_t = integrator.shade_finish_plain(L0, *prev)
         torch.cuda.synchronize()
         e = _max_abs_err([(L_k, L_t)])
         check(torch.equal(L_k.view(torch.int32), L_t.view(torch.int32)) and e == 0.0,
@@ -2935,16 +2935,15 @@ def run(sbvh_grid1m):
 
     # Edge set on cornell with flat 2-triangle group boxes: ragged N,
     # ~10 % inactive lanes, rays at vertices and edge midpoints, rays along
-    # edges, axis-aligned directions (1/0 = inf in the exit clamp), random
-    # og; then an all-dead batch.
+    # edges, axis-aligned directions (1/0 = inf in the exit clamp); then an
+    # all-dead batch.
     origin, direction = edge_rays(fds, camera, rng, ne)
-    og = cuda(rng.integers(0, fds.wb_mega.shape[0], ne), torch.int32)
     mega_results.append(compare_mega(
         "edge cases", mega, cuda(origin), cuda(direction), cuda(rng.random(ne) < 0.9, torch.bool),
-        fw, cuda(rng.uniform(0, 30, ne)), og=og))
+        fw, cuda(rng.uniform(0, 30, ne))))
     dead = torch.zeros(ne, dtype=torch.bool, device=dev)
     mega_results.append(compare_mega("all dead", mega, cuda(origin), cuda(direction), dead, fw,
-                                     cuda(rng.uniform(0, 30, ne)), og=og))
+                                     cuda(rng.uniform(0, 30, ne))))
     err_b2 = {"closest": max(r[0] for r in mega_results),
               "anyhit": max(r[1] for r in mega_results)}
     del sds, cds, fds
@@ -3142,15 +3141,14 @@ def run(sbvh_grid1m):
                                   *scattered_rays(g3, go, gd, tri, rng, cuda), gc,
                                   cuda(rng.uniform(0, 8, nb))))
     # Edge set on cornell: ragged N, ~10 % inactive lanes, rays at vertices
-    # and along edges, axis-aligned directions, random og; an all-dead
-    # batch; an empty scene.
+    # and along edges, axis-aligned directions; an all-dead batch; an empty
+    # scene.
     origin, direction = edge_rays(cwds, camera, rng, ne)
-    og = cuda(rng.integers(0, cwds.cw_planes.shape[0], ne), torch.int32)
     cw_results.append(compare_cw8(
         "edge cases", cw8, cuda(origin), cuda(direction), cuda(rng.random(ne) < 0.9, torch.bool),
-        cc, cuda(rng.uniform(0, 30, ne)), og=og))
+        cc, cuda(rng.uniform(0, 30, ne))))
     cw_results.append(compare_cw8("all dead", cw8, cuda(origin), cuda(direction), dead, cc,
-                                  cuda(rng.uniform(0, 30, ne)), og=og))
+                                  cuda(rng.uniform(0, 30, ne))))
     empty = upload_scene(scene._replace(tri_v=scene.tri_v[:0], tri_vn=scene.tri_vn[:0],
                                         tri_vt=scene.tri_vt[:0]), "cwbvh", dev)
     cw_results.append(compare_cw8("empty scene", cw8, cuda(origin), cuda(direction),

@@ -289,13 +289,13 @@ def test_integrator_refuses_a_tree_deeper_than_the_kernel_on_the_card(device, ra
     traverse_bvh.reset_launches()
     if raises:
         with pytest.raises(ValueError, match=f"at most {traverse_bvh.MAX_STACK}"):
-            integrator._closest_hit_raw(ds, o, d, active, options, None)
+            integrator._closest_hit_raw(ds, o, d, active, options)
         with pytest.raises(ValueError, match=f"at most {traverse_bvh.MAX_STACK}"):
-            integrator._occluded(ds, o, d, t_max, active, options, None)
+            integrator._occluded(ds, o, d, t_max, active, options)
         assert all(v == 0 for v in traverse_bvh.launches.values())
     else:
-        integrator._closest_hit_raw(ds, o, d, active, options, None)
-        integrator._occluded(ds, o, d, t_max, active, options, None)
+        integrator._closest_hit_raw(ds, o, d, active, options)
+        integrator._occluded(ds, o, d, t_max, active, options)
         assert traverse_bvh.launches["closest_twin"] == 1
         assert traverse_bvh.launches["anyhit_twin"] == 1
 

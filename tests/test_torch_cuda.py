@@ -208,10 +208,9 @@ def _wide_case(case, dev, cornell):
 def test_mega_kernel_matches_twin(case, dev, cornell):
     ds, o, d, active, t_max = _wide_case(case, dev, cornell)
     wide = [getattr(ds, k) for k in WIDE_FIELDS]
-    og = torch.randint(0, ds.wb_mega.shape[0], (o.shape[0],), dtype=torch.int32, device=dev)
-    tk, trk, gk = traverse_mega.mega_closest(o, d, active, *wide, og=og)
+    tk, trk, gk = traverse_mega.mega_closest(o, d, active, *wide)
     tt, trt, gt = traverse_mega.mega_closest_plain(o, d, active, *wide)
-    occ_k = traverse_mega.mega_anyhit(o, d, t_max, active, *wide, og=og)
+    occ_k = traverse_mega.mega_anyhit(o, d, t_max, active, *wide)
     occ_t = traverse_mega.mega_anyhit_plain(o, d, t_max, active, *wide)
     torch.cuda.synchronize()
     assert torch.equal(trk, trt) and torch.equal(gk, gt)
@@ -231,7 +230,7 @@ def test_mega_kernel_rejects_bad_inputs(dev, cornell):
     with pytest.raises(ValueError):
         traverse_mega.mega_anyhit(o, d, t_max[:10], active, *wide)
     with pytest.raises(TypeError):
-        traverse_mega.mega_closest(o, d, active, *wide, og=torch.zeros(64, device=dev))
+        traverse_mega.mega_closest(o, d, active.int(), *wide)
     with pytest.raises(ValueError):
         traverse_mega.mega_closest(o, d, active, *wide[:5], wide[5][:, :0])
     with pytest.raises(ValueError):
@@ -348,10 +347,9 @@ def _cw_case(case, dev, cornell):
 @pytest.mark.parametrize("case", ["soup", "grid", "cornell"])
 def test_cw8_kernel_matches_twin(case, dev, cornell):
     ds, o, d, active, t_max = _cw_case(case, dev, cornell)
-    og = torch.randint(0, ds.cw_planes.shape[0], (o.shape[0],), dtype=torch.int32, device=dev)
-    tk, trk, wk = traverse_cw8.cw8_closest(o, d, active, *_cw(ds), og=og)
+    tk, trk, wk = traverse_cw8.cw8_closest(o, d, active, *_cw(ds))
     tt, trt, wt = traverse_cw8.cw8_closest_plain(o, d, active, *_cw(ds))
-    occ_k = traverse_cw8.cw8_anyhit(o, d, t_max, active, *_cw(ds), og=og)
+    occ_k = traverse_cw8.cw8_anyhit(o, d, t_max, active, *_cw(ds))
     occ_t = traverse_cw8.cw8_anyhit_plain(o, d, t_max, active, *_cw(ds))
     torch.cuda.synchronize()
     assert torch.equal(trk, trt) and torch.equal(wk, wt)
@@ -405,8 +403,7 @@ def test_cw8_kernel_rejects_bad_inputs(dev, cornell):
     with pytest.raises(TypeError):
         traverse_cw8.cw8_closest(o, d, active, nodes.view(torch.float32), planes, bounds, depth)
     with pytest.raises(TypeError):
-        traverse_cw8.cw8_closest(o, d, active, nodes, planes, bounds, depth,
-                                 og=torch.zeros(64, device=dev))
+        traverse_cw8.cw8_closest(o, d, active.int(), nodes, planes, bounds, depth)
     with pytest.raises(ValueError):
         traverse_cw8.cw8_closest(o, d, active, nodes, planes[:, :, :96], bounds, depth)
     with pytest.raises(ValueError, match="depth"):

@@ -92,9 +92,9 @@ def _cw(ds):
     return ds.cw_nodes, ds.cw_planes, ds.cw_bounds, ds.cw_depth
 
 
-def _port_closest(tds, o, d, active, og=None):
+def _port_closest(tds, o, d, active):
     got = t_cw8.cw8_closest(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(active),
-                            *_cw(tds), og=None if og is None else torch.from_numpy(og))
+                            *_cw(tds))
     return [x.numpy() for x in got]
 
 
@@ -290,13 +290,10 @@ def test_edge_cases_match_reference_brute_force(case):
     np.testing.assert_array_equal(occ, hit)  # every hit lies within 30
 
 
-def test_og_hint_and_empty_scene():
-    sc, _, tds = _uploads("grid")
+def test_empty_scene():
+    sc = _uploads("grid")[0]
     o, d = _mixed_rays(sc, 256, seed=3)
     act = np.ones(256, bool)
-    og = np.random.default_rng(0).integers(0, 40, 256).astype(np.int32)
-    for a, b in zip(_port_closest(tds, o, d, act), _port_closest(tds, o, d, act, og=og)):
-        np.testing.assert_array_equal(a, b)
     empty = sc._replace(tri_v=sc.tri_v[:0], tri_vn=sc.tri_vn[:0], tri_vt=sc.tri_vt[:0])
     eds = t_scene.upload_scene(empty, "cwbvh", "cpu")
     assert eds.cw_nodes.shape == (0, 20) and eds.cw_planes.shape == (0, 4, 128)

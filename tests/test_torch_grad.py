@@ -162,15 +162,14 @@ def test_ray_queries_are_detached_at_the_dispatch(accel):
     o, d = generate_rays(camera._replace(position=position), 8, 8, uni)
     assert o.requires_grad
     active = torch.ones(64, dtype=torch.bool)
-    og = torch.zeros(64, dtype=torch.int32)
-    raw = t_integrator._closest_hit_raw(ds, o, d, active, options, og)
-    assert not any(x.requires_grad for x in raw if x is not None)
+    raw = t_integrator._closest_hit_raw(ds, o, d, active, options)
+    assert not any(x.requires_grad for x in raw)
     assert int((raw[1] >= 0).sum()) > 40
-    hf = t_integrator.hit_frame(ds, o, d, *raw[:4])
+    hf = t_integrator.hit_frame(ds, o, d, *raw)
     assert hf.t.requires_grad and hf.point.requires_grad
     t_max = (hf.t * 0.5).clone()
     assert t_max.requires_grad
-    occ = t_integrator._occluded(ds, hf.point, d, t_max, active, options, og)
+    occ = t_integrator._occluded(ds, hf.point, d, t_max, active, options)
     assert not occ.requires_grad and occ.dtype == torch.bool
 
 

@@ -90,13 +90,12 @@ def _wide_args(ds):
     return [getattr(ds, k) for k in t_scene.WIDE_FIELDS]
 
 
-def _closest_both(name, o, d, active, og=None):
+def _closest_both(name, o, d, active):
     _, jds, tds = _uploads(name)
     ref = j_mega.mega_closest(jnp.asarray(o), jnp.asarray(d), jnp.asarray(active),
                               *_wide_args(jds))
     got = t_mega.mega_closest(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(active),
-                              *_wide_args(tds),
-                              og=None if og is None else torch.from_numpy(og))
+                              *_wide_args(tds))
     return [np.asarray(x) for x in ref], [x.numpy() for x in got]
 
 
@@ -229,17 +228,6 @@ def test_mega_closest_edge_cases_match_reference(case):
     hit = _assert_closest_matches(ref, got, case)
     assert not hit[~active].any()
     assert hit.any() == (case != "all_inactive")
-
-
-def test_mega_og_hint_does_not_change_results():
-    sc = _uploads("grid")[0]
-    o, d = _mixed_rays(sc, 256, seed=3)
-    act = np.ones(256, bool)
-    _, got0 = _closest_both("grid", o, d, act)
-    og = np.random.default_rng(0).integers(0, 50, 256).astype(np.int32)
-    _, got1 = _closest_both("grid", o, d, act, og=og)
-    for a, b in zip(got0, got1):
-        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))

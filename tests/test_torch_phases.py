@@ -90,8 +90,9 @@ def test_span_under_the_profiler_is_a_caitlyn_event():
 def test_eager_sample_ops_all_inside_named_phases(accel):
     """An eager cornell render_step under the profiler: every aten op lies
     inside a `caitlyn.` span; the spans are the sample's, raygen and each
-    bounce's six phases with its index; and the accumulation is the same,
-    bit for bit, with the profiler and without."""
+    bounce's six phases and its shade span (which holds hit, nee and
+    bounce) with its index; and the accumulation is the same, bit for bit,
+    with the profiler and without."""
     ds, camera, options = _cornell(accel)
     state = progressive.init_state(W, H, 11, "cpu")
     want = progressive.render_step(ds, camera, state, W, H, options)
@@ -101,7 +102,7 @@ def test_eager_sample_ops_all_inside_named_phases(accel):
     names = {e.name()[len(metrics.PREFIX):] for e in events
              if e.name().startswith(metrics.PREFIX)}
     expected = {"sample.keys", "sample.uniforms", "sample.accumulate", "raygen"} | {
-        f"b{b}.{p}" for b in range(options.max_depth) for p in BOUNCE_PHASES}
+        f"b{b}.{p}" for b in range(options.max_depth) for p in (*BOUNCE_PHASES, "shade")}
     assert names == expected
     ops = [e for e in events if e.name().startswith("aten::")]
     assert len(ops) > 100
@@ -160,8 +161,9 @@ def test_capture_phase_map_covers_every_node(monkeypatch, accel):
     nodes, phases = marks.node_phases(0)
     assert len(phases) == len(nodes) == len(fake.nodes) > 100
     assert None not in phases
-    # CPU tensors run the torch path's shading: no "shade" group (B6), and
-    # a Lambert scene no "bsdf" group (the Disney BRDF).
+    # CPU tensors shade with B6's plain twin, whose spans hold all its ops:
+    # no "shade" group (B6's), and a Lambert scene no "bsdf" group (the
+    # Disney BRDF).
     groups = {metrics.phase_group(p) for p in phases}
     assert groups == set(metrics.GROUPS) - {"shade", "bsdf"}
     assert {p for p in phases if p.startswith("b")} >= {

@@ -3,12 +3,14 @@
 Camera from scenes/cornell.toml (the golden's camera), not the `cornell`
 fixture, whose camera frames empty space.  Tolerances, each with its
 reason:
-  * trace_paths with shared uniforms, Lambert: per pixel atol 1e-5 (same
-    estimator, same float32 expressions; ulp-level differences of
-    sqrt/sin/cos and XLA's fused multiply-adds), stats equal;
+  * trace_paths with shared uniforms, Lambert (the cornell, and the scenes
+    kernel B6 shades on the card, tests/test_torch_shade.FUSED_CASES): per
+    pixel atol 1e-5 (same estimator, same float32 expressions; ulp-level
+    differences of sqrt/sin/cos and XLA's fused multiply-adds), stats
+    equal;
   * trace_paths with shared uniforms, the Disney, mirror, glass and
-    CONDUCTOR floors, the textured OBJ, the sky-lit cornell and the default
-    families: at most 0.5 % of pixels beyond atol 1e-4 and the means
+    CONDUCTOR floors, the textured OBJ, the sky-lit cornell (also under the
+    wide BVH) and the default families: at most 0.5 % of pixels beyond atol 1e-4 and the means
     within rtol 1e-3; the stats within 0.5 % of the lanes.  A Disney lobe
     pick or a Fresnel choice compares a uniform with a float32 threshold
     the two packages may round apart, and then the whole path differs;
@@ -46,6 +48,8 @@ from caitlynrenderer_tpu_torch.render import integrator as t_integrator
 from caitlynrenderer_tpu_torch.render import progressive as t_progressive
 from caitlynrenderer_tpu_torch.scene import upload_scene as t_upload
 
+import test_torch_shade
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOML = os.path.join(ROOT, "scenes", "cornell.toml")
 DISNEY_TOML = os.path.join(ROOT, "scenes", "cornell_disney.toml")
@@ -62,30 +66,48 @@ def _setup(width, height, **kw):
 
 
 def _trace_both(ds_scene, camera, options, seed):
-    """trace_paths of both packages on the same rays and uniforms (brute
-    force): (port radiance, port stats, reference radiance, reference
-    stats), radiance as numpy."""
+    """trace_paths of both packages on the same rays and uniforms, each
+    scene uploaded for options.accel: (port radiance, port stats,
+    reference radiance, reference stats), radiance as numpy."""
     w, h = options.width, options.height
     uni = np.random.default_rng(seed).random((w * h, 4 + 7 * options.max_depth),
                                              dtype=np.float32)
     oj, dj = j_generate_rays(camera, w, h, jnp.asarray(uni))
     j_trace = jax.jit(j_integrator.trace_paths, static_argnames=("options", "with_stats"))
-    lj, sj = j_trace(j_upload(ds_scene, accel="brute"), oj, dj, jnp.asarray(uni), options,
+    lj, sj = j_trace(j_upload(ds_scene, accel=options.accel), oj, dj, jnp.asarray(uni), options,
                      with_stats=True)
     ot, dt = t_generate_rays(camera, w, h, torch.from_numpy(uni))
-    lt, st = t_integrator.trace_paths(t_upload(ds_scene, "brute", "cpu"), ot, dt,
+    lt, st = t_integrator.trace_paths(t_upload(ds_scene, options.accel, "cpu"), ot, dt,
                                       torch.from_numpy(uni), options, with_stats=True)
     return lt.numpy(), st, np.asarray(lj), sj
+
+
+def assert_lambert_close(lt, st, lj, sj):
+    """The Lambert contract (module docstring): per pixel atol 1e-5, stats
+    equal."""
+    np.testing.assert_allclose(lt, lj, rtol=0, atol=1e-5)
+    assert float(lt.sum()) > 0.0
+    for key in ("rays_closest", "rays_anyhit", "alive_per_bounce"):
+        np.testing.assert_array_equal(st[key].numpy(), np.asarray(sj[key]))
+
+
+def assert_shaded_close(lt, st, lj, sj):
+    """The contract of the other families, textures and the environment
+    (module docstring): at most 0.5 % of pixels beyond atol 1e-4, the
+    means within rtol 1e-3, the stats within 0.5 % of the lanes."""
+    off = (np.abs(lt - lj) > 1e-4).any(axis=1)
+    assert off.mean() <= 0.005, off.sum()
+    np.testing.assert_allclose(lt.mean(), lj.mean(), rtol=1e-3)
+    assert lt.mean() > 0.02
+    lanes = lt.shape[0]
+    for key in ("rays_closest", "rays_anyhit", "alive_per_bounce"):
+        assert (np.abs(st[key].numpy() - np.asarray(sj[key])) <= 0.005 * lanes).all(), key
 
 
 @pytest.mark.parametrize("rr_start,exact_nee", [(-1, False), (1, False), (-1, True)])
 def test_trace_paths_matches_reference_per_pixel(rr_start, exact_nee):
     scene, camera, options = _setup(48, 48, rr_start=rr_start, exact_reference_nee=exact_nee)
-    lt, st, lj, sj = _trace_both(scene, camera, options, rr_start + 5)
-    np.testing.assert_allclose(lt, lj, rtol=0, atol=1e-5)
-    assert float(lt.sum()) > 0.0
-    for key in ("rays_closest", "rays_anyhit", "alive_per_bounce"):
-        np.testing.assert_array_equal(st[key].numpy(), np.asarray(sj[key]))
+    assert_lambert_close(*_trace_both(scene, camera, options, rr_start + 5))
 
 
 @pytest.fixture(scope="module")
@@ -140,16 +162,39 @@ def test_trace_paths_shading_matches_reference_per_pixel(case, textured):
     reflection; so a Lambert bounce)."""
     scene, camera, options = _shaded_case(case, textured)
     lt, st, lj, sj = _trace_both(scene, camera, options, 11)
-    off = (np.abs(lt - lj) > 1e-4).any(axis=1)
-    assert off.mean() <= 0.005, off.sum()
-    np.testing.assert_allclose(lt.mean(), lj.mean(), rtol=1e-3)
-    assert lt.mean() > 0.02
-    lanes = lt.shape[0]
-    for key in ("rays_closest", "rays_anyhit", "alive_per_bounce"):
-        assert (np.abs(st[key].numpy() - np.asarray(sj[key])) <= 0.005 * lanes).all(), key
+    assert_shaded_close(lt, st, lj, sj)
     if case == "default_families":  # tracing unused families changes nothing
         lam, _, _, _ = _trace_both(scene, camera, options._replace(families=("lambert",)), 11)
         np.testing.assert_array_equal(lt, lam)
+
+
+def test_trace_paths_under_wide_matches_reference_per_pixel():
+    """The glass floor under the sky, every family traced, through the wide
+    BVH: the plain bounce's refraction, environment and specular MIS with
+    the wide queries, against the reference's wide path, which threads its
+    own origin-group hint (the module docstring's contract)."""
+    scene = cornell_box(floor_type=int(MaterialType.GLASS))[0]
+    scene = scene._replace(env_map=procedural_sky(16, 32))
+    _, camera, options = _setup(48, 48, use_env_map=True)
+    options = options._replace(accel="wide", families=RenderOptions().families)
+    assert_shaded_close(*_trace_both(scene, camera, options, 13))
+
+
+@pytest.mark.parametrize("name", list(test_torch_shade.FUSED_CASES))
+def test_plain_loop_matches_reference_per_pixel(name, monkeypatch):
+    """The scenes kernel B6 shades on the card, under brute, wide, cwbvh
+    and bvh2, through the loop with B6's plain twin on the CPU, against the
+    reference on the same rays and uniforms: the Lambert cases within the
+    Lambert contract, the Disney ones within the contract of the other
+    families.  One twin call a bounce, one finishing add a bounce."""
+    calls = test_torch_shade.count_plain_steps(monkeypatch)
+    # The Disney cases at 48x40: enough lanes on the floor for every lobe.
+    size = (48, 40) if name.startswith("disney") else (test_torch_shade.W, test_torch_shade.H)
+    scene, _, camera, options = test_torch_shade._fused_setup(name, width=size[0],
+                                                              height=size[1])
+    got = _trace_both(scene, camera, options, 11)
+    (assert_shaded_close if name.startswith("disney") else assert_lambert_close)(*got)
+    assert calls == {"bounce": options.max_depth, "finish": options.max_depth}
 
 
 def test_conductor_is_specular_but_scatters_as_lambert():

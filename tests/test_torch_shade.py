@@ -3,17 +3,17 @@ shading on the no-grad render path, and the predicate that chooses it.
 
 CPU: `fused_shading` on stand-in scenes whose tensors say cuda:0 (true for
 the Lambert cornell and the Disney-floor one, false for each case the
-torch path keeps: CPU tensors, the mirror and glass families, the Disney
+plain bounce keeps: CPU tensors, the mirror and glass families, the Disney
 family without Lambert, a texture, the environment, the ray-count stats,
 a scene tensor requiring grad under grad mode, no light); `trace_paths`
-on CPU tensors in those cases runs the torch path and launches nothing of
-B6; the fused loop with the kernel's plain twins passed in the kernels'
-place (`trace_paths_fused` on CPU tensors) equals the torch path bit for
-bit, on the Lambert scenes, on the Disney-floor cornell and on a Disney
-floor with every lobe weighted (some of whose lanes end where a sample
-has no pdf); the wrapper's checks; the C struct and constants against
-their Python counterparts; the "shade" phase group and the two
-instantiations' launch keys.
+on CPU tensors in those cases runs the plain bounce and never calls B6's
+wrapper; FUSED_CASES, the scenes B6 shades on the card, which
+tests/test_torch_render.py also holds against the JAX package on the
+CPU (the Lambert scenes, the Disney-floor cornell and a Disney floor with
+every lobe weighted, some of whose lanes end where a sample has no pdf);
+the wrapper's checks; the C struct and constants against their Python
+counterparts; the "shade" phase group and the two instantiations' launch
+keys.
 
 Card (marked `cuda`, skipped without a card): B6 against its twin on one
 bounce of the 700x700 cornell and of the 700x700 Disney-floor cornell
@@ -23,9 +23,9 @@ accumulation, eager and through a 16-sample CUDA graph, on the cornell,
 the Disney-floor cornell and displaced_grid(224) under wide and bvh2, for
 both values of exact_reference_nee and with Russian roulette from bounce
 0; B6's launches and the graph's "shade" nodes; tiled and sharded renders
-through B6.  Tolerance: none, every comparison is bit for bit (the kernel rounds
-each torch op once, in its order, under --fmad=false).  This file imports
-neither jax nor the reference package.
+through B6.  Tolerance on the card: none, every comparison is bit for bit
+(the kernel rounds each torch op once, in its order, under --fmad=false).
+This file imports neither jax nor the reference package.
 """
 
 import ctypes
@@ -62,11 +62,16 @@ with open(os.path.join(ROOT, shade.SOURCE)) as _f:
 W, H = 16, 12
 
 
-def _cornell(accel="brute", width=W, height=H, dev="cpu", toml=TOML, **overrides):
+def _cornell_scene(accel="brute", width=W, height=H, toml=TOML, **overrides):
     cfg = config.load_config(toml)
     scene, camera, options = render_setup(cfg, os.path.dirname(toml), width=width,
                                           height=height, accel=accel)
-    return upload_scene(scene, accel, dev), camera, options._replace(**overrides)
+    return scene, camera, options._replace(**overrides)
+
+
+def _cornell(accel="brute", width=W, height=H, dev="cpu", toml=TOML, **overrides):
+    scene, camera, options = _cornell_scene(accel, width, height, toml, **overrides)
+    return upload_scene(scene, accel, dev), camera, options
 
 
 # A Disney floor whose every lobe carries weight: roughness, metallic,
@@ -77,6 +82,11 @@ LOBES = {"disney": (0.3, 0.6, 0.5, 0.7), "disney2": (0.8, 0.4, 0.5)}
 
 
 def _disney(accel="brute", width=W, height=H, dev="cpu", lobes=False, **overrides):
+    scene, camera, options = _disney_scene(accel, width, height, lobes, **overrides)
+    return upload_scene(scene, accel, dev), camera, options
+
+
+def _disney_scene(accel="brute", width=W, height=H, lobes=False, **overrides):
     """The Disney-floor cornell at 4 bounces (the cornell_disney700 cell's
     scene and depth); with `lobes`, its floor's parameters set to LOBES."""
     cfg = config.load_config(DISNEY_TOML)
@@ -90,16 +100,14 @@ def _disney(accel="brute", width=W, height=H, dev="cpu", lobes=False, **override
         disney2[floor, :3] = LOBES["disney2"]
         scene = scene._replace(materials=m._replace(disney=disney, disney2=disney2))
     assert options.families == ("lambert", "disney")
-    return upload_scene(scene, accel, dev), camera, options._replace(**overrides)
+    return scene, camera, options._replace(**overrides)
 
 
-def _grid(accel, resolution, width, height, dev="cpu", **overrides):
+def _grid_scene(accel, resolution, width, height, **overrides):
     scene = displaced_grid(resolution)[0]
     camera = make_camera([5.0, 9.0, 11.0], [5.0, 2.0, 5.0], 50.0)
-    ds = upload_scene(scene, accel, dev)
-    options = RenderOptions(width=width, height=height, max_depth=4, accel=accel,
-                            families=scene_families(scene), **overrides)
-    return ds, camera, options._replace(max_stack=required_stack(ds))
+    return scene, camera, RenderOptions(width=width, height=height, max_depth=4, accel=accel,
+                                        families=scene_families(scene), **overrides)
 
 
 def _inputs(ds, camera, options, key=(7, 11)):
@@ -113,6 +121,19 @@ def _inputs(ds, camera, options, key=(7, 11)):
 
 def _no_launches():
     return all(v == 0 for v in shade.launches.values())
+
+
+def count_plain_steps(monkeypatch):
+    """Count the calls of the plain bounce and finishing step: the returned
+    dict's "bounce" and "finish"."""
+    calls = {"bounce": 0, "finish": 0}
+    for key, name in (("bounce", "shade_bounce_plain"), ("finish", "shade_finish_plain")):
+        def counted(*a, _key=key, _fn=getattr(integrator, name), **k):
+            calls[_key] += 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(integrator, name, counted)
+    return calls
 
 
 # --------------------------------------------------------------------------
@@ -213,13 +234,18 @@ def _torch_path_case(case, textured_dir):
 @pytest.mark.parametrize("case", ["lambert", "disney", "mirror", "glass", "textured",
                                   "use_env_map", "with_stats", "grad"])
 def test_trace_paths_on_cpu_runs_the_torch_path(case, tmp_path, monkeypatch):
-    """On CPU tensors `trace_paths` runs the torch path in every case:
-    B6 launches nothing, its twins are not called, and the fused loop is
-    not entered."""
-    monkeypatch.setattr(integrator, "trace_paths_fused",
-                        lambda *a, **k: pytest.fail("the fused loop ran on CPU tensors"))
+    """On CPU tensors `trace_paths` shades with the plain bounce in every
+    case, once a bounce, and adds each bounce's NEE with the plain
+    finishing step (the next bounce's, or the loop's after the last): B6's
+    wrappers are not called and launch nothing, and the caller's rays are
+    left as they were."""
+    for name in ("shade_bounce", "shade_finish"):
+        monkeypatch.setattr(shade, name,
+                            lambda *a, **k: pytest.fail("B6's wrapper ran on CPU tensors"))
+    calls = count_plain_steps(monkeypatch)
     ds, camera, options = _torch_path_case(case, tmp_path)
     o, d, uni = _inputs(ds, camera, options)
+    o0, d0 = o.clone(), d.clone()
     shade.reset_launches()
     if case == "grad":
         table = ds.shade_tab.clone().requires_grad_()
@@ -232,6 +258,8 @@ def test_trace_paths_on_cpu_runs_the_torch_path(case, tmp_path, monkeypatch):
     L = L.detach()
     assert bool(torch.isfinite(L).all()) and float(L.sum()) > 0
     assert _no_launches()
+    assert calls == {"bounce": options.max_depth, "finish": options.max_depth}
+    assert torch.equal(o, o0) and torch.equal(d, d0)
 
 
 FUSED_CASES = {
@@ -251,44 +279,24 @@ FUSED_CASES = {
 }
 
 
-def _fused_case(name, dev="cpu", width=W, height=H, resolution=24):
+def _fused_setup(name, dev="cpu", width=W, height=H, resolution=24):
+    """(scene arrays, ds, camera, options) of a FUSED_CASES case."""
     kind, accel, overrides = FUSED_CASES[name]
     if kind.startswith("disney"):
-        return _disney(accel, width, height, dev, kind == "disney_lobes", **overrides)
-    if kind == "cornell":
-        ds, camera, options = _cornell(accel, width, height, dev, **overrides)
-        if accel == "bvh2":
-            options = options._replace(max_stack=required_stack(ds))
-        return ds, camera, options
-    return _grid(accel, resolution, width, height, dev, **overrides)
+        scene, camera, options = _disney_scene(accel, width, height, kind == "disney_lobes",
+                                               **overrides)
+    elif kind == "cornell":
+        scene, camera, options = _cornell_scene(accel, width, height, **overrides)
+    else:
+        scene, camera, options = _grid_scene(accel, resolution, width, height, **overrides)
+    ds = upload_scene(scene, accel, dev)
+    if accel == "bvh2":
+        options = options._replace(max_stack=required_stack(ds))
+    return scene, ds, camera, options
 
 
-@pytest.mark.parametrize("name", list(FUSED_CASES))
-def test_fused_loop_with_twins_equals_torch_path(name):
-    """The fused loop (`trace_paths_fused`) with the kernel's plain twins
-    in B6's place returns the torch path's radiance bit for bit: one twin
-    call a bounce and one finishing call, the caller's rays untouched."""
-    # The Disney cases at 48x40: enough lanes on the floor for every lobe.
-    size = (48, 40) if name.startswith("disney") else (W, H)
-    ds, camera, options = _fused_case(name, width=size[0], height=size[1])
-    o, d, uni = _inputs(ds, camera, options)
-    want = integrator.trace_paths(ds, o, d, uni, options)
-    o0, d0 = o.clone(), d.clone()
-    calls = {"bounce": 0, "finish": 0}
-
-    def bounce_fn(*args):
-        calls["bounce"] += 1
-        return integrator.shade_bounce_plain(*args)
-
-    def finish_fn(*args):
-        calls["finish"] += 1
-        integrator.shade_finish_plain(*args)
-
-    shade.reset_launches()
-    got = integrator.trace_paths_fused(ds, o, d, uni, options, bounce_fn, finish_fn)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert calls == {"bounce": options.max_depth, "finish": 1} and _no_launches()
-    assert torch.equal(o, o0) and torch.equal(d, d0)
+def _fused_case(name, dev="cpu", width=W, height=H, resolution=24):
+    return _fused_setup(name, dev, width, height, resolution)[1:]
 
 
 def test_disney_stand_in_samples_every_lobe_and_ends_lanes():
@@ -303,13 +311,12 @@ def test_disney_stand_in_samples_every_lobe_and_ends_lanes():
         ds, camera, options = _disney(width=48, height=40, lobes=lobes)
         o, d, uni = _inputs(ds, camera, options)
         n = o.shape[0]
-        _, tri, _, _, _ = integrator._closest_hit_raw(
-            ds, o, d, torch.ones(n, dtype=torch.bool), options, torch.zeros(n, dtype=torch.int32))
+        tri = integrator._closest_hit_raw(ds, o, d, torch.ones(n, dtype=torch.bool), options)[1]
         hf = integrator.hit_frame(ds, o, d, torch.zeros(n), tri, torch.zeros(n), torch.zeros(n))
         surf = integrator.surface(ds, hf, options.families)
         state = shade.PathState(torch.ones(n, dtype=torch.bool), torch.ones((n, 3)),
                                 torch.zeros((n, 3)), torch.ones(n))
-        integrator.shade_bounce_plain(ds, o, d, tri, uni, 0, state, families=options.families)
+        state = integrator.shade_bounce_plain(ds, o, d, tri, uni, 0, state, options).state
         live = hf.keep & (hf.rows[:, 33] == -1)
         dis = live & surf.disney
         w_diff, w_spec, _ = bsdf._lobe_weights(surf.dis_p)
@@ -477,39 +484,48 @@ def test_b6_bounce_equals_twin_on_the_card(dev, scene, bounce, exact):
     ops) on the primary rays of the 700x700 cornell (the Lambert
     instantiation), of the Disney-floor cornell (the cornell_disney700
     cell's scene; the Disney one) and of the LOBES floor, with a random
-    state and a random previous NEE: every output bit for bit."""
+    state and a random previous NEE: every output bit for bit where the
+    loop reads it (alive, T, L, cand and t_max on every lane; ldir and
+    pending where cand; o, d and prev_pdf where the lane went on
+    shading)."""
     if scene == "cornell":
         ds, camera, options = _cornell("brute", 700, 700, dev)
     else:
         ds, camera, options = _disney("brute", 700, 700, dev, scene == "disney_lobes")
     o, d, uni = _inputs(ds, camera, options)
     n = o.shape[0]
-    _, tri, _, _, _ = integrator._closest_hit_raw(
-        ds, o, d, torch.ones(n, dtype=torch.bool, device=dev), options,
-        torch.zeros(n, dtype=torch.int32, device=dev))
+    tri = integrator._closest_hit_raw(ds, o, d, torch.ones(n, dtype=torch.bool, device=dev),
+                                      options)[1]
     g = torch.Generator().manual_seed(5)
     state = shade.PathState(torch.rand(n, generator=g) < 0.9, torch.rand((n, 3), generator=g),
                             torch.rand((n, 3), generator=g), torch.rand(n, generator=g))
     prev = (torch.rand(n, generator=g) < 0.5, torch.rand(n, generator=g) < 0.3,
             torch.rand((n, 3), generator=g)) if bounce else None
-    state = shade.PathState(*(x.to(dev) for x in state))
+    state = shade.PathState(*(x.to(dev) for x in state[:4]))
     prev = tuple(x.to(dev) for x in prev) if prev else None
-    twin_state = shade.PathState(*(x.clone() for x in state))
+    twin_state = shade.PathState(*(x.clone() for x in state[:4]))
+    alive_in = twin_state.alive
     shade.reset_launches()
     fams = options.families
     got = shade.shade_bounce(ds.shade_tab, ds.light_tab, o, d, tri, uni, bounce, state, prev,
                              exact, families=fams)
-    want = integrator.shade_bounce_plain(ds, o, d, tri, uni, bounce, twin_state, prev, exact,
-                                         families=fams)
+    want = integrator.shade_bounce_plain(ds, o, d, tri, uni, bounce, twin_state,
+                                         options._replace(exact_reference_nee=exact), prev)
+    twin_state = want.state
     torch.cuda.synchronize()
+    assert got.state is state
     assert shade.launches["bounce_disney" if "disney" in fams else "bounce"] == 1
     assert torch.equal(state.alive, twin_state.alive) and torch.equal(got.cand, want.cand)
-    for name in ("T", "L", "prev_pdf"):
+    for name in ("T", "L"):
         assert _bits_equal(getattr(state, name), getattr(twin_state, name)), name
-    for name in ("o", "d", "ldir", "t_max"):
-        assert _bits_equal(getattr(got, name), getattr(want, name)), name
-    assert _bits_equal(got.pending[got.cand], want.pending[want.cand])
-    assert 0 < int(got.cand.sum()) < int(state.alive.sum()) < n
+    assert _bits_equal(got.t_max, want.t_max)
+    # The lanes that went on shading: alive, a hit, not emissive.
+    went_on = alive_in & (tri >= 0) & (ds.shade_tab[tri.clamp(min=0).long(), 33] == -1)
+    assert _bits_equal(state.prev_pdf[went_on], twin_state.prev_pdf[went_on])
+    for name, lanes in (("o", went_on), ("d", went_on), ("ldir", got.cand),
+                        ("pending", got.cand)):
+        assert _bits_equal(getattr(got, name)[lanes], getattr(want, name)[lanes]), name
+    assert 0 < int(got.cand.sum()) < int(state.alive.sum()) < n and bool(went_on.any())
 
 
 CARD_CASES = ["cornell_brute", "cornell_exact_nee", "cornell_rr_from_0", "grid_wide",
@@ -523,7 +539,8 @@ def test_fused_render_equals_torch_path_on_the_card(dev, name, monkeypatch):
     bit on the accumulation (700x700 cornell and Disney-floor cornell;
     displaced_grid(224) at 256x256 under wide and bvh2): max_depth B6
     launches of the scene's instantiation and one finishing launch a
-    sample, none on the torch path."""
+    sample, none on the torch path; `trace_paths` leaves the caller's rays
+    as they were."""
     w = 256 if name.startswith("grid") else 700
     ds, camera, options = _fused_case(name, dev, w, w, resolution=224)
     depth, spp = options.max_depth, 4
@@ -546,6 +563,16 @@ def test_fused_render_equals_torch_path_on_the_card(dev, name, monkeypatch):
         want = render()
         assert _no_launches()
     assert _bits_equal(got, want) and float(want.sum()) > 0
+    # One trace of camera rays: B6 writes its next rays into the loop's own
+    # buffers, never into the caller's, and the last NEE takes one finishing
+    # launch.
+    o, d, uni = _inputs(ds, camera, options)
+    o0, d0 = o.clone(), d.clone()
+    shade.reset_launches()
+    L = integrator.trace_paths(ds, o, d, uni, options)
+    torch.cuda.synchronize()
+    assert shade.launches["finish"] == 1 and float(L.sum()) > 0
+    assert _bits_equal(o, o0) and _bits_equal(d, d0)
 
 
 @pytest.mark.cuda

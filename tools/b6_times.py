@@ -9,7 +9,9 @@ under wide (B2), through the Lambert instantiation, and the 700x700
 Disney-floor cornell at 4 bounces (B1) through the Disney one: the
 benchmark cells' scenes and sizes.  Bounce 0 on the camera rays, bounce 1
 with bounce 0's NEE folded in, and the finishing add of bounce 1's NEE,
-each checked against its plain twin bit for bit and timed by CUDA events
+each checked against its plain twin bit for bit where the path loop
+reads the outputs (the twin returns new tensors, B6 writes the path state
+in place) and timed by CUDA events
 (N calls, default 30) beside its bound (`chip_smoke.shade_bound`,
 `finish_bound`: the bytes each lane's outcome needs over 3.35 TB/s).  Prints the card's name and power limit and one
 line per bounce; writes phase 23's record to OUT.json.  Needs an NVIDIA
