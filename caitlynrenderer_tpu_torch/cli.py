@@ -427,7 +427,7 @@ def main(argv=None) -> int:
     r.add_argument("--depth", type=int, default=None)
     r.add_argument("--accel", default=None,
                    help="brute, bvh2, sbvh, wide, cwbvh, or auto (brute up to 2048 "
-                   "triangles, wide above); default: the config's [render] accel; on the "
+                   "triangles, bvh2 above); default: the config's [render] accel; on the "
                    "card bvh2 and sbvh take a tree up to 127 levels deep")
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--aov", default=None, choices=["beauty", "albedo", "normal", "depth"],

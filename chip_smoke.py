@@ -166,9 +166,14 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      render made in this process.  Its numbers are also
      printed as one {"phase19": ...} JSON line before the kernels' line.
  20. samples per launch (render/progressive.py: render_steps as one
-     CUDA-graph replay): (a) on the 700x700 cornell (3 bounces, B1),
-     grid100k at 256x256, 4 bounces, through wide (B2) and cwbvh (B3), and
-     grid1m through wide: two replays of a graph of 16 samples against 32
+     CUDA-graph replay).  First grid1m as accel "auto" takes it, the
+     grid1m.offline cell's path: `auto_accel` gives "bvh2" (B4), the
+     stack sized by required_stack, phase 10's main path at the cell's
+     1024x1024 and 6 bounces, B4's launches counted from there alone;
+     phases 20, 22 and 23 run grid1m on this upload.  Then: (a) on the
+     700x700 cornell (3 bounces, B1), grid100k at 256x256, 4 bounces,
+     through wide (B2) and cwbvh (B3), and grid1m under auto (B4) at
+     256x256: two replays of a graph of 16 samples against 32
      eager render_step calls, accumulations equal bit for bit; both
      paths' ms/frame (the graph's over two more replays), the first
      launch's seconds with the capture's and the instantiation's (from
@@ -227,13 +232,13 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      of 16 samples through the twin (`twin_sampler`, the card's path
      before B5) and through B5, in turns twin, B5, B5, twin, on the
      700x700 cornell (B1), grid100k under wide, cwbvh and bvh2, and grid1m
-     under wide, the two graphs' accumulations equal bit for bit; (d) both
+     under auto (B4), the two graphs' accumulations equal bit for bit; (d) both
      graphs' nodes a sample.  Its numbers are also printed as one
      {"phase22": ...} JSON line before the kernels' line.
  23. B6, the shading kernel (ops/shade.py; every bounce of a Lambert or
      Lambert + Disney scene on the card), at the main paths' shapes: the
-     700x700 cornell (B1, 3 bounces) and grid1m at 1024x1024 (B2, 6
-     bounces) through its Lambert instantiation, the 700x700 Disney-floor
+     700x700 cornell (B1, 3 bounces) and grid1m at 1024x1024 under auto
+     (B4, 6 bounces) through its Lambert instantiation, the 700x700 Disney-floor
      cornell (B1, 4 bounces) through its Disney one, bounce 0 on
      the camera rays, then bounce 1 on bounce 0's next rays with bounce
      0's NEE folded in, and the finishing add of bounce 1's NEE: (a) B6
@@ -243,9 +248,14 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      prev_pdf on the lanes that went on shading); (b) B6 and the twins timed (CUDA events around
      each call, queued behind a device sleep, the state restored between
      calls outside the events), beside B6's bound (`shade_bound`,
-     `finish_bound`: the bytes each lane's outcome needs over 3.35 TB/s).
-     Its numbers are also printed as one {"phase23": ...} JSON line before
-     the kernels' line.
+     `finish_bound`: the bytes each lane's outcome needs over 3.35 TB/s);
+     (c) on grid1m, B4 against its twins (`traverse_closest_plain`,
+     `traverse_anyhit_plain`) on each bounce's closest-hit rays (the
+     1,048,576 camera rays, then bounce 0's continuation rays) and its
+     shadow rays, t, tri, u, v and occlusion bit for bit, and on bounce 0's
+     B4 and the twins timed beside B4's bound (`bvh_bound` from the stats
+     variant's oracle walk).  Its numbers are also printed as one
+     {"phase23": ...} JSON line before the kernels' line.
 About 7 minutes on one H100, builds included.  B3's and B4's stats
 variants (`stats=True`) are checked and used for counts and bounds only;
 their launches are counted apart (`traverse_cw8.stats_launches`,
@@ -2139,10 +2149,8 @@ def compare_bvh(label, tb, o, d, active, tree, t_max, kw):
 
 def phase21(dev, smi, scene, camera, o, d, uni, grid, grid1m, grid_cam, go, gd, gact, guni,
             cuda, sbvh_grid1m):
-    """Phase 21 (a)-(c).  Returns (record, B4 launches of (a)'s main
-    paths, B4's largest |dt| and occlusion mismatch against the twin, and
-    its times and bounds at grid100k's primary rays for the kernels'
-    line)."""
+    """Phase 21 (a)-(c).  Returns (record, B4's largest |dt| and occlusion
+    mismatch against the twin)."""
     from caitlynrenderer_tpu_torch.core.types import RenderOptions
     from caitlynrenderer_tpu_torch.ops import traverse_bvh as tb
     from caitlynrenderer_tpu_torch.scene import required_stack, scene_families, upload_scene
@@ -2150,7 +2158,6 @@ def phase21(dev, smi, scene, camera, o, d, uni, grid, grid1m, grid_cam, go, gd, 
     t21 = time.perf_counter()
     rng = np.random.default_rng(21)
     rec = {"device": smi, "a_main_path": {}, "c_times": {}}
-    launches = {"closest": 0, "anyhit": 0}
 
     from caitlynrenderer_tpu_torch.render.integrator import _bvh as tree
 
@@ -2164,10 +2171,8 @@ def phase21(dev, smi, scene, camera, o, d, uni, grid, grid1m, grid_cam, go, gd, 
         opts = RenderOptions(width=BENCH, height=BENCH, max_depth=BENCH_DEPTH, accel=accel,
                              families=scene_families(sc))
         prebuilt = sbvh_grid1m.tree() if name == "grid1m sbvh" else None
-        runs, uploads[name], r = main_path(name, sc, grid_cam, opts, dev, MAIN_SPP,
-                                           prebuilt=prebuilt)
-        for q in launches:
-            launches[q] += runs["traverse_bvh"][q]
+        _, uploads[name], r = main_path(name, sc, grid_cam, opts, dev, MAIN_SPP,
+                                        prebuilt=prebuilt)
         r["b4_share_of_graph_frame"] = r["kernel_device_ms"] / r["ms_per_frame"]
         rec["a_main_path"][name] = r
         print(f"  {name}: graph {r['ms_per_frame']:.3f} ms/frame, eager render_step "
@@ -2223,7 +2228,6 @@ def phase21(dev, smi, scene, camera, o, d, uni, grid, grid1m, grid_cam, go, gd, 
     err = {"closest": max(r[0] for r in results), "anyhit": max(r[1] for r in results)}
 
     # (c) B4 and its twin timed, beside the bound from the oracle walk.
-    row = None
     for label, (qo, qd, qa, ds) in sets.items():
         qk, qt = kw(ds), tree(ds)
         tmax = torch.full((qo.shape[0],), 20.0, device=dev)
@@ -2245,8 +2249,6 @@ def phase21(dev, smi, scene, camera, o, d, uni, grid, grid1m, grid_cam, go, gd, 
         walk = {q: bvh_bound(st[q], q == "anyhit") for q in ("closest", "anyhit")}
         rec["c_times"][label] = {"rays": qo.shape[0], "live": int(qa.sum()), "ms": r,
                                  "bound": bounds, "walk": walk}
-        if label == "grid100k bvh2 primary":
-            row = rec["c_times"][label]
         print(f"  {label}, {qo.shape[0]} rays ({int(qa.sum())} live), {qt[1].shape[0]} nodes: "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in r.items()) + "; bound " + ", ".join(
                   f"{q} {bounds[q][0]:.4f} ms by {bounds[q][1]} ({bounds[q][0] / r[q]:.1%}), walk "
@@ -2258,7 +2260,7 @@ def phase21(dev, smi, scene, camera, o, d, uni, grid, grid1m, grid_cam, go, gd, 
                               for k in tb.SEEN), flush=True)
     rec["seconds"] = time.perf_counter() - t21
     print(f"  phase 21: {rec['seconds']:.3f} s", flush=True)
-    return rec, launches, err, row
+    return rec, err
 
 
 # Phase 22: kernel B5, the threefry sampler (ops/threefry.py).
@@ -2558,16 +2560,70 @@ def _max_abs_err(pairs):
 def phase23(dev, smi, runs, reps=30):
     """B6 against its twins, bit for bit, and its times beside its bound, on
     bounces 0 and 1 and the finishing add of each of `runs`' scenes: (label,
-    ds, camera, options) at the main path's size.  Returns (record, the
-    largest |B6 - twin| of the bounces and of the finishing adds, the
-    times of the first run's bounce 0 and finishing add)."""
+    ds, camera, options) at the main path's size.  On a run under "bvh2"
+    or "sbvh", also B4 against its twins on the same queries (each
+    bounce's closest-hit rays and its shadow rays), and B4 and the twins
+    timed on bounce 0's, beside B4's bound.  Returns (record, the largest
+    |B6 - twin| of the bounces and of the finishing adds, the times of the
+    first run's bounce 0 and finishing add, B4's largest |dt| and
+    occlusion mismatch against its twins, and B4's times and bounds on
+    bounce 0's queries of the last binary run, None without one)."""
     from caitlynrenderer_tpu_torch.core.camera import generate_rays
     from caitlynrenderer_tpu_torch.ops import shade
+    from caitlynrenderer_tpu_torch.ops import traverse_bvh as tb
     from caitlynrenderer_tpu_torch.render import integrator, sampling
 
     t23 = time.perf_counter()
-    rec = {"device": smi, "bounces": [], "finish": []}
+    rec = {"device": smi, "bounces": [], "finish": [], "b4": []}
     err = {"bounce": 0.0, "finish": 0.0}
+    err_b4 = {"closest": 0.0, "anyhit": 0.0}
+    b4_row = None
+
+    def hold_b4(label, ds, options, closest, shadow, time_it):
+        """B4's closest-hit answers (t, tri, u, v) on `closest` (o, d,
+        active) and its occlusion on `shadow` (o, d, t_max, active) against
+        its twins' on the same rays, bit for bit; with `time_it`, B4 and
+        the twins timed there beside B4's bound from its stats variant's
+        oracle walk."""
+        tree = integrator._bvh(ds)
+        kw = {"max_leaf": options.max_leaf, "max_stack": options.max_stack}
+        (o, d, act), (so, sd, st, sa) = closest, shadow
+        got = tb.traverse_closest(o, d, act, *tree, **kw)
+        want = tb.traverse_closest_plain(o, d, act, *tree[:4], **kw)
+        occ = tb.traverse_anyhit(so, sd, st, sa, *tree, **kw)
+        occ_t = tb.traverse_anyhit_plain(so, sd, st, sa, *tree[:4], **kw)
+        torch.cuda.synchronize()
+        bits = {k: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                for k, a, b in zip(("t", "tri", "u", "v"), got, want)}
+        bits["occluded"] = int((occ != occ_t).sum())
+        check(all(v == 0 for v in bits.values()), f"{label}: B4 and its twins differ: {bits}")
+        err_b4["closest"] = max(err_b4["closest"], float((got[0] - want[0]).abs().max()))
+        row = {"scene": label, "closest_rays": int(act.sum()), "hits": int((want[1] >= 0).sum()),
+               "shadow_rays": int(sa.sum()), "occluded": int(occ_t.sum()), "bit_mismatches": bits}
+        if time_it:
+            ms = {"closest": event_ms(lambda: tb.traverse_closest(o, d, act, *tree, **kw), 20),
+                  "anyhit": event_ms(lambda: tb.traverse_anyhit(so, sd, st, sa, *tree, **kw), 20),
+                  # the twins read the host every step: timed as a caller issues them
+                  "closest_plain": event_ms(lambda: tb.traverse_closest_plain(
+                      o, d, act, *tree[:4], **kw), 1, host_ahead=False),
+                  "anyhit_plain": event_ms(lambda: tb.traverse_anyhit_plain(
+                      so, sd, st, sa, *tree[:4], **kw), 1, host_ahead=False)}
+            tmax = torch.full((o.shape[0],), 1e30, device=dev)
+            bounds = {"closest": bvh_bound(bvh_stats(tb, o, d, act, tree, tmax, kw)
+                                           ["closest_oracle"], False),
+                      "anyhit": bvh_bound(bvh_stats(tb, so, sd, sa, tree, st, kw)
+                                          ["anyhit_oracle"], True)}
+            row.update(ms=ms, bound=bounds)
+        rec["b4"].append(row)
+        print(f"  {label}: B4 = twins bit for bit on {row['closest_rays']} closest-hit rays "
+              f"({row['hits']} hits) and {row['shadow_rays']} shadow rays "
+              f"({row['occluded']} occluded)" + ("; " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in row["ms"].items()) + "; bound " + ", ".join(
+                  f"{q} {row['bound'][q][0]:.4f} ms by {row['bound'][q][1]} "
+                  f"({row['bound'][q][0] / row['ms'][q]:.1%})" for q in ("closest", "anyhit"))
+                  if time_it else ""), flush=True)
+        return row
+
     for label, ds, camera, options in runs:
         w, h = options.width, options.height
         n = w * h
@@ -2584,6 +2640,7 @@ def phase23(dev, smi, runs, reps=30):
         kind = "disney" if "disney" in fams else "lambert"
         prev = None
         for bounce in (0, 1):
+            rays_in = (o, d, state.alive)
             tri = integrator._closest_hit_raw(ds, o, d, state.alive, options)[1]
             # B6's state: alive, T, L and prev_pdf (specular is None).
             saved = shade.PathState(*(x.clone() for x in state[:4]))
@@ -2636,6 +2693,10 @@ def phase23(dev, smi, runs, reps=30):
                   f"{bound[0]:.4f} ms by {counts['bytes']} bytes ({row['share_pct']:.1f} %), "
                   f"twin {t_ms:.3f} ms; outputs equal bit for bit", flush=True)
             shadowed = integrator._occluded(ds, sh.o, sh.ldir, sh.t_max, sh.cand, options)
+            if options.accel in ("bvh2", "sbvh"):
+                row = hold_b4(f"{label} bounce {bounce}", ds, options, rays_in,
+                              (sh.o, sh.ldir, sh.t_max, sh.cand), bounce == 0)
+                b4_row = row if bounce == 0 else b4_row
             state, o, d, prev = work, sh.o, sh.d, (sh.cand, shadowed, sh.pending)
 
         # The finishing add of bounce 1's NEE, on copies of the path's L.
@@ -2663,7 +2724,7 @@ def phase23(dev, smi, runs, reps=30):
               f"{p_ms:.3f} ms; L equal bit for bit", flush=True)
     rec["seconds"] = time.perf_counter() - t23
     print(f"  phase 23: {rec['seconds']:.3f} s", flush=True)
-    return rec, err, {"bounce": rec["bounces"][0], "finish": rec["finish"][0]}
+    return rec, err, {"bounce": rec["bounces"][0], "finish": rec["finish"][0]}, err_b4, b4_row
 
 
 def main():
@@ -2700,7 +2761,12 @@ def run(sbvh_grid1m):
     from caitlynrenderer_tpu_torch.core.types import MaterialType, RenderOptions
     from caitlynrenderer_tpu_torch.render import progressive, sampling
     from caitlynrenderer_tpu_torch.render.integrator import trace_paths
-    from caitlynrenderer_tpu_torch.scene import required_stack, scene_families, upload_scene
+    from caitlynrenderer_tpu_torch.scene import (
+        auto_accel,
+        required_stack,
+        scene_families,
+        upload_scene,
+    )
 
     dev = get_device("cuda")
     sbvh_grid1m.start()  # phase 21's SBVH of grid1m, on the host meanwhile
@@ -3169,7 +3235,6 @@ def run(sbvh_grid1m):
 
     # ------------------------------------------------------------- phase 14
     phase("14 golden through B3 and B4 (cwbvh, bvh2, sbvh)")
-    b4_launches = {"closest": 0, "anyhit": 0}
     for accel in ("cwbvh", "bvh2", "sbvh"):
         _, _, options = setup(64, 64)
         ads = upload_scene(scene, accel, dev)
@@ -3193,9 +3258,6 @@ def run(sbvh_grid1m):
                                 "anyhit_twin": 0}, f"{accel}: launches {mine.launches}")
         check(all(v == 0 for m in (mt, mega, cw8, tb) if m is not mine
                   for v in m.launches.values()), f"{accel}: another kernel or twin ran")
-        if mine is tb:
-            for q in b4_launches:
-                b4_launches[q] += tb.launches[q]
 
     # ------------------------------------------------------------- phase 15
     phase("15 cwbvh main path on the large scenes")
@@ -3428,6 +3490,20 @@ def run(sbvh_grid1m):
 
     # ------------------------------------------------------------- phase 20
     phase("20 samples per launch: one CUDA graph replay")
+    # grid1m as accel "auto" takes it, the path of the grid1m.offline cell:
+    # the policy's accelerator, B4's stack sized from the build, at the
+    # cell's 1024x1024 and 6 bounces, one launch of 16 spp after the
+    # capture's (counts reset just before); B4's launches on the kernels'
+    # line are this run's.  Phases 20, 22 and 23 run grid1m on its upload.
+    accel1m = auto_accel(grid1m)
+    check(accel1m == "bvh2", f"auto_accel takes {accel1m!r} on grid1m, not 'bvh2'")
+    opts1m = RenderOptions(width=1024, height=1024, max_depth=6, accel=accel1m,
+                           families=scene_families(grid1m))
+    runs1m, a1m, rec_auto = main_path("grid1m 1024x1024 auto (B4)", grid1m, grid_cam, opts1m,
+                                      dev, MAIN_SPP, split_stages=False)
+    b4_main = runs1m["traverse_bvh"]
+    opts1m = opts1m._replace(max_stack=required_stack(a1m))
+    auto256 = opts1m._replace(width=BENCH, height=BENCH, max_depth=BENCH_DEPTH)
     _, _, demo_opts = setup(DEMO, DEMO)
     grid_opts = {accel: RenderOptions(width=BENCH, height=BENCH, max_depth=BENCH_DEPTH,
                                       accel=accel, families=scene_families(grid))
@@ -3444,23 +3520,21 @@ def run(sbvh_grid1m):
         (f"cornell {DEMO}x{DEMO} brute (B1)", ds_main, camera, demo_opts),
         (f"grid100k {BENCH}x{BENCH} wide (B2)", gds, grid_cam, grid_opts["wide"]),
         (f"grid100k {BENCH}x{BENCH} cwbvh (B3)", g3, grid_cam, grid_opts["cwbvh"]),
-        (f"grid1m {BENCH}x{BENCH} wide (B2)", mds, grid_cam,
-         grid_opts["wide"]._replace(families=scene_families(grid1m))),
+        (f"grid1m {BENCH}x{BENCH} auto (B4)", a1m, grid_cam, auto256),
     ], binary_runs, cfg, os.path.dirname(CORNELL_TOML))
     del binary_runs
     for q in ("closest", "anyhit"):
         launches[q] += runs20["mt_brute"][q]
         mega_launches[q] += runs20["traverse_mega"][q]
         cw_launches[q] += runs20["traverse_cw8"][q]
-        b4_launches[q] += runs20["traverse_bvh"][q]
+    rec20["grid1m_auto_main_path"] = {"accel": accel1m, "max_stack": opts1m.max_stack,
+                                      **rec_auto, "launches": runs1m}
     print(json.dumps({"phase20": rec20}))
 
     # ------------------------------------------------------------- phase 21
     phase("21 B4: the binary walk")
-    rec21, runs21, err_b4, b4_row = phase21(dev, smi, scene, camera, o, d, uni, grid, grid1m,
-                                            grid_cam, go, gd, gact, guni, cuda, sbvh_grid1m)
-    for q in ("closest", "anyhit"):
-        b4_launches[q] += runs21[q]
+    rec21, err_b4 = phase21(dev, smi, scene, camera, o, d, uni, grid, grid1m, grid_cam, go, gd,
+                            gact, guni, cuda, sbvh_grid1m)
     print(json.dumps({"phase21": rec21}))
 
     # ------------------------------------------------------------- phase 22
@@ -3471,8 +3545,7 @@ def run(sbvh_grid1m):
         (f"grid100k {BENCH}x{BENCH} cwbvh (B3)", g3, grid_cam, grid_opts["cwbvh"]),
         (f"grid100k {BENCH}x{BENCH} bvh2 (B4)", g4, grid_cam,
          grid_opts["bvh2"]._replace(max_stack=required_stack(g4))),
-        (f"grid1m {BENCH}x{BENCH} wide (B2)", mds, grid_cam,
-         grid_opts["wide"]._replace(families=scene_families(grid1m))),
+        (f"grid1m {BENCH}x{BENCH} auto (B4)", a1m, grid_cam, auto256),
     ])
     del g4
     print(json.dumps({"phase22": rec22}))
@@ -3481,19 +3554,20 @@ def run(sbvh_grid1m):
     phase("23 B6: the shading kernel")
     sc23, cam23, opts23 = render_setup(cornell_cfg("disney"), base_dir, width=DEMO, height=DEMO,
                                        max_depth=4, accel="brute")
-    rec23, err_b6, b6_rows = phase23(dev, smi, [
+    rec23, err_b6, b6_rows, err_path, b4_row = phase23(dev, smi, [
         (f"cornell {DEMO}x{DEMO} brute (B1)", ds_main, camera, demo_opts),
-        ("grid1m 1024x1024 wide (B2)", mds, grid_cam,
-         RenderOptions(width=1024, height=1024, max_depth=6, accel="wide",
-                       families=scene_families(grid1m))),
+        ("grid1m 1024x1024 auto (B4)", a1m, grid_cam, opts1m),
         (f"cornell_disney {DEMO}x{DEMO} brute (B1)", upload_scene(sc23, "brute", dev), cam23,
          opts23),
     ])
     print(json.dumps({"phase23": rec23}))
+    check(b4_row is not None, "phase 23 held no binary path against B4's twins")
+    err_b4 = {q: max(err_b4[q], err_path[q]) for q in err_b4}
 
     # Bounds at the shapes each row's time was taken at: B1 on the 700x700
-    # cornell primary rays (closest) and their shadow rays (any-hit), B2, B3
-    # and B4 (bvh2) on grid100k's 65536 primary rays.
+    # cornell primary rays (closest) and their shadow rays (any-hit), B2 and
+    # B3 on grid100k's 65536 primary rays, B4 on the grid1m.offline path's
+    # 1024x1024 camera rays (closest) and their shadow rays (any-hit).
     b23_bounds = b2_sets[("grid100k", "primary")]["bound"]
 
     def kernel_row(name, mod, q, n_launch, err_q, ms, plain_ms, bnd):
@@ -3514,7 +3588,9 @@ def run(sbvh_grid1m):
         kernel_row("cw8", cw8, q, cw_launches[q], err_b3[q], b3_times[q],
                    b3_times[f"{q}_plain"], b23_bounds[f"B3 {q}"]) for q in ("closest", "anyhit")
     ] + [
-        kernel_row("bvh", tb, q, b4_launches[q], err_b4[q], b4_row["ms"][q],
+        # B4 on the grid1m.offline path (launches from phase 20's 1024x1024
+        # main path under auto, times from phase 23).
+        kernel_row("bvh", tb, q, b4_main[q], err_b4[q], b4_row["ms"][q],
                    b4_row["ms"][f"{q}_plain"], b4_row["bound"][q]) for q in ("closest", "anyhit")
     ] + [
         # B5 at the main paths' shapes: the cornell demo's pixel-keyed

@@ -1,7 +1,9 @@
 """Port's scene upload ≡ the reference's: the fused shading and light
-tables bit for bit, and the JAX-free copies of scene_families /
-validate_scene / auto_accel against the originals.  Also: the port never
-imports jax, and a CUDA device without a card raises."""
+tables bit for bit, the JAX-free copies of scene_families /
+validate_scene / BRUTE_MAX_TRIS against the originals, and the port's own
+auto_accel policy (brute force up to BRUTE_MAX_TRIS triangles, the binary
+BVH above).  Also: the port never imports jax, and a CUDA device without a
+card raises."""
 
 import os
 import subprocess
@@ -51,8 +53,10 @@ def test_shade_and_light_tables_equal_reference(name):
 def test_policy_copies_agree_with_reference(name):
     sc = SCENES[name]()
     assert t_scene.scene_families(sc) == j_scene.scene_families(sc)
-    assert t_scene.auto_accel(sc) == j_scene.auto_accel(sc)
     assert t_scene.BRUTE_MAX_TRIS == j_scene.BRUTE_MAX_TRIS
+    small = sc.num_triangles <= t_scene.BRUTE_MAX_TRIS
+    assert small == (name != "soup")
+    assert t_scene.auto_accel(sc) == ("brute" if small else "bvh2")
     t_scene.validate_scene(sc)
     j_scene.validate_scene(sc)
 
