@@ -371,17 +371,25 @@ class Surface(NamedTuple):
     dis_p: Optional[bsdf.DisneyParams]
 
 
-def surface(ds: DeviceScene, hf: HitFrame, families, phase: str = "bsdf") -> Surface:
+def surface(ds: DeviceScene, hf: HitFrame, families, phase: str = "bsdf",
+            spec_phase: str = "specular") -> Surface:
     """The Surface of a HitFrame's rows.  Only the families named in
     `families` are traced (the reference's static specialization); every
     type that is neither Lambert nor specular takes the Disney BRDF, whose
-    mask and parameters are gathered in span `phase`."""
+    mask and parameters are gathered in span `phase`; the specular, mirror
+    and glass masks are made in span `spec_phase`."""
     rows = hf.rows
     mat_type = torch.round(rows[:, 29]).to(torch.int64)
     albedo = _albedo_from_rows(ds.scene, rows, hf.u, hf.v)
     has_mirror, has_glass = "mirror" in families, "glass" in families
+    mirror = glass = None
     if has_mirror or has_glass:
-        specular = _type_is(mat_type, _SPECULAR_IDS)
+        with metrics.span(spec_phase):
+            specular = _type_is(mat_type, _SPECULAR_IDS)
+            if has_mirror:
+                mirror = mat_type == int(MaterialType.MIRROR)
+            if has_glass:
+                glass = _type_is(mat_type, _GLASS_IDS)
     else:
         specular = torch.zeros_like(hf.keep)
     disney = dis_p = None
@@ -394,8 +402,8 @@ def surface(ds: DeviceScene, hf: HitFrame, families, phase: str = "bsdf") -> Sur
         ior=rows[:, 37],
         specular=specular,
         disney=disney,
-        mirror=(mat_type == int(MaterialType.MIRROR)) if has_mirror else None,
-        glass=_type_is(mat_type, _GLASS_IDS) if has_glass else None,
+        mirror=mirror,
+        glass=glass,
         dis_p=dis_p,
     )
 
@@ -423,15 +431,17 @@ def light_sample(light_tab, hit_point, n_flip, u_lp, u_l1, u_l2, alive, specular
     return lrows, ldir, dist, cos_mtl, cos_light, cand, torch.where(cand, dist - EPS, 0.0)
 
 
-def continuation(hf: HitFrame, surf: Surface, d, T, u_b1, u_b2, u_lobe, phase: str = "bsdf"):
+def continuation(hf: HitFrame, surf: Surface, d, T, u_b1, u_b2, u_lobe, phase: str = "bsdf",
+                 spec_phase: str = "specular"):
     """The continuation ray of every lane by its family: a cosine-weighted
     Lambert sample about n_flip, a Disney BRDF sample (in span `phase`), a
     mirror reflection, or a glass reflection or refraction chosen by u_lobe
-    against Fresnel.  Returns (d, T, pdf, is_specular, ok, origin): the unit
-    direction, the throughput the path carries on with, the direction's
-    pdf (1 for a delta lobe), whether it was a delta lobe, where the path
-    survives (False where a Disney sample has no pdf), and the origin,
-    moved through the surface for a refracted ray."""
+    against Fresnel (both in span `spec_phase`).  Returns (d, T, pdf,
+    is_specular, ok, origin): the unit direction, the throughput the path
+    carries on with, the direction's pdf (1 for a delta lobe), whether it
+    was a delta lobe, where the path survives (False where a Disney sample
+    has no pdf), and the origin, moved through the surface for a refracted
+    ray."""
     n_flip = hf.n_flip
     n = d.shape[0]
     local = cm.cosine_hemisphere_dir(u_b1, u_b2)
@@ -458,35 +468,38 @@ def continuation(hf: HitFrame, surf: Surface, d, T, u_b1, u_b2, u_lobe, phase: s
     new_spec = torch.zeros(n, dtype=torch.bool, device=d.device)
     origin = hf.point
 
-    if surf.mirror is not None:
-        mirror = surf.mirror
-        new_d = torch.where(mirror[:, None], cm.reflect(d, n_flip), new_d)
-        new_pdf = torch.where(mirror, 1.0, new_pdf)
-        new_spec = new_spec | mirror
+    if surf.mirror is None and surf.glass is None:
+        return cm.normalize(new_d), new_T, new_pdf, new_spec, ok, origin
+    with metrics.span(spec_phase):
+        if surf.mirror is not None:
+            mirror = surf.mirror
+            new_d = torch.where(mirror[:, None], cm.reflect(d, n_flip), new_d)
+            new_pdf = torch.where(mirror, 1.0, new_pdf)
+            new_spec = new_spec | mirror
 
-    if surf.glass is not None:
-        glass, ior = surf.glass, surf.ior
-        refl_dir = cm.reflect(d, n_flip)
-        entering = hf.cos_incident <= 0
-        eta = torch.where(entering, 1.0 / torch.clamp(ior, min=1e-6), ior)
-        ci = torch.abs(cm.dot(d, n_flip))
-        sin2_t = eta * eta * torch.clamp(1.0 - ci * ci, min=0.0)
-        # Floored strictly above 0 (sqrt'(0) = inf): at total internal
-        # reflection the select below masks only the value.
-        cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=1e-12))
-        r_par = (ci - eta * cos_t) / torch.clamp(ci + eta * cos_t, min=1e-12)
-        r_perp = (eta * ci - cos_t) / torch.clamp(eta * ci + cos_t, min=1e-12)
-        tir = sin2_t >= 1.0
-        fres = torch.where(tir, 1.0, 0.5 * (r_par * r_par + r_perp * r_perp))
-        refr_dir = cm.normalize(eta[:, None] * d + (eta * ci - cos_t)[:, None] * n_flip)
-        choose_refl = (u_lobe < fres) | tir
-        new_d = torch.where(glass[:, None],
-                            torch.where(choose_refl[:, None], refl_dir, refr_dir), new_d)
-        new_pdf = torch.where(glass, 1.0, new_pdf)
-        new_spec = new_spec | glass
-        # A refracted ray leaves from the other side of the surface.
-        origin = origin + torch.where((glass & ~choose_refl)[:, None],
-                                      -2.0 * RAY_OFFSET * n_flip, 0.0)
+        if surf.glass is not None:
+            glass, ior = surf.glass, surf.ior
+            refl_dir = cm.reflect(d, n_flip)
+            entering = hf.cos_incident <= 0
+            eta = torch.where(entering, 1.0 / torch.clamp(ior, min=1e-6), ior)
+            ci = torch.abs(cm.dot(d, n_flip))
+            sin2_t = eta * eta * torch.clamp(1.0 - ci * ci, min=0.0)
+            # Floored strictly above 0 (sqrt'(0) = inf): at total internal
+            # reflection the select below masks only the value.
+            cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=1e-12))
+            r_par = (ci - eta * cos_t) / torch.clamp(ci + eta * cos_t, min=1e-12)
+            r_perp = (eta * ci - cos_t) / torch.clamp(eta * ci + cos_t, min=1e-12)
+            tir = sin2_t >= 1.0
+            fres = torch.where(tir, 1.0, 0.5 * (r_par * r_par + r_perp * r_perp))
+            refr_dir = cm.normalize(eta[:, None] * d + (eta * ci - cos_t)[:, None] * n_flip)
+            choose_refl = (u_lobe < fres) | tir
+            new_d = torch.where(glass[:, None],
+                                torch.where(choose_refl[:, None], refl_dir, refr_dir), new_d)
+            new_pdf = torch.where(glass, 1.0, new_pdf)
+            new_spec = new_spec | glass
+            # A refracted ray leaves from the other side of the surface.
+            origin = origin + torch.where((glass & ~choose_refl)[:, None],
+                                          -2.0 * RAY_OFFSET * n_flip, 0.0)
 
     return cm.normalize(new_d), new_T, new_pdf, new_spec, ok, origin
 
@@ -521,9 +534,17 @@ def torch_families(options: RenderOptions) -> tuple:
     return tuple(f for f in options.families if f not in FUSED_FAMILIES)
 
 
+def _delta_mask(surf: Surface):
+    """The lanes a mirror or glass shades; None where options.families
+    holds neither."""
+    if surf.mirror is None or surf.glass is None:
+        return surf.mirror if surf.glass is None else surf.glass
+    return surf.mirror | surf.glass
+
+
 def shade_bounce_plain(ds: DeviceScene, o, d, tri, uniforms, bounce: int,
                        state: shade.PathState, options: RenderOptions, prev=None,
-                       stats: Optional[list] = None) -> shade.Shaded:
+                       stats: Optional[dict] = None) -> shade.Shaded:
     """`trace_paths`' shading step in torch: kernel B6's plain twin
     (`ops/shade.shade_bounce`), widened to every family, texture, the
     environment and scenes without a light (ldir, t_max, cand and pending
@@ -532,8 +553,10 @@ def shade_bounce_plain(ds: DeviceScene, o, d, tri, uniforms, bounce: int,
     loop reads the outputs: ldir and pending where cand; o, d and prev_pdf
     where the lane went on shading (alive, a hit, not emissive); elsewhere
     they are what the arithmetic gives, where B6 holds the lane's values.
-    Spans b<k>.hit, .nee and .bounce (.bsdf inside) hold all its work;
-    `stats`, a list, gets the live lanes the Disney BRDF shades."""
+    Spans b<k>.hit, .nee and .bounce (.bsdf and .specular inside) hold
+    all its work; `stats`, a dict of lists, gets the live lanes the Disney
+    BRDF shades under "disney_per_bounce" and those a mirror or glass
+    shades under "specular_per_bounce"."""
     b = f"b{bounce}."
     alive, T, L, prev_pdf, specular = state
     lit = ds.light_tab.shape[0] > 0
@@ -547,15 +570,17 @@ def shade_bounce_plain(ds: DeviceScene, o, d, tri, uniforms, bounce: int,
         if options.use_env_map:  # lit only through BSDF samples: w_mis = 1
             L = L + torch.where((alive & ~live)[:, None], T * sample_env(ds.scene.env_map, d),
                                 0.0)
-        surf = surface(ds, hf, options.families, b + "bsdf")
+        surf = surface(ds, hf, options.families, b + "bsdf", b + "specular")
         if lit:
             hit_light = live & (hf.rows[:, 33] != -1)
             L = L + _emitted(ds.light_tab, d, hf, T, hit_light, prev_pdf if bounce else None,
                              specular)
             live = live & ~hit_light
         if stats is not None:
-            stats.append((live & surf.disney).sum() if surf.disney is not None
-                         else torch.zeros((), dtype=torch.int64, device=o.device))
+            for key, mask in (("disney_per_bounce", surf.disney),
+                              ("specular_per_bounce", _delta_mask(surf))):
+                stats[key].append((live & mask).sum() if mask is not None
+                                  else torch.zeros((), dtype=torch.int64, device=o.device))
     with metrics.span(b + "nee"):
         ldir = t_max = cand = pending = None  # no light: no NEE and no any-hit query
         if lit:
@@ -566,8 +591,8 @@ def shade_bounce_plain(ds: DeviceScene, o, d, tri, uniforms, bounce: int,
                                           options.exact_reference_nee, b + "bsdf")
             pending = _nee_contrib(T, lrows, f_nee, pdf_light, bsdf_pdf)
     with metrics.span(b + "bounce"):
-        new_d, new_T, new_pdf, new_spec, ok, origin = continuation(hf, surf, d, T, u_b1, u_b2,
-                                                                   u_lobe, b + "bsdf")
+        new_d, new_T, new_pdf, new_spec, ok, origin = continuation(
+            hf, surf, d, T, u_b1, u_b2, u_lobe, b + "bsdf", b + "specular")
         after = shade.PathState(live & ok, torch.where((live & ok)[:, None], new_T, T), L,
                                 new_pdf, new_spec)
         return shade.Shaded(origin, new_d, ldir, t_max, cand, pending, after)
@@ -585,8 +610,9 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
     "alive_per_bounce" ((max_depth,) tensor of live lanes entering each
     closest-hit query), "disney_per_bounce" ((max_depth,): the live lanes
     that shade their hit with the Disney BRDF, 0 where options.families
-    leaves it out) and "anyhit_per_bounce" (the any-hit candidates of
-    each bounce's NEE; empty without lights).
+    leaves it out), "specular_per_bounce" (the same of the mirror and
+    glass lanes) and "anyhit_per_bounce" (the any-hit candidates of each
+    bounce's NEE; empty without lights).
 
     uniforms: (N, 4 + 7*max_depth), layout in render/sampling.py; the first
     4 (raygen) entries are unused here.
@@ -605,7 +631,7 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
                                 L=torch.zeros((n, 3), dtype=torch.float32, device=dev),
                                 prev_pdf=torch.empty(n, dtype=torch.float32, device=dev))
     alive_per_bounce, anyhit_per_bounce = [], []
-    disney_per_bounce = [] if with_stats else None
+    shaded = {"disney_per_bounce": [], "specular_per_bounce": []} if with_stats else None
     prev = None
     for bounce in range(options.max_depth):
         b = f"b{bounce}."
@@ -626,7 +652,7 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
                                         (o, d) if bounce else None, options.families)
             else:
                 sh = shade_bounce_plain(ds, o, d, tri, uniforms, bounce, state, options, prev,
-                                        disney_per_bounce)
+                                        shaded)
         o, d, state, prev = sh.o, sh.d, sh.state, None
         if lit:
             with metrics.span(b + "anyhit"):
@@ -649,7 +675,7 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
         "rays_closest": sum(alive_per_bounce, zero),
         "rays_anyhit": sum(anyhit_per_bounce, zero),
         "alive_per_bounce": torch.stack(alive_per_bounce),
-        "disney_per_bounce": torch.stack(disney_per_bounce),
+        **{k: torch.stack(v) for k, v in shaded.items()},
         "anyhit_per_bounce": (torch.stack(anyhit_per_bounce) if anyhit_per_bounce
                               else torch.zeros(0, dtype=torch.int64, device=dev)),
     }

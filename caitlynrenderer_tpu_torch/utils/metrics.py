@@ -113,9 +113,13 @@ PREFIX = "caitlyn."
 # bounce's spans hit, nee and bounce lie inside the shade span.  "bsdf" is
 # the Disney BRDF's work in the plain bounce (its parameters, its value and
 # pdf toward the light, its sample), a span inside its hit, nee and bounce.
-GROUPS = ("raygen", "query", "hit", "nee", "bounce", "shade", "bsdf")
+# "specular" is the mirror and glass lanes' work in the plain bounce (their
+# masks, the reflection, the Fresnel choice, the refraction and its
+# origin), a span inside its hit and bounce.
+GROUPS = ("raygen", "query", "hit", "nee", "bounce", "shade", "bsdf", "specular")
 _BOUNCE_GROUPS = {"closest": "query", "anyhit": "query", "hit": "hit", "nee": "nee",
-                  "rr": "bounce", "bounce": "bounce", "shade": "shade", "bsdf": "bsdf"}
+                  "rr": "bounce", "bounce": "bounce", "shade": "shade", "bsdf": "bsdf",
+                  "specular": "specular"}
 _BOUNCE_PHASE = re.compile(r"^b\d+\.(\w+)$")
 _NULL = contextlib.nullcontext()
 # The PhaseCapture of the CUDA-graph capture running, if any.
@@ -141,7 +145,8 @@ def phase_group(phase: Optional[str]) -> Optional[str]:
     and `raygen`; "query" for a bounce's `closest` and `anyhit`; "hit";
     "nee" (its `anyhit` apart); "bounce" for `rr` and `bounce`; "shade"
     for a bounce's `shade` (kernel B6 on the fused path); "bsdf" for a
-    bounce's `bsdf` (the Disney BRDF's work on the torch path).  Any other
+    bounce's `bsdf` (the Disney BRDF's work on the torch path); "specular"
+    for a bounce's `specular` (the mirror and glass lanes').  Any other
     phase is a group of its own (`capture`, `resolve`); None stays None."""
     if phase is None:
         return None

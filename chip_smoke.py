@@ -256,6 +256,19 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      B4 and the twins timed beside B4's bound (`bvh_bound` from the stats
      variant's oracle walk).  Its numbers are also printed as one
      {"phase23": ...} JSON line before the kernels' line.
+ 24. the cornell_specular700.offline cell's path (cellbench's scene,
+     camera and configuration: a mirror and a glass UV sphere with
+     interpolated vertex normals in the box, 7,948 triangles, 700x700, 8
+     bounces): `auto_accel` gives "bvh2" (B4) and the plain shading step
+     shades (no B6); the main path as phase 20's grid1m run (one launch of
+     16 spp after the capture's, counters reset just before: B4 8 + 8
+     launches a sample); then one eager sample's queries, captured as
+     `trace_paths` issues them, held against B4's twins, t, tri, u, v and
+     occlusion bit for bit: the camera rays, each bounce's continuation
+     rays (bounce 0's checked equal to `bounce_rays`, refracted ones
+     leaving 2 RAY_OFFSET inside a sphere) and each bounce's shadow rays.
+     Its numbers are also printed as one {"phase24": ...} JSON line before
+     the kernels' line.
 About 7 minutes on one H100, builds included.  B3's and B4's stats
 variants (`stats=True`) are checked and used for counts and bounds only;
 their launches are counted apart (`traverse_cw8.stats_launches`,
@@ -2727,6 +2740,110 @@ def phase23(dev, smi, runs, reps=30):
     return rec, err, {"bounce": rec["bounces"][0], "finish": rec["finish"][0]}, err_b4, b4_row
 
 
+# Phase 24: the configuration of cellbench's cornell_specular700.offline cell.
+SPECULAR_CFG = os.path.join(ROOT, "cellbench", "configs", "cornell_specular700.json")
+
+
+def phase24(dev, smi):
+    """The cornell_specular700.offline cell's path: cellbench's scene (the
+    box with a mirror and a glass UV sphere, interpolated vertex normals,
+    7,948 triangles) and camera, at the configuration's 700x700 and 8
+    bounces.  `auto_accel` gives "bvh2" (B4), and the plain shading step
+    shades (no B6); `main_path` runs one launch of MAIN_SPP samples after
+    the capture's, counters reset just before.  Then one eager sample's
+    queries, captured as `trace_paths` issues them, are held against B4's
+    twins bit for bit: every bounce's closest-hit rays (the camera rays,
+    then the continuation rays, refracted ones leaving 2 RAY_OFFSET inside
+    a sphere) and every bounce's shadow rays.  Returns (record, B4's
+    launches in the main path)."""
+    from cellbench import program
+    from cellbench.scenes import builtin, cornell_specular
+    from caitlynrenderer_tpu_torch.core import math as cm
+    from caitlynrenderer_tpu_torch.core.camera import generate_rays
+    from caitlynrenderer_tpu_torch.core.types import RenderOptions
+    from caitlynrenderer_tpu_torch.ops import traverse_bvh as tb
+    from caitlynrenderer_tpu_torch.render import integrator, sampling
+    from caitlynrenderer_tpu_torch.scene import auto_accel, required_stack, scene_families
+
+    t24 = time.perf_counter()
+    with open(SPECULAR_CFG) as f:
+        cfg = json.load(f)
+    scene = program.scene_arrays(cornell_specular.make())
+    camera = program.camera(builtin.make_camera(**cfg["camera"]))
+    accel = auto_accel(scene)
+    fams = scene_families(scene)
+    check(scene.num_triangles == 7948, f"the specular scene has {scene.num_triangles} triangles")
+    check(accel == "bvh2", f"auto_accel takes {accel!r} on the specular scene, not 'bvh2'")
+    check(fams == ("lambert", "mirror", "glass"), f"the specular scene's families {fams}")
+    options = RenderOptions(width=cfg["width"], height=cfg["height"], max_depth=cfg["max_depth"],
+                            accel=accel, families=fams)
+    label = f"cornell_specular {options.width}x{options.height} auto (B4)"
+    runs, ds, rec = main_path(label, scene, camera, options, dev, MAIN_SPP, split_stages=False)
+    options = options._replace(max_stack=required_stack(ds))
+    n, depth = options.width * options.height, options.max_depth
+
+    uni = sampling.pixel_uniforms(sampling.sample_key(sampling.prng_key(0), 0),
+                                  torch.arange(n, dtype=torch.int32, device=dev), depth)
+    o, d = generate_rays(camera, options.width, options.height, uni)
+    check(not integrator.fused_shading(ds, o, d, uni, options),
+          f"{label}: B6 shades a scene with mirror and glass")
+    # Bounce 0's continuation rays as `trace_paths` makes them, to count the
+    # refracted ones among the queries held below.
+    tri0 = integrator._closest_hit_raw(ds, o, d, torch.ones(n, dtype=torch.bool, device=dev),
+                                       options)[1]
+    bo, bd, ba = bounce_rays(ds, o, d, tri0, uni, fams)
+    hf, surf, _ = vertex(ds, o, d, tri0, fams)
+    refracted = int((ba & surf.glass & (cm.dot(bd, hf.n_flip) < 0)).sum())
+    mirrored = int((ba & surf.mirror).sum())
+    check(refracted > 1000, f"{label}: too few refracted rays at bounce 0 ({refracted})")
+
+    with captured_queries("traverse_closest", "traverse_anyhit") as calls:
+        integrator.trace_paths(ds, o, d, uni, options)
+    torch.cuda.synchronize()
+    closest = [c for c in calls if c[0] == "traverse_closest"]
+    anyhit = [c for c in calls if c[0] == "traverse_anyhit"]
+    check(len(closest) == depth and len(anyhit) == depth,
+          f"{label}: {len(closest)} closest and {len(anyhit)} any-hit queries a sample")
+    # The second closest-hit query is bounce 0's continuation.
+    _, args1, _ = closest[1]
+    check(torch.equal(args1[2], ba) and torch.equal(args1[0][ba], bo[ba])
+          and torch.equal(args1[1][ba], bd[ba]),
+          f"{label}: the path's bounce-1 rays are not the continuation rays")
+    rows = []
+    t_twin = time.perf_counter()
+    for name, args, kw in calls:
+        # The twins take the tree without B4's records and slab; a query's
+        # active mask comes after o, d (and the any-hit's t_max).
+        k, act = (7, args[2]) if name == "traverse_closest" else (8, args[3])
+        got = getattr(tb, name)(*args, **kw)
+        want = getattr(tb, name + "_plain")(*args[:k], **kw)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        torch.cuda.synchronize()
+        bits = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                   if a.dtype == torch.float32 else int((a != b).sum())
+                   for a, b in zip(got, want))
+        answered = (("hits", int((want[1] >= 0).sum())) if name == "traverse_closest"
+                    else ("occluded", int(want[0].sum())))
+        rows.append({"query": name, "rays": int(act.sum()), "bit_mismatches": bits,
+                     answered[0]: answered[1]})
+    twin_s = time.perf_counter() - t_twin
+    bad = [r for r in rows if r["bit_mismatches"]]
+    check(not bad, f"{label}: B4 differs from its twins on {bad}")
+    rec.update(accel=accel, max_stack=options.max_stack, launches=runs,
+               bounce0={"continuation": int(ba.sum()), "refracted": refracted,
+                        "mirrored": mirrored},
+               queries=rows, twin_s=twin_s, seconds=time.perf_counter() - t24)
+    print(f"  {label}: bounce 0 {int(ba.sum())} continuation rays ({refracted} refracted, "
+          f"{mirrored} off the mirror); B4 = twins bit for bit on one sample's "
+          f"{len(closest)} closest-hit queries (live rays "
+          f"{[r['rays'] for r in rows if r['query'] == 'traverse_closest']}) and "
+          f"{len(anyhit)} any-hit queries (shadow rays "
+          f"{[r['rays'] for r in rows if r['query'] == 'traverse_anyhit']}); twins "
+          f"{twin_s:.1f} s", flush=True)
+    print(f"  phase 24: {rec['seconds']:.3f} s", flush=True)
+    return rec, runs["traverse_bvh"]
+
+
 def main():
     with SbvhBuild() as sbvh_grid1m:
         return run(sbvh_grid1m)
@@ -3563,6 +3680,11 @@ def run(sbvh_grid1m):
     print(json.dumps({"phase23": rec23}))
     check(b4_row is not None, "phase 23 held no binary path against B4's twins")
     err_b4 = {q: max(err_b4[q], err_path[q]) for q in err_b4}
+
+    # ------------------------------------------------------------- phase 24
+    phase("24 the specular cell's path: mirror and glass through B4 and the plain step")
+    rec24, _ = phase24(dev, smi)
+    print(json.dumps({"phase24": rec24}))
 
     # Bounds at the shapes each row's time was taken at: B1 on the 700x700
     # cornell primary rays (closest) and their shadow rays (any-hit), B2 and

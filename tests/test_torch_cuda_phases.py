@@ -41,9 +41,10 @@ SPP = 4
 QUERY_KERNELS = {"mt_brute_kernel", "mega_kernel"}
 # The groups a capture's nodes fall in, by shading path: B6 does the hit,
 # nee and bounce groups' work, and rr issues nothing with roulette off;
-# these Lambert scenes leave the Disney BRDF's group, bsdf, empty.
+# these Lambert scenes leave the Disney BRDF's group, bsdf, and the mirror
+# and glass lanes' group, specular, empty.
 SHADING_GROUPS = {"fused": {"raygen", "query", "shade"},
-                  "torch": set(metrics.GROUPS) - {"shade", "bsdf"}}
+                  "torch": set(metrics.GROUPS) - {"shade", "bsdf", "specular"}}
 
 
 @pytest.fixture(scope="module")
@@ -158,8 +159,9 @@ def test_disney_graph_names_its_families_and_its_bsdf_nodes(dev, monkeypatch):
     (`fused_shading` patched false): its record reads no fused shading and
     no family B6 leaves to the torch path (B6 takes Disney: only the patch
     keeps it off), its bsdf group holds nodes (the span adds none: a
-    capture without the phase map has as many), and its accumulation is
-    finite and equals the same samples rendered eagerly, bit for bit."""
+    capture without the phase map has as many) and it has no specular
+    group (no mirror or glass), and its accumulation is finite and equals
+    the same samples rendered eagerly, bit for bit."""
     progressive.clear_graphs()
     monkeypatch.setattr(integ, "fused_shading", lambda *a, **k: False)
     ds, camera, options = _disney_box(dev)
@@ -173,7 +175,7 @@ def test_disney_graph_names_its_families_and_its_bsdf_nodes(dev, monkeypatch):
     graph, = progressive._graphs.values()
     rec = metrics.last_records["graph_capture"]
     assert not graph.fused_shading and rec["torch_families"] == []
-    assert set(graph.phase_nodes) == set(metrics.GROUPS) - {"shade"}
+    assert set(graph.phase_nodes) == set(metrics.GROUPS) - {"shade", "specular"}
     assert rec["phase_nodes"]["bsdf"] == graph.phase_nodes["bsdf"] > 0
     assert bool(torch.isfinite(got.accum).all()) and float(got.accum.sum()) > 0
     assert torch.equal(got.accum, eager.accum)

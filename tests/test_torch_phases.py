@@ -5,9 +5,9 @@ the radiance unchanged by the profiler; the phase map of a CUDA-graph
 capture, emulated here with one node per dispatched op; `attribute` on
 synthetic Chrome-trace events (a graph launch's operations by position,
 eager ones by the innermost span, nothing on a mismatch); the Disney
-BRDF's `bsdf` span (no node added, no phase on a Lambert scene), the live
-Disney lanes `trace_paths` counts and the families `torch_families`
-names; the "upload" record of `upload_scene`; and `cli render --profile`
+BRDF's `bsdf` span and the mirror and glass lanes' `specular` span (no
+node added, no phase on a Lambert scene), the live Disney and specular
+lanes `trace_paths` counts and the families `torch_families` names; the "upload" record of `upload_scene`; and `cli render --profile`
 with its "scene", "rays" and "profile" records.  The graph itself runs on the card:
 tests/test_torch_cuda_phases.py."""
 
@@ -114,13 +114,15 @@ def test_eager_sample_ops_all_inside_named_phases(accel):
 def test_phase_groups():
     """Each phase's group: launch, sample and raygen phases are raygen; a
     bounce's queries are query; rr and bounce are bounce; B6's shade is
-    shade; the Disney BRDF's bsdf is bsdf; others stand alone."""
+    shade; the Disney BRDF's bsdf is bsdf; the mirror and glass lanes'
+    specular is specular; others stand alone."""
     group = metrics.phase_group
     assert [group(p) for p in ("launch.replay", "sample.keys", "raygen")] == ["raygen"] * 3
     assert [group(f"b{b}.{p}") for b, p in ((0, "closest"), (5, "anyhit"))] == ["query"] * 2
     assert [group(p) for p in ("b1.hit", "b2.nee", "b3.rr", "b12.bounce", "b2.shade",
-                               "b2.bsdf")] == ["hit", "nee", "bounce", "bounce", "shade", "bsdf"]
-    assert "bsdf" in metrics.GROUPS
+                               "b2.bsdf", "b7.specular")] == [
+        "hit", "nee", "bounce", "bounce", "shade", "bsdf", "specular"]
+    assert "bsdf" in metrics.GROUPS and "specular" in metrics.GROUPS
     assert group("resolve") == "resolve" and group(None) is None
 
 
@@ -163,9 +165,9 @@ def test_capture_phase_map_covers_every_node(monkeypatch, accel):
     assert None not in phases
     # CPU tensors shade with B6's plain twin, whose spans hold all its ops:
     # no "shade" group (B6's), and a Lambert scene no "bsdf" group (the
-    # Disney BRDF).
+    # Disney BRDF) and no "specular" group (mirror and glass).
     groups = {metrics.phase_group(p) for p in phases}
-    assert groups == set(metrics.GROUPS) - {"shade", "bsdf"}
+    assert groups == set(metrics.GROUPS) - {"shade", "bsdf", "specular"}
     assert {p for p in phases if p.startswith("b")} >= {
         f"b{b}.{p}" for b in range(options.max_depth) for p in BOUNCE_PHASES}
     pairs = [(p, name) for (_, _, name), p in zip(nodes, phases)]
@@ -240,6 +242,74 @@ def test_disney_per_bounce_counts_live_disney_lanes(floor):
     _, tri, _, _ = intersect_brute(o, d, ds.scene.vertices, ds.scene.tri_v)
     assert int(dis[0]) == int(((tri >= 0) & (tri <= 1)).sum()) > 0
     assert bool((dis[1:] > 0).all()) and bool((dis < alive).all())
+
+
+def _floored(floor, accel="brute"):
+    """`_cornell`'s box with its floor of family `floor` (the port's
+    built-in box, `cornell_box(floor_type=...)`), options traced for the
+    scene's families."""
+    from caitlynrenderer_tpu_torch.core.types import MaterialType
+    from caitlynrenderer_tpu_torch.io.builtin_scenes import cornell_box
+    from caitlynrenderer_tpu_torch.scene import scene_families
+
+    _, camera, options = _cornell(accel)
+    ftype = {"lambert": MaterialType.DIFFUSE, "mirror": MaterialType.MIRROR,
+             "glass": MaterialType.GLASS}[floor]
+    scene = cornell_box(floor_type=int(ftype))[0]
+    return (upload_scene(scene, accel, "cpu"), camera,
+            options._replace(families=scene_families(scene)))
+
+
+@pytest.mark.parametrize("floor", ["lambert", "mirror", "glass"])
+def test_specular_span_adds_no_node(monkeypatch, floor):
+    """The mirror and glass lanes' span marks the graph and adds no node:
+    a capture with the phase map has as many nodes as one without.  It
+    opens only where the families hold mirror or glass: a Lambert scene
+    has no specular phase; a mirror or glass floor's has each bounce's,
+    inside its hit and bounce, holding the masks and the delta lobes."""
+    ds, camera, options = _floored(floor)
+    assert options.families == (("lambert",) if floor == "lambert" else ("lambert", floor))
+    plain, _ = _fake_capture_of_accumulate(monkeypatch, ds, camera, options, False)
+    nodes, phases = _fake_capture_of_accumulate(monkeypatch, ds, camera, options, True)
+    assert len(nodes) == len(plain) and None not in phases
+    spec = {p for p in phases if metrics.phase_group(p) == "specular"}
+    if floor == "lambert":
+        assert spec == set()
+        return
+    assert spec == {f"b{b}.specular" for b in range(options.max_depth)}
+    share = sum(p in spec for p in phases) / len(phases)
+    # The glass's Fresnel and refraction take more ops than the mirror's
+    # one reflection.
+    assert (0.01 < share < 0.1) if floor == "mirror" else (0.1 < share < 0.4), share
+
+
+@pytest.mark.parametrize("floor", ["lambert", "mirror", "glass"])
+def test_specular_per_bounce_counts_live_specular_lanes(floor):
+    """`trace_paths`' specular_per_bounce: at bounce 0 the camera rays that
+    hit the mirror or glass floor (the box's first two triangles), found
+    here by the plain brute-force query; at every bounce no more than the
+    live lanes; 0 on every bounce of a Lambert scene, whose Disney count
+    is 0 too."""
+    from caitlynrenderer_tpu_torch.core.camera import generate_rays
+    from caitlynrenderer_tpu_torch.ops.intersect import intersect_brute
+    from caitlynrenderer_tpu_torch.render import sampling
+    from caitlynrenderer_tpu_torch.render.integrator import trace_paths
+
+    ds, camera, options = _floored(floor)
+    options = options._replace(width=48, height=40, max_depth=4)
+    uni = sampling.draw_uniforms(sampling.prng_key(5), 48 * 40, options.max_depth, "cpu")
+    o, d = generate_rays(camera, 48, 40, uni)
+    _, stats = trace_paths(ds, o, d, uni, options, with_stats=True)
+    spec, alive = stats["specular_per_bounce"], stats["alive_per_bounce"]
+    assert spec.shape == alive.shape == (options.max_depth,)
+    assert bool((spec <= alive).all())
+    assert stats["disney_per_bounce"].tolist() == [0] * options.max_depth
+    if floor == "lambert":
+        assert spec.tolist() == [0] * options.max_depth
+        return
+    _, tri, _, _ = intersect_brute(o, d, ds.scene.vertices, ds.scene.tri_v)
+    assert int(spec[0]) == int(((tri >= 0) & (tri <= 1)).sum()) > 0
+    assert bool((spec[1:] > 0).all()) and bool((spec < alive).all())
 
 
 def test_torch_families_name_what_keeps_the_torch_path():
@@ -381,7 +451,7 @@ def test_cli_render_profile_and_records(tmp_path, caplog):
     assert rays["rays"] == 48 and len(rays["alive_per_bounce"]) == len(
         rays["anyhit_per_bounce"]) == 3
     assert rays["alive_per_bounce"][0] == 48
-    assert rays["disney_per_bounce"] == [0, 0, 0]
+    assert rays["disney_per_bounce"] == rays["specular_per_bounce"] == [0, 0, 0]
     assert sum(rays["alive_per_bounce"]) == rays["rays_closest"]
     assert sum(rays["anyhit_per_bounce"]) == rays["rays_anyhit"]
     profile, = recs["profile"]
