@@ -1,14 +1,15 @@
-// One bounce's Lambert and Disney shading for Hopper (sm_90a): kernel B6.
+// One bounce's shading for Hopper (sm_90a): kernel B6.
 //
 // Replaces no Pallas kernel.  It is the port's counterpart of the bounce
 // body that XLA fuses in caitlynrenderer_tpu/render/integrator.py:336-694
 // (hit frame, emissive MIS, NEE set-up and contribution, continuation, the
-// Disney branch at :534-622), on the no-grad render path of a scene whose
-// families are Lambert, or Lambert and Disney, with no texture and no
-// environment.  The torch code of render/integrator.py (`hit_frame`,
-// `surface`, `light_sample`, `bsdf_toward`, `continuation`;
-// `shade_bounce_plain`, `shade_finish_plain`) and ops/bsdf.py is its plain
-// twin, which the CPU and autograd paths still run.
+// Disney branch at :534-622, the mirror and glass lobes), on the no-grad
+// render path of a scene whose families are Lambert with any of Disney,
+// mirror and glass, with no texture and no environment.  The torch code of
+// render/integrator.py (`hit_frame`, `surface`, `light_sample`,
+// `bsdf_toward`, `continuation`, `_emitted`; `shade_bounce_plain`,
+// `shade_finish_plain`) and ops/bsdf.py is its plain twin, which the CPU
+// and autograd paths still run.
 //
 // shade_bounce_kernel, one thread a lane, one launch a bounce between the
 // closest-hit and the any-hit query:
@@ -18,7 +19,8 @@
 //      shading row (Moller-Trumbore's t, u, v), the shading normal
 //      (interpolated or geometric), n_flip and the offset hit point;
 //   3. an emissive hit adds T * emission * w_mis (power heuristic against
-//      prev_pdf, 1 on the first bounce) and ends the path;
+//      prev_pdf; 1 on the first bounce and after a delta lobe) and ends the
+//      path;
 //   4. NEE set-up: the light row picked by u_lp, the point on it, the unit
 //      direction and distance, `cand` and `t_max` for the any-hit query,
 //      and the contribution T * Le * f * w / pdf_light kept as `pending`;
@@ -28,17 +30,25 @@
 // t_max = 0 and a unit placeholder direction, keeps T, and adds nothing.
 // shade_finish_kernel is step 1 alone, after the last bounce's any-hit.
 //
-// The kernel is a template on kDisney.  shade_bounce_kernel<false> shades
-// every lane as Lambert (a scene of the Lambert family alone).  In
-// shade_bounce_kernel<true> a lane whose material is not a Lambert type
-// takes the Disney BRDF (ops/bsdf.py) instead, from its row's columns 37-44:
-// in 4, f and the pdf toward the light from `eval_pdf`; in 5, a direction
-// from `sample` (the lobe picked by u_lobe), T *= f / pdf and prev_pdf =
-// max(pdf, 1e-9), and the path ends where pdf <= 1e-9.  Every lobe is
-// evaluated for every Disney lane (diffuse with subsurface, sheen, GGX,
-// clearcoat), as the torch code evaluates them.  Two instantiations keep
-// the Lambert one's registers and code those of a kernel without the
-// branch.
+// The kernel is a template on kDisney and kDelta.  shade_bounce_kernel
+// <false, false> shades every lane as Lambert (a scene of the Lambert
+// family alone).  With kDisney a lane whose material is neither a Lambert
+// nor a specular type takes the Disney BRDF (ops/bsdf.py) instead, from
+// its row's columns 37-44: in 4, f and the pdf toward the light from
+// `eval_pdf`; in 5, a direction from `sample` (the lobe picked by u_lobe),
+// T *= f / pdf and prev_pdf = max(pdf, 1e-9), and the path ends where
+// pdf <= 1e-9.  Every lobe is evaluated for every Disney lane (diffuse
+// with subsurface, sheen, GGX, clearcoat), as the torch code evaluates
+// them.  With kDelta (the families hold mirror or glass) a lane of a
+// specular type (core/types.SPECULAR_TYPES, CONDUCTOR included) takes no
+// NEE in 4; in 5 a MIRROR lane, where the families hold "mirror", reflects
+// about n_flip, and a glass lane, where they hold "glass", reflects or
+// refracts by Fresnel (total internal reflection included) against u_lobe,
+// a refracted ray leaving 2 RAY_OFFSET through the surface; both keep
+// T *= albedo, set prev_pdf = 1 and the `specular` flag that step 3 of the
+// next bounce reads.  A specular lane with neither lobe (CONDUCTOR)
+// scatters as Lambert.  The two instantiations without kDelta keep the
+// code and registers of a kernel without the delta branch.
 //
 // Every expression is evaluated in the torch code's order with one
 // rounding per torch op (--fmad=false, IEEE sqrtf and division, cosf, sinf,
@@ -55,12 +65,14 @@
 // pending, ~100 B) and a shading row (~120 B of 200, once per lane; rows
 // repeat across lanes and stay in L1/L2 on small scenes) and writes ~70 B;
 // a dead lane reads 1-2 B and writes 18 B.  A Disney lane reads 36 B more
-// (eight row columns and a sixth uniform).  The arithmetic (~250 FP32
-// operations a live Lambert lane, two of them trig; ~600 more a Disney
-// lane) is far below the memory's rate.  So the design keeps a lane's
-// whole bounce in registers, reads each input once, writes each output
-// once, and lets a dead lane leave after its few stores; the outputs are
-// (N, 3) rows, so a warp's stores cover consecutive bytes.
+// (eight row columns and a sixth uniform); a delta lane its type and a
+// glass lane its ior and sixth uniform, and every lane that goes on under
+// kDelta writes its specular flag.  The arithmetic (~250 FP32 operations a
+// live Lambert lane, two of them trig; ~600 more a Disney lane, ~60 a
+// glass lane) is far below the memory's rate.  So the design keeps a
+// lane's whole bounce in registers, reads each input once, writes each
+// output once, and lets a dead lane leave after its few stores; the
+// outputs are (N, 3) rows, so a warp's stores cover consecutive bytes.
 
 #include <cuda_runtime.h>
 
@@ -93,6 +105,9 @@ struct ShadeArgs {
   float* t_max;            // (n,) the any-hit query's t_max (0 where not cand)
   bool* cand;              // (n,) the any-hit query's lanes
   float* pending;          // (n, 3) the NEE contribution where cand
+  bool* specular;          // (n,) in place: the continuation was a delta lobe (kDelta), else null
+  int mirror;              // the families hold "mirror": a MIRROR lane reflects (kDelta)
+  int glass;               // the families hold "glass": a glass lane reflects or refracts (kDelta)
 };
 
 namespace {
@@ -115,6 +130,20 @@ constexpr float kInvPi = 1.0f / static_cast<float>(3.141592653589793);
 // core/types.LAMBERT_TYPES (DIFFUSE 0, LIGHT_DIFFUSE 16) as a bit mask of
 // material type ids: a row of another type is shaded by the Disney BRDF.
 constexpr unsigned long long kLambertTypes = (1ull << 0) | (1ull << 16);
+
+// The delta lobes (integrator.surface, continuation): core/types.
+// SPECULAR_TYPES (MIRROR 1, the glass types, CONDUCTOR 6) and the
+// integrator's _GLASS_IDS as bit masks, MIRROR's id, and the Python scalars
+// of the glass lobe as its torch ops round them.
+constexpr unsigned long long kSpecularTypes = (1ull << 1) | (1ull << 2) | (1ull << 3) |
+                                              (1ull << 4) | (1ull << 5) | (1ull << 6) |
+                                              (1ull << 13) | (1ull << 14);
+constexpr unsigned long long kGlassTypes = (1ull << 2) | (1ull << 3) | (1ull << 4) | (1ull << 5) |
+                                           (1ull << 13) | (1ull << 14);
+constexpr int kMirrorType = 1;
+constexpr float kIorFloor = static_cast<float>(1e-6);               // eta's ior clamp
+constexpr float kFresnelFloor = static_cast<float>(1e-12);          // cos_t, r_par, r_perp
+constexpr float kRefractOffset = static_cast<float>(-2.0 * 2e-4);   // -2.0 * RAY_OFFSET
 
 // ops/bsdf.py's Python scalars, as its torch ops round them.
 constexpr float kPi = static_cast<float>(3.141592653589793);       // math.pi
@@ -380,6 +409,11 @@ __device__ __forceinline__ V3 disney_sample(const Disney& p, V3 n, V3 ub, V3 vb,
   return l;
 }
 
+// A material type id among the types of bit mask `mask` (integrator._type_is).
+__device__ __forceinline__ bool has_type(int type, unsigned long long mask) {
+  return type >= 0 && type <= 63 && ((mask >> type) & 1ull);
+}
+
 // What a lane that shades nothing more writes: no any-hit query, and the
 // next query's ray unchanged where it is written to a buffer of its own.
 __device__ __forceinline__ void leave(const ShadeArgs& a, long long i) {
@@ -392,7 +426,7 @@ __device__ __forceinline__ void leave(const ShadeArgs& a, long long i) {
   }
 }
 
-template <bool kDisney>
+template <bool kDisney, bool kDelta>
 __global__ void __launch_bounds__(kBlock) shade_bounce_kernel(const ShadeArgs a) {
   const long long i = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
   if (i >= a.n) return;
@@ -449,7 +483,9 @@ __global__ void __launch_bounds__(kBlock) shade_bounce_kernel(const ShadeArgs a)
     const int li_hit = min(max(static_cast<int>(rintf(__ldg(row + 25))), 0), last);
     const float area = __ldg(a.light_tab + static_cast<long long>(li_hit) * kLightRow + 15);
     const float pdf = light_pdf(t, area, -dot(d, nf), a.pdf_select);
-    const float w = a.first ? 1.0f : power_heuristic(a.prev_pdf[i], pdf);
+    // w_mis is 1 after a delta lobe (integrator._emitted's is_specular).
+    const float w = a.first || (kDelta && a.specular[i]) ? 1.0f
+                                                         : power_heuristic(a.prev_pdf[i], pdf);
     const V3 e = ldg3(row + 30);
     L = {L.x + (T.x * e.x) * w, L.y + (T.y * e.y) * w, L.z + (T.z * e.z) * w};
     store3(a.L + 3 * i, L);
@@ -476,17 +512,25 @@ __global__ void __launch_bounds__(kBlock) shade_bounce_kernel(const ShadeArgs a)
   ld = {ld.x / div, ld.y / div, ld.z / div};
   const float cos_mtl = dot(ld, nf);
   const float cos_light = dot(ld, ldg3(lr + 9));
-  const bool c = cos_mtl > 0.0f && cos_light < 0.0f;
+  // The specular lanes (integrator.surface, light_sample): no NEE.
+  int type = 0;
+  bool specular = false;
+  if constexpr (kDelta) {
+    type = static_cast<int>(rintf(__ldg(row + 29)));
+    specular = has_type(type, kSpecularTypes);
+  }
+  const bool c = cos_mtl > 0.0f && cos_light < 0.0f && !specular;
   a.cand[i] = c;
   a.t_max[i] = c ? dist - kEps : 0.0f;
   store3(a.ldir + 3 * i, ld);
   const V3 alb = ldg3(row + 26);
-  // The Disney BRDF's lanes (integrator.surface): a type that is not Lambert.
+  // The Disney BRDF's lanes (integrator.surface): a type that is neither
+  // Lambert nor specular.
   bool disney = false;
   Disney p;
   if constexpr (kDisney) {
-    const int type = static_cast<int>(rintf(__ldg(row + 29)));
-    disney = type < 0 || type > 63 || !((kLambertTypes >> type) & 1ull);
+    const int t = kDelta ? type : static_cast<int>(rintf(__ldg(row + 29)));
+    disney = !specular && (t < 0 || t > 63 || !((kLambertTypes >> t) & 1ull));
     if (disney) p = disney_params(row, alb);
   }
   if (c) {
@@ -506,8 +550,50 @@ __global__ void __launch_bounds__(kBlock) shade_bounce_kernel(const ShadeArgs a)
   }
 
   // 5. The continuation (core/math.cosine_hemisphere_dir, onb,
-  // local_to_world; integrator.continuation's Lambert lobe, and its Disney
-  // sample, whose diffuse lobe is that direction).
+  // local_to_world; integrator.continuation's Lambert lobe, its Disney
+  // sample, whose diffuse lobe is that direction, and its delta lobes).
+  V3 origin = hp;
+  if constexpr (kDelta) {
+    const bool mirror = a.mirror && type == kMirrorType;
+    if (mirror || (a.glass && has_type(type, kGlassTypes))) {
+      V3 dir = reflect(d, nf);
+      bool refracted = false;
+      if (!mirror) {
+        // Glass: Fresnel, or total internal reflection, against u_lobe.
+        const float ior = __ldg(row + 37);
+        const float eta = dot(d, n) <= 0.0f ? 1.0f / clamp_min(ior, kIorFloor) : ior;
+        const float ci = fabsf(dot(d, nf));
+        const float sin2_t = (eta * eta) * clamp_min(1.0f - ci * ci, 0.0f);
+        const float cos_t = sqrtf(clamp_min(1.0f - sin2_t, kFresnelFloor));
+        const float r_par = (ci - eta * cos_t) / clamp_min(ci + eta * cos_t, kFresnelFloor);
+        const float r_perp = (eta * ci - cos_t) / clamp_min(eta * ci + cos_t, kFresnelFloor);
+        const bool tir = sin2_t >= 1.0f;
+        const float fres = tir ? 1.0f : 0.5f * (r_par * r_par + r_perp * r_perp);
+        refracted = !(ur[5] < fres || tir);
+        if (refracted) {
+          const float k = eta * ci - cos_t;
+          dir = normalize({eta * d.x + k * nf.x, eta * d.y + k * nf.y, eta * d.z + k * nf.z});
+        }
+      }
+      // Where the families hold glass the twin adds to every origin: the
+      // refracted ray leaves from the other side of the surface, the
+      // others get 0.
+      if (a.glass) {
+        origin = refracted ? V3{hp.x + kRefractOffset * nf.x, hp.y + kRefractOffset * nf.y,
+                                hp.z + kRefractOffset * nf.z}
+                           : V3{hp.x + 0.0f, hp.y + 0.0f, hp.z + 0.0f};
+      }
+      a.prev_pdf[i] = 1.0f;
+      a.specular[i] = true;
+      store3(a.T + 3 * i, {T.x * alb.x, T.y * alb.y, T.z * alb.z});
+      store3(a.o_out + 3 * i, origin);
+      store3(a.d_out + 3 * i, normalize(dir));
+      if (l_read) store3(a.L + 3 * i, L);
+      return;
+    }
+    if (a.glass) origin = {hp.x + 0.0f, hp.y + 0.0f, hp.z + 0.0f};
+    a.specular[i] = false;
+  }
   const float r = sqrtf(u_b1);
   const float phi = u_b2 * kTwoPi;
   const float lx = r * cosf(phi), ly = r * sinf(phi);
@@ -536,7 +622,7 @@ __global__ void __launch_bounds__(kBlock) shade_bounce_kernel(const ShadeArgs a)
       } else {
         a.alive[i] = false;  // no pdf: the path ends, T kept
       }
-      store3(a.o_out + 3 * i, hp);
+      store3(a.o_out + 3 * i, origin);
       store3(a.d_out + 3 * i, normalize(l));
       if (l_read) store3(a.L + 3 * i, L);
       return;
@@ -544,7 +630,7 @@ __global__ void __launch_bounds__(kBlock) shade_bounce_kernel(const ShadeArgs a)
   }
   a.prev_pdf[i] = clamp_min(lz, kCosFloor) * kInvPi;
   store3(a.T + 3 * i, {T.x * alb.x, T.y * alb.y, T.z * alb.z});
-  store3(a.o_out + 3 * i, hp);
+  store3(a.o_out + 3 * i, origin);
   store3(a.d_out + 3 * i, normalize(dir));
   if (l_read) store3(a.L + 3 * i, L);
 }
@@ -568,19 +654,27 @@ unsigned blocks(long long n) { return static_cast<unsigned>((n + kBlock - 1) / k
 // (PyTorch's current stream), does not synchronise, and returns
 // cudaGetLastError() so a refused launch is reported to the caller.
 
-// disney: launch shade_bounce_kernel<true> (a scene of the Lambert and
-// Disney families), else shade_bounce_kernel<false> (Lambert alone).
+// The scene's families pick the instantiation: kDisney where `disney` (the
+// families hold "disney"), kDelta where args->mirror or args->glass (they
+// hold "mirror" or "glass"; args->specular must then be the flag).
 extern "C" int shade_bounce(const ShadeArgs* args, int disney, int device, void* stream) {
-  if (args->n < 0 || args->num_lights < 1 || args->u_base < 0 || args->u_base + 7 > args->n_u)
+  const bool delta = args->mirror || args->glass;
+  if (args->n < 0 || args->num_lights < 1 || args->u_base < 0 || args->u_base + 7 > args->n_u ||
+      (delta && args->specular == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (args->n == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (disney)
-    shade_bounce_kernel<true><<<blocks(args->n), kBlock, 0, s>>>(*args);
+  const unsigned g = blocks(args->n);
+  if (disney && delta)
+    shade_bounce_kernel<true, true><<<g, kBlock, 0, s>>>(*args);
+  else if (disney)
+    shade_bounce_kernel<true, false><<<g, kBlock, 0, s>>>(*args);
+  else if (delta)
+    shade_bounce_kernel<false, true><<<g, kBlock, 0, s>>>(*args);
   else
-    shade_bounce_kernel<false><<<blocks(args->n), kBlock, 0, s>>>(*args);
+    shade_bounce_kernel<false, false><<<g, kBlock, 0, s>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
 

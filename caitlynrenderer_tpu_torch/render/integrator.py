@@ -504,7 +504,8 @@ def continuation(hf: HitFrame, surf: Surface, d, T, u_b1, u_b2, u_lobe, phase: s
     return cm.normalize(new_d), new_T, new_pdf, new_spec, ok, origin
 
 
-# The shading families kernel B6 takes: ("lambert", "disney").
+# The shading families kernel B6 takes: ("lambert", "disney", "mirror",
+# "glass").
 FUSED_FAMILIES = shade.FAMILIES
 
 
@@ -512,10 +513,10 @@ def fused_shading(ds: DeviceScene, o, d, uniforms, options: RenderOptions,
                   with_stats: bool = False) -> bool:
     """Whether `trace_paths` shades each bounce with kernel B6 (ops/shade.py)
     rather than its plain twin: the rays, the uniforms and the scene's
-    tables on CUDA, families of FUSED_FAMILIES alone and Lambert among
-    them, no texture, no environment, at least one light, no ray-count
-    stats, and nothing the bounce reads requiring grad while grad mode is
-    on."""
+    tables on CUDA, families of FUSED_FAMILIES alone (Lambert with any of
+    Disney, mirror and glass) and Lambert among them, no texture, no
+    environment, at least one light, no ray-count stats, and nothing the
+    bounce reads requiring grad while grad mode is on."""
     sc = ds.scene
     tensors = (o, d, uniforms, ds.shade_tab, ds.light_tab)
     return (all(x.device.type == "cuda" for x in tensors)
@@ -530,7 +531,8 @@ def fused_shading(ds: DeviceScene, o, d, uniforms, options: RenderOptions,
 
 def torch_families(options: RenderOptions) -> tuple:
     """The families of options.families that kernel B6 does not shade: each
-    keeps `trace_paths` on the plain bounce."""
+    keeps `trace_paths` on the plain bounce (none of the four families of
+    the reference since B6 took the delta lobes)."""
     return tuple(f for f in options.families if f not in FUSED_FAMILIES)
 
 
@@ -546,9 +548,8 @@ def shade_bounce_plain(ds: DeviceScene, o, d, tri, uniforms, bounce: int,
                        state: shade.PathState, options: RenderOptions, prev=None,
                        stats: Optional[dict] = None) -> shade.Shaded:
     """`trace_paths`' shading step in torch: kernel B6's plain twin
-    (`ops/shade.shade_bounce`), widened to every family, texture, the
-    environment and scenes without a light (ldir, t_max, cand and pending
-    None).  Returns new tensors, so autograd runs through it;
+    (`ops/shade.shade_bounce`), widened to texture, the environment and
+    scenes without a light (ldir, t_max, cand and pending None).  Returns new tensors, so autograd runs through it;
     Shaded.state.specular marks the delta lobes.  It equals B6 where the
     loop reads the outputs: ldir and pending where cand; o, d and prev_pdf
     where the lane went on shading (alive, a hit, not emissive); elsewhere
@@ -625,11 +626,15 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
     lit = ds.light_tab.shape[0] > 0
     n, dev = o.shape[0], o.device
     with metrics.span("raygen"):
-        # prev_pdf is first read at bounce 1, on lanes bounce 0 wrote.
+        # prev_pdf, and B6's delta flag where the families hold a delta
+        # lobe, are first read at bounce 1, on lanes bounce 0 wrote.
+        delta = fused and shade.has_delta(options.families)
         state = shade.PathState(alive=torch.ones(n, dtype=torch.bool, device=dev),
                                 T=torch.ones((n, 3), dtype=torch.float32, device=dev),
                                 L=torch.zeros((n, 3), dtype=torch.float32, device=dev),
-                                prev_pdf=torch.empty(n, dtype=torch.float32, device=dev))
+                                prev_pdf=torch.empty(n, dtype=torch.float32, device=dev),
+                                specular=(torch.empty(n, dtype=torch.bool, device=dev)
+                                          if delta else None))
     alive_per_bounce, anyhit_per_bounce = [], []
     shaded = {"disney_per_bounce": [], "specular_per_bounce": []} if with_stats else None
     prev = None

@@ -24,7 +24,7 @@ import torch
 
 from caitlynrenderer_tpu_torch.core.camera import camera_tensors, copy_camera, has_lens
 from caitlynrenderer_tpu_torch.core.types import Camera, RenderOptions
-from caitlynrenderer_tpu_torch.ops import _build
+from caitlynrenderer_tpu_torch.ops import _build, shade
 from caitlynrenderer_tpu_torch.render import sampling
 from caitlynrenderer_tpu_torch.render.integrator import (check_supported, render_sample,
                                                           torch_families)
@@ -200,8 +200,7 @@ class SampleGraph:
             t0 = time.perf_counter()
             self.graph.instantiate()
             self.instantiate_s = time.perf_counter() - t0
-        self.fused_shading = (self.launches["shade"]["bounce"]
-                              + self.launches["shade"]["bounce_disney"]) > 0
+        self.fused_shading = sum(self.launches["shade"][k] for k in shade.BOUNCE_KEYS) > 0
         self.torch_families = [] if self.fused_shading else list(torch_families(options))
         self.phases = self.phase_nodes = None
         if phases is not None:

@@ -63,8 +63,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      eager sample (render_step) between sampling, camera and the
      integrator, with B2's share from a torch.profiler trace.  Here and
      in every main path (phases 15, 17, 21): B6's launches max_depth and
-     one finishing launch a sample where `fused_shading` holds (a
-     Lambert-only scene), none elsewhere
+     one finishing launch a sample where `fused_shading` holds (Lambert
+     with any of Disney, mirror and glass, no texture, no sky), none
+     elsewhere
  11. B2 vs twin times at grid100k (65536 rays) and B2 vs B1 at grid1m
      (16384 rays); then B2 and B3, closest and any-hit, on four ray sets
      (grid100k and grid1m, primary and bounce, 65536 rays each) in one
@@ -235,23 +236,27 @@ Phases (any failure exits non-zero; no phase's exception is caught):
      under auto (B4), the two graphs' accumulations equal bit for bit; (d) both
      graphs' nodes a sample.  Its numbers are also printed as one
      {"phase22": ...} JSON line before the kernels' line.
- 23. B6, the shading kernel (ops/shade.py; every bounce of a Lambert or
-     Lambert + Disney scene on the card), at the main paths' shapes: the
-     700x700 cornell (B1, 3 bounces) and grid1m at 1024x1024 under auto
-     (B4, 6 bounces) through its Lambert instantiation, the 700x700 Disney-floor
-     cornell (B1, 4 bounces) through its Disney one, bounce 0 on
+ 23. B6, the shading kernel (ops/shade.py; every bounce of a scene of
+     Lambert with any of Disney, mirror and glass on the card), at the
+     main paths' shapes: the 700x700 cornell (B1, 3 bounces) and grid1m at
+     1024x1024 under auto (B4, 6 bounces) through its Lambert
+     instantiation, the cornell_specular700 cell's box with a mirror and a
+     glass sphere (700x700 under auto, B4, 8 bounces) through its delta
+     one, the 700x700 Disney-floor cornell (B1, 4 bounces) through its
+     Disney one, bounce 0 on
      the camera rays, then bounce 1 on bounce 0's next rays with bounce
      0's NEE folded in, and the finishing add of bounce 1's NEE: (a) B6
      against its twins (`integrator.shade_bounce_plain`,
      `shade_finish_plain`) on the same inputs, every output bit for bit
      where the loop reads it (ldir and pending where cand; o, d and
-     prev_pdf on the lanes that went on shading); (b) B6 and the twins timed (CUDA events around
+     prev_pdf on the lanes that went on shading; the delta flag where the
+     path goes on); (b) B6 and the twins timed (CUDA events around
      each call, queued behind a device sleep, the state restored between
      calls outside the events), beside B6's bound (`shade_bound`,
      `finish_bound`: the bytes each lane's outcome needs over 3.35 TB/s);
-     (c) on grid1m, B4 against its twins (`traverse_closest_plain`,
-     `traverse_anyhit_plain`) on each bounce's closest-hit rays (the
-     1,048,576 camera rays, then bounce 0's continuation rays) and its
+     (c) on grid1m and the specular box, B4 against its twins
+     (`traverse_closest_plain`, `traverse_anyhit_plain`) on each bounce's
+     closest-hit rays (the camera rays, then bounce 0's continuation rays) and its
      shadow rays, t, tri, u, v and occlusion bit for bit, and on bounce 0's
      B4 and the twins timed beside B4's bound (`bvh_bound` from the stats
      variant's oracle walk).  Its numbers are also printed as one
@@ -259,11 +264,13 @@ Phases (any failure exits non-zero; no phase's exception is caught):
  24. the cornell_specular700.offline cell's path (cellbench's scene,
      camera and configuration: a mirror and a glass UV sphere with
      interpolated vertex normals in the box, 7,948 triangles, 700x700, 8
-     bounces): `auto_accel` gives "bvh2" (B4) and the plain shading step
-     shades (no B6); the main path as phase 20's grid1m run (one launch of
-     16 spp after the capture's, counters reset just before: B4 8 + 8
-     launches a sample); then one eager sample's queries, captured as
-     `trace_paths` issues them, held against B4's twins, t, tri, u, v and
+     bounces): `auto_accel` gives "bvh2" (B4) and B6's delta instantiation
+     shades; the main path as phase 20's grid1m run (one launch of 16 spp
+     after the capture's, counters reset just before: B4 8 + 8 and B6 8 +
+     1 launches a sample); then one eager sample through B6 against the
+     same sample on the plain shading step, radiance bit for bit, and its
+     queries, copied as `trace_paths` issues them, held against B4's
+     twins, t, tri, u, v and
      occlusion bit for bit: the camera rays, each bounce's continuation
      rays (bounce 0's checked equal to `bounce_rays`, refracted ones
      leaving 2 RAY_OFFSET inside a sphere) and each bounce's shadow rays.
@@ -817,7 +824,7 @@ PATH_KERNEL = {"brute": ("mt_brute", "mt_brute_kernel", "B1"),
 
 # B5's module: every sample of every path draws its uniforms through it.
 SAMPLER = "threefry"
-# B6's module: a Lambert-only scene's bounces shade through it on the card.
+# B6's module: the bounces of a scene `fused_shading` takes shade through it on the card.
 SHADER = "shade"
 
 
@@ -840,12 +847,13 @@ def b6_launches(ds, o, d, uni, options, samples):
     """B6's counter after `samples` samples of the main path: max_depth
     launches and one finishing launch a sample where `fused_shading` holds,
     none elsewhere; no twin call."""
+    from caitlynrenderer_tpu_torch.ops import shade
     from caitlynrenderer_tpu_torch.render.integrator import fused_shading
 
     k = samples if fused_shading(ds, o, d, uni, options) else 0
-    out = {"bounce": 0, "bounce_disney": 0, "finish": k, "bounce_twin": 0,
-           "bounce_disney_twin": 0, "finish_twin": 0}
-    out["bounce_disney" if "disney" in options.families else "bounce"] = options.max_depth * k
+    out = dict.fromkeys(shade.launches, 0)
+    out["finish"] = k
+    out[shade.bounce_key(options.families)] = options.max_depth * k
     return out
 
 
@@ -963,7 +971,7 @@ def main_path(label, scene, camera, options, dev, spp, split_stages=True, prebui
     check(launches[SAMPLER]["pixel"] == samples,
           f"{label}: B5 did not draw every sample: {launches[SAMPLER]}")
     check(launches[SHADER] == b6_launches(ds, o, d, uni, options, samples),
-          f"{label}: B6 did not shade every bounce of a Lambert scene, or ran on another: "
+          f"{label}: B6 did not shade every bounce of a scene it takes, or ran on another: "
           f"{launches[SHADER]}")
     check(only_path(launches, name), f"{label}: another kernel or a twin ran: {launches}")
     check(bool(torch.isfinite(state.accum).all()), f"{label}: non-finite radiance")
@@ -1341,14 +1349,16 @@ def captured_queries(*names):
     "brute_closest", "mega_anyhit") for the block: every call still runs,
     and its (name, args, kwargs) is appended to the yielded list, so the
     kernels can be held against their twins on the very inputs a path gave
-    them."""
+    them.  The tensor arguments are copies taken at the call: B6 writes the
+    next rays and the path state into the loop's buffers."""
     from caitlynrenderer_tpu_torch.render import integrator
 
     calls, real = [], {n: getattr(integrator, n) for n in names}
 
     def wrap(name):
         def query(*args, **kw):
-            calls.append((name, args, kw))
+            kept = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+            calls.append((name, kept, kw))
             return real[name](*args, **kw)
         return query
 
@@ -2475,14 +2485,15 @@ def phase22(dev, smi, frame_runs):
 # Shading-table columns a live lane of B6 reads: v0, e1, e2, the smooth
 # flag, the albedo, the emissive flag (0-8, 18, 26-28, 33); the vertex
 # normals (9-17) where the row is smooth; the light index and emission
-# (25, 30-32) where it is emissive.  The Disney instantiation also reads
-# the material type (29) of a row that is not emissive, and the Disney
-# parameters (37-44) of a Disney row.
+# (25, 30-32) where it is emissive.  The Disney and the delta
+# instantiations also read the material type (29) of a row that is not
+# emissive, the Disney one the Disney parameters (37-44) of a Disney row,
+# the delta ones the ior (37) of a glass row.
 B6_ROW_COLS, B6_SMOOTH_COLS, B6_EMISSIVE_COLS = 14, 9, 4
-B6_TYPE_COLS, B6_DISNEY_COLS = 1, 8
+B6_TYPE_COLS, B6_DISNEY_COLS, B6_IOR_COLS = 1, 8, 1
 
 
-def shade_bound(ds, tri, alive, sh, prev, bounce, families=("lambert",)):
+def shade_bound(ds, tri, alive, sh, prev, bounce, families=("lambert",), specular=None):
     """B6's bound, (ms, "bytes"), and the lane counts it rests on: the
     bytes a bounce needs over PEAK_BYTES.  Each lane's state is read and
     written as its outcome needs it: every lane reads its alive flag and
@@ -2494,11 +2505,17 @@ def shade_bound(ds, tri, alive, sh, prev, bounce, families=("lambert",)):
     of each distinct shading row once, and the light table.  Where
     `families` holds "disney" (the Disney instantiation), a Disney lane
     that goes on reads a sixth uniform, and a row its type and, for a
-    Disney row, its eight Disney parameters."""
+    Disney row, its eight Disney parameters.  Where they hold "mirror" or
+    "glass" (the delta instantiations), a row that a lane goes on from
+    reads its type, a glass row its ior, a glass lane its sixth uniform;
+    an emissive hit after bounce 0 reads the entering delta flag
+    `specular` and prev_pdf only where that is false; and every lane that
+    goes on writes its flag."""
+    from caitlynrenderer_tpu_torch.ops import shade
     from caitlynrenderer_tpu_torch.render import integrator
 
     count = lambda m: int(m.sum())  # noqa: E731
-    disney = "disney" in families
+    disney, delta = "disney" in families, shade.has_delta(families)
     n = int(alive.numel())
     live = alive & (tri >= 0)
     rows = ds.shade_tab[torch.clamp(tri, min=0).long()]
@@ -2506,28 +2523,42 @@ def shade_bound(ds, tri, alive, sh, prev, bounce, families=("lambert",)):
     cont = live & ~emissive
     visible = (prev[0] & ~prev[1]) if prev is not None else torch.zeros_like(alive)
     adds = emissive | visible
-    dis_row = lambda r: ~integrator._type_is(torch.round(r[:, 29]).long(),  # noqa: E731
-                                             integrator._LAMBERT_IDS)
+    type_of = lambda r: torch.round(r[:, 29]).long()  # noqa: E731
+    spec_row = lambda r: (integrator._type_is(type_of(r), integrator._SPECULAR_IDS)  # noqa: E731
+                          if delta else torch.zeros_like(r[:, 29], dtype=torch.bool))
+    glass_row = lambda r: (integrator._type_is(type_of(r), integrator._GLASS_IDS)  # noqa: E731
+                           if "glass" in families else torch.zeros_like(r[:, 29],
+                                                                        dtype=torch.bool))
+    dis_row = lambda r: (~integrator._type_is(type_of(r), integrator._LAMBERT_IDS)  # noqa: E731
+                         & ~spec_row(r))
     dis_lanes = cont & dis_row(rows) if disney else torch.zeros_like(cont)
+    glass_lanes = cont & glass_row(rows)
+    mirror_lanes = (cont & (type_of(rows) == 1) if "mirror" in families
+                    else torch.zeros_like(cont))
     read = n + 4 * count(alive) + 36 * count(live) + 20 * count(cont) + 12 * count(adds)
-    read += 4 * count(dis_lanes)  # u_lobe
+    read += 4 * count(dis_lanes) + 4 * count(glass_lanes)  # u_lobe
     if bounce:  # the previous NEE's flags and pending; prev_pdf for the MIS
-        read += n + count(prev[0]) + 12 * count(visible) + 4 * count(emissive)
+        after_delta = specular if delta else torch.zeros_like(alive)
+        read += (n + count(prev[0]) + 12 * count(visible) + 4 * count(emissive & ~after_delta)
+                 + (count(emissive) if delta else 0))
     write = n + 16 * count(sh.cand) + 12 * count(sh.cand)  # cand, t_max + ldir, pending
     write += 40 * count(cont) + 12 * count(adds) + count(alive & ~cont)  # o d T pdf, L, alive
+    write += count(cont) if delta else 0  # the delta flag
     distinct = torch.unique(tri[live]).long()
     drows = ds.shade_tab[distinct]
     cols = (B6_ROW_COLS + B6_SMOOTH_COLS * (drows[:, 18] > 0.5).long()
             + B6_EMISSIVE_COLS * (drows[:, 33] != -1).long())
-    if disney:
+    if disney or delta:
         shaded = drows[:, 33] == -1
-        cols = cols + shaded.long() * (B6_TYPE_COLS + B6_DISNEY_COLS * dis_row(drows).long())
+        cols = cols + shaded.long() * (B6_TYPE_COLS + B6_DISNEY_COLS * dis_row(drows).long()
+                                       * disney + B6_IOR_COLS * glass_row(drows).long())
     table = 4 * int(cols.sum()) + 4 * ds.light_tab.numel()
     total = read + write + table
     return (total / PEAK_BYTES * 1e3, "bytes"), {
         "bytes": total, "live": count(live), "emissive": count(emissive),
         "cand": count(sh.cand), "visible_prev": count(visible),
-        "disney": count(dis_lanes), "distinct_rows": int(distinct.numel())}
+        "disney": count(dis_lanes), "mirror": count(mirror_lanes), "glass": count(glass_lanes),
+        "distinct_rows": int(distinct.numel())}
 
 
 def finish_bound(cand, shadowed):
@@ -2646,23 +2677,26 @@ def phase23(dev, smi, runs, reps=30):
         o, d = generate_rays(camera, w, h, uni)
         check(integrator.fused_shading(ds, o, d, uni, options),
               f"{label}: the main path does not shade through B6")
+        exact, fams = options.exact_reference_nee, options.families
+        delta = shade.has_delta(fams)
+        # B6's state: alive, T, L, prev_pdf and, for the delta lobes, the flag.
         state = shade.PathState(torch.ones(n, dtype=torch.bool, device=dev),
                                 torch.ones((n, 3), device=dev), torch.zeros((n, 3), device=dev),
-                                torch.ones(n, device=dev))
-        exact, fams = options.exact_reference_nee, options.families
-        kind = "disney" if "disney" in fams else "lambert"
+                                torch.ones(n, device=dev),
+                                torch.zeros(n, dtype=torch.bool, device=dev) if delta else None)
+        kind = shade.bounce_key(fams).replace("bounce_", "").replace("bounce", "lambert")
         prev = None
         for bounce in (0, 1):
             rays_in = (o, d, state.alive)
             tri = integrator._closest_hit_raw(ds, o, d, state.alive, options)[1]
-            # B6's state: alive, T, L and prev_pdf (specular is None).
-            saved = shade.PathState(*(x.clone() for x in state[:4]))
-            work = shade.PathState(*(x.clone() for x in state[:4]))
+            saved = shade.PathState(*(x.clone() if x is not None else None for x in state))
+            work = shade.PathState(*(x.clone() if x is not None else None for x in state))
             rays = (torch.empty_like(o), torch.empty_like(d))
 
             def restore():
-                for x, y in zip(work[:4], saved[:4]):
-                    x.copy_(y)
+                for x, y in zip(work, saved):
+                    if x is not None:
+                        x.copy_(y)
 
             def kernel(tri=tri, prev=prev, bounce=bounce, rays=rays):
                 return shade.shade_bounce(ds.shade_tab, ds.light_tab, o, d, tri, uni, bounce,
@@ -2688,21 +2722,25 @@ def phase23(dev, smi, runs, reps=30):
                      (sh.o[went_on], want.o[went_on]), (sh.d[went_on], want.d[went_on]),
                      (sh.ldir[sh.cand], want.ldir[sh.cand]),
                      (sh.pending[sh.cand], want.pending[sh.cand])]
+            on = twin.alive  # the delta flag where the path goes on
             equal = (torch.equal(work.alive, twin.alive) and torch.equal(sh.cand, want.cand)
                      and all(torch.equal(x.view(torch.int32), y.view(torch.int32))
-                             for x, y in pairs))
+                             for x, y in pairs)
+                     and (not delta or torch.equal(work.specular[on], twin.specular[on])))
             e = _max_abs_err(pairs)
             check(equal and e == 0.0, f"{label} bounce {bounce}: B6 differs from its twin "
                   f"(max |diff| {e})")
             err["bounce"] = max(err["bounce"], e)
-            bound, counts = shade_bound(ds, tri, saved.alive, sh, prev, bounce, fams)
+            bound, counts = shade_bound(ds, tri, saved.alive, sh, prev, bounce, fams,
+                                        saved.specular)
             row = {"scene": label, "instantiation": kind, "bounce": bounce, "lanes": n,
                    **counts, "bound_ms": bound[0],
                    "ms": k_ms, "min_ms": k_min, "share_pct": 100.0 * bound[0] / k_ms,
                    "plain_ms": t_ms, "plain_min_ms": t_min, "max_abs_err": e}
             rec["bounces"].append(row)
             print(f"  {label} bounce {bounce} ({kind}): {n} lanes, {counts['live']} live, "
-                  f"{counts['disney']} Disney, {counts['cand']} any-hit; B6 {k_ms:.4f} ms (least {k_min:.4f}), bound "
+                  f"{counts['disney']} Disney, {counts['mirror']} mirror, {counts['glass']} glass, "
+                  f"{counts['cand']} any-hit; B6 {k_ms:.4f} ms (least {k_min:.4f}), bound "
                   f"{bound[0]:.4f} ms by {counts['bytes']} bytes ({row['share_pct']:.1f} %), "
                   f"twin {t_ms:.3f} ms; outputs equal bit for bit", flush=True)
             shadowed = integrator._occluded(ds, sh.o, sh.ldir, sh.t_max, sh.cand, options)
@@ -2744,39 +2782,62 @@ def phase23(dev, smi, runs, reps=30):
 SPECULAR_CFG = os.path.join(ROOT, "cellbench", "configs", "cornell_specular700.json")
 
 
-def phase24(dev, smi):
-    """The cornell_specular700.offline cell's path: cellbench's scene (the
-    box with a mirror and a glass UV sphere, interpolated vertex normals,
-    7,948 triangles) and camera, at the configuration's 700x700 and 8
-    bounces.  `auto_accel` gives "bvh2" (B4), and the plain shading step
-    shades (no B6); `main_path` runs one launch of MAIN_SPP samples after
-    the capture's, counters reset just before.  Then one eager sample's
-    queries, captured as `trace_paths` issues them, are held against B4's
-    twins bit for bit: every bounce's closest-hit rays (the camera rays,
-    then the continuation rays, refracted ones leaving 2 RAY_OFFSET inside
-    a sphere) and every bounce's shadow rays.  Returns (record, B4's
-    launches in the main path)."""
+def specular_scene():
+    """(scene arrays, camera, options) of the cornell_specular700 cell:
+    cellbench's scene and camera, the configuration's size and depth, the
+    accelerator `auto_accel` takes and the scene's families."""
     from cellbench import program
     from cellbench.scenes import builtin, cornell_specular
-    from caitlynrenderer_tpu_torch.core import math as cm
-    from caitlynrenderer_tpu_torch.core.camera import generate_rays
     from caitlynrenderer_tpu_torch.core.types import RenderOptions
-    from caitlynrenderer_tpu_torch.ops import traverse_bvh as tb
-    from caitlynrenderer_tpu_torch.render import integrator, sampling
-    from caitlynrenderer_tpu_torch.scene import auto_accel, required_stack, scene_families
+    from caitlynrenderer_tpu_torch.scene import auto_accel, scene_families
 
-    t24 = time.perf_counter()
     with open(SPECULAR_CFG) as f:
         cfg = json.load(f)
     scene = program.scene_arrays(cornell_specular.make())
     camera = program.camera(builtin.make_camera(**cfg["camera"]))
-    accel = auto_accel(scene)
-    fams = scene_families(scene)
+    options = RenderOptions(width=cfg["width"], height=cfg["height"], max_depth=cfg["max_depth"],
+                            accel=auto_accel(scene), families=scene_families(scene))
+    return scene, camera, options
+
+
+def specular_run(dev):
+    """phase23's run of the cornell_specular700 cell: (label, ds, camera,
+    options) at 700x700 under bvh2 (B4), 8 bounces, B6's delta
+    instantiation."""
+    from caitlynrenderer_tpu_torch.scene import required_stack, upload_scene
+
+    scene, camera, options = specular_scene()
+    ds = upload_scene(scene, options.accel, dev)
+    return (f"cornell_specular {options.width}x{options.height} auto (B4)", ds, camera,
+            options._replace(max_stack=required_stack(ds)))
+
+
+def phase24(dev, smi):
+    """The cornell_specular700.offline cell's path: cellbench's scene (the
+    box with a mirror and a glass UV sphere, interpolated vertex normals,
+    7,948 triangles) and camera, at the configuration's 700x700 and 8
+    bounces.  `auto_accel` gives "bvh2" (B4), and B6's delta instantiation
+    shades; `main_path` runs one launch of MAIN_SPP samples after the
+    capture's, counters reset just before (B4 8 + 8 launches a sample, B6
+    8 + 1).  Then one eager sample through B6 against the same sample on
+    the plain shading step (`fused_shading` off), radiance bit for bit, and
+    its queries, captured (copied) as `trace_paths` issues them, held
+    against B4's twins bit for bit: every bounce's closest-hit rays (the
+    camera rays, then the continuation rays, refracted ones leaving 2
+    RAY_OFFSET inside a sphere) and every bounce's shadow rays.  Returns
+    (record, B4's launches in the main path)."""
+    from caitlynrenderer_tpu_torch.core import math as cm
+    from caitlynrenderer_tpu_torch.core.camera import generate_rays
+    from caitlynrenderer_tpu_torch.ops import traverse_bvh as tb
+    from caitlynrenderer_tpu_torch.render import integrator, sampling
+    from caitlynrenderer_tpu_torch.scene import required_stack
+
+    t24 = time.perf_counter()
+    scene, camera, options = specular_scene()
+    accel, fams = options.accel, options.families
     check(scene.num_triangles == 7948, f"the specular scene has {scene.num_triangles} triangles")
     check(accel == "bvh2", f"auto_accel takes {accel!r} on the specular scene, not 'bvh2'")
     check(fams == ("lambert", "mirror", "glass"), f"the specular scene's families {fams}")
-    options = RenderOptions(width=cfg["width"], height=cfg["height"], max_depth=cfg["max_depth"],
-                            accel=accel, families=fams)
     label = f"cornell_specular {options.width}x{options.height} auto (B4)"
     runs, ds, rec = main_path(label, scene, camera, options, dev, MAIN_SPP, split_stages=False)
     options = options._replace(max_stack=required_stack(ds))
@@ -2785,8 +2846,8 @@ def phase24(dev, smi):
     uni = sampling.pixel_uniforms(sampling.sample_key(sampling.prng_key(0), 0),
                                   torch.arange(n, dtype=torch.int32, device=dev), depth)
     o, d = generate_rays(camera, options.width, options.height, uni)
-    check(not integrator.fused_shading(ds, o, d, uni, options),
-          f"{label}: B6 shades a scene with mirror and glass")
+    check(integrator.fused_shading(ds, o, d, uni, options),
+          f"{label}: B6 does not shade the scene with mirror and glass")
     # Bounce 0's continuation rays as `trace_paths` makes them, to count the
     # refracted ones among the queries held below.
     tri0 = integrator._closest_hit_raw(ds, o, d, torch.ones(n, dtype=torch.bool, device=dev),
@@ -2798,8 +2859,18 @@ def phase24(dev, smi):
     check(refracted > 1000, f"{label}: too few refracted rays at bounce 0 ({refracted})")
 
     with captured_queries("traverse_closest", "traverse_anyhit") as calls:
-        integrator.trace_paths(ds, o, d, uni, options)
+        L_b6 = integrator.trace_paths(ds, o, d, uni, options)
+    # The same sample on the plain shading step.
+    fused = integrator.fused_shading
+    integrator.fused_shading = lambda *a, **k: False
+    try:
+        L_twin = integrator.trace_paths(ds, o, d, uni, options)
+    finally:
+        integrator.fused_shading = fused
     torch.cuda.synchronize()
+    b6_bits = int((L_b6.view(torch.int32) != L_twin.view(torch.int32)).sum())
+    check(b6_bits == 0, f"{label}: the sample through B6 differs from the plain step's in "
+          f"{b6_bits} of {L_b6.numel()} values (max |diff| {_max_abs_err([(L_b6, L_twin)])})")
     closest = [c for c in calls if c[0] == "traverse_closest"]
     anyhit = [c for c in calls if c[0] == "traverse_anyhit"]
     check(len(closest) == depth and len(anyhit) == depth,
@@ -2830,10 +2901,13 @@ def phase24(dev, smi):
     bad = [r for r in rows if r["bit_mismatches"]]
     check(not bad, f"{label}: B4 differs from its twins on {bad}")
     rec.update(accel=accel, max_stack=options.max_stack, launches=runs,
+               b6_vs_plain={"values": L_b6.numel(), "bit_mismatches": b6_bits,
+                            "radiance_sum": float(L_twin.sum())},
                bounce0={"continuation": int(ba.sum()), "refracted": refracted,
                         "mirrored": mirrored},
                queries=rows, twin_s=twin_s, seconds=time.perf_counter() - t24)
-    print(f"  {label}: bounce 0 {int(ba.sum())} continuation rays ({refracted} refracted, "
+    print(f"  {label}: one sample through B6 = the plain step bit for bit; bounce 0 "
+          f"{int(ba.sum())} continuation rays ({refracted} refracted, "
           f"{mirrored} off the mirror); B4 = twins bit for bit on one sample's "
           f"{len(closest)} closest-hit queries (live rays "
           f"{[r['rays'] for r in rows if r['query'] == 'traverse_closest']}) and "
@@ -3673,6 +3747,7 @@ def run(sbvh_grid1m):
                                        max_depth=4, accel="brute")
     rec23, err_b6, b6_rows, err_path, b4_row = phase23(dev, smi, [
         (f"cornell {DEMO}x{DEMO} brute (B1)", ds_main, camera, demo_opts),
+        specular_run(dev),
         ("grid1m 1024x1024 auto (B4)", a1m, grid_cam, opts1m),
         (f"cornell_disney {DEMO}x{DEMO} brute (B1)", upload_scene(sc23, "brute", dev), cam23,
          opts23),
@@ -3682,7 +3757,7 @@ def run(sbvh_grid1m):
     err_b4 = {q: max(err_b4[q], err_path[q]) for q in err_b4}
 
     # ------------------------------------------------------------- phase 24
-    phase("24 the specular cell's path: mirror and glass through B4 and the plain step")
+    phase("24 the specular cell's path: mirror and glass through B4 and B6")
     rec24, _ = phase24(dev, smi)
     print(json.dumps({"phase24": rec24}))
 

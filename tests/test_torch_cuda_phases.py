@@ -10,7 +10,8 @@ test runs them again on the torch path (`fused_shading` patched false),
 whose hit, nee and bounce groups the mirror, glass, textured and sky-lit
 scenes still take.  The Disney-floor scene's graph is shaded by B6's
 Disney instantiation, and on the torch path (patched) fills the bsdf
-group.
+group; the benchmark's specular box (a mirror and a glass sphere) by its
+delta instantiation, and on the torch path fills the specular group.
 
 Marked `cuda`; every test skips (inside the fixture) when torch sees no
 CUDA device: `python -m pytest tests/ -m cuda -q` on an NVIDIA card."""
@@ -31,6 +32,8 @@ from caitlynrenderer_tpu_torch.render import progressive
 from caitlynrenderer_tpu_torch.scene import required_stack, scene_families, upload_scene
 from caitlynrenderer_tpu_torch.utils import config, metrics
 from cellbench import trace
+
+import test_torch_shade
 
 pytestmark = pytest.mark.cuda
 
@@ -144,6 +147,47 @@ def test_traced_replay_groups_add_up_to_the_integrator(dev, accel, shading, monk
     assert None not in other and set(other) >= SHADING_GROUPS[shading] - {"query"}
     assert set(other) <= SHADING_GROUPS[shading]
     assert sum(other.values()) == pytest.approx(integrator, rel=0.01)
+    progressive.clear_graphs()
+
+
+def _specular_box(dev):
+    """The benchmark's cornell_specular700 scene and camera at 96x64 and
+    its 8 bounces, under bvh2 (the cell's `auto`)."""
+    scene, camera, options = test_torch_shade._specular_scene("bvh2", 96, 64)
+    ds = upload_scene(scene, "bvh2", dev)
+    return ds, camera, options._replace(max_stack=required_stack(ds))
+
+
+def test_fused_specular_graph_shades_through_b6(dev, monkeypatch):
+    """The specular box's graph (families lambert, mirror and glass): B6's
+    delta instantiation shades it, so its record reads fused_shading and
+    no torch family, its nodes lie in raygen, query and shade alone
+    (max_depth + 1 B6 nodes a sample), its launches are max_depth x spp
+    delta bounces and spp finishing adds, and its accumulation equals the
+    torch path's graph of the same samples bit for bit, whose specular
+    group holds nodes."""
+    progressive.clear_graphs()
+    ds, camera, options = _specular_box(dev)
+    w, h = options.width, options.height
+    state = progressive.init_state(w, h, 5, dev)
+    got = progressive.render_steps(ds, camera, state, w, h, options, SPP)
+    torch.cuda.synchronize(dev)
+    graph, = progressive._graphs.values()
+    rec = metrics.last_records["graph_capture"]
+    assert graph.fused_shading and rec["fused_shading"] is True and rec["torch_families"] == []
+    assert set(graph.phase_nodes) == {"raygen", "query", "shade"}
+    want = dict.fromkeys(graph.launches["shade"], 0)
+    want.update(bounce_delta=options.max_depth * SPP, finish=SPP)
+    assert graph.launches["shade"] == want
+    assert graph.phase_nodes["shade"] == (options.max_depth + 1) * SPP
+    progressive.clear_graphs()
+    with monkeypatch.context() as m:
+        m.setattr(integ, "fused_shading", lambda *a, **k: False)
+        torch_path = progressive.render_steps(ds, camera, state, w, h, options, SPP)
+        graph, = progressive._graphs.values()
+        assert not graph.fused_shading and graph.phase_nodes["specular"] > 0
+    torch.cuda.synchronize(dev)
+    assert float(got.accum.sum()) > 0 and torch.equal(got.accum, torch_path.accum)
     progressive.clear_graphs()
 
 

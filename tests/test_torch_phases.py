@@ -315,7 +315,8 @@ def test_specular_per_bounce_counts_live_specular_lanes(floor):
 def test_torch_families_name_what_keeps_the_torch_path():
     """`integrator.torch_families`, which the graph_capture record carries
     beside fused_shading: the families kernel B6 does not shade, from the
-    scene's own families (B6 shades Lambert and Disney)."""
+    scene's own families (B6 shades Lambert, Disney, mirror and glass, so
+    none of the four keeps the torch path)."""
     from caitlynrenderer_tpu_torch.core.types import RenderOptions
     from caitlynrenderer_tpu_torch.render.integrator import torch_families
 
@@ -323,7 +324,9 @@ def test_torch_families_name_what_keeps_the_torch_path():
     _, _, dis = _cornell(toml=DISNEY_TOML)
     assert torch_families(lambert) == ()
     assert torch_families(dis) == ()
-    assert torch_families(RenderOptions()) == ("mirror", "glass")
+    assert torch_families(RenderOptions()) == ()
+    assert torch_families(RenderOptions(families=("lambert", "glass"))) == ()
+    assert torch_families(RenderOptions(families=("lambert", "plastic"))) == ("plastic",)
 
 
 def test_capture_phase_map_refuses_a_fork(monkeypatch):

@@ -185,15 +185,18 @@ def test_plain_loop_matches_reference_per_pixel(name, monkeypatch):
     """The scenes kernel B6 shades on the card, under brute, wide, cwbvh
     and bvh2, through the loop with B6's plain twin on the CPU, against the
     reference on the same rays and uniforms: the Lambert cases within the
-    Lambert contract, the Disney ones within the contract of the other
-    families.  One twin call a bounce, one finishing add a bounce."""
+    Lambert contract, the Disney, mirror and glass ones within the
+    contract of the other families.  One twin call a bounce, one finishing
+    add a bounce."""
     calls = test_torch_shade.count_plain_steps(monkeypatch)
-    # The Disney cases at 48x40: enough lanes on the floor for every lobe.
-    size = (48, 40) if name.startswith("disney") else (test_torch_shade.W, test_torch_shade.H)
+    # The other families at 48x40: enough lanes on the floor for every lobe
+    # and on the spheres for each delta lobe.
+    lambert = test_torch_shade.lambert_case(name)
+    size = (test_torch_shade.W, test_torch_shade.H) if lambert else (48, 40)
     scene, _, camera, options = test_torch_shade._fused_setup(name, width=size[0],
                                                               height=size[1])
     got = _trace_both(scene, camera, options, 11)
-    (assert_shaded_close if name.startswith("disney") else assert_lambert_close)(*got)
+    (assert_lambert_close if lambert else assert_shaded_close)(*got)
     assert calls == {"bounce": options.max_depth, "finish": options.max_depth}
 
 

@@ -5,9 +5,11 @@ without the rest of the smoke run.
     python3 tools/b6_times.py OUT.json [--reps N]
 
 On the 700x700 cornell under brute force (B1) and grid1m at 1024x1024
-under wide (B2), through the Lambert instantiation, and the 700x700
-Disney-floor cornell at 4 bounces (B1) through the Disney one: the
-benchmark cells' scenes and sizes.  Bounce 0 on the camera rays, bounce 1
+under wide (B2), through the Lambert instantiation, the cornell_specular700
+cell's box with a mirror and a glass sphere at 700x700 and 8 bounces
+(bvh2, B4) through the delta one, and the 700x700 Disney-floor cornell at
+4 bounces (B1) through the Disney one: the benchmark cells' scenes and
+sizes; on the specular box also B4 against its twins, as phase 23 does.  Bounce 0 on the camera rays, bounce 1
 with bounce 0's NEE folded in, and the finishing add of bounce 1's NEE,
 each checked against its plain twin bit for bit where the path loop
 reads the outputs (the twin returns new tensors, B6 writes the path state
@@ -50,6 +52,7 @@ def scenes(dev):
     scene, camera, options = render_setup(cfg, os.path.join(ROOT, "scenes"), width=700,
                                           height=700, accel="brute")
     yield "cornell 700x700 brute (B1)", upload_scene(scene, "brute", dev), camera, options
+    yield _chip_smoke().specular_run(dev)
     scene, camera = bench_scene("grid1m")
     options = RenderOptions(width=1024, height=1024, max_depth=6, accel="wide",
                             families=scene_families(scene))
@@ -72,7 +75,7 @@ def main(argv=None) -> int:
     print(card)
     dev = torch.device("cuda", 0)
     with torch.no_grad():
-        rec, _, _ = _chip_smoke().phase23(dev, card, list(scenes(dev)), args.reps)
+        rec = _chip_smoke().phase23(dev, card, list(scenes(dev)), args.reps)[0]
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(rec, f, indent=1)
