@@ -53,6 +53,7 @@ class Reference:
                  dtype=torch.float32):
         self.cfg, self.cam, self.seed = cfg, cam, seed
         self.tracer = manifest.reference(cfg)
+        self.tracer.refuse_camera(cam)
         self.scene = self.tracer.load_scene(sc, device, dtype)
         self.pixels = seeds.check_pixels(seed, cfg["width"] * cfg["height"],
                                          cfg["check"]["pixels"])

@@ -206,7 +206,7 @@ class Run:
         uni = sampler.uniforms(sampler.base_key(seeds.image_seed(self.seed, 0)),
                                torch.zeros(1, dtype=torch.int64, device=self.device), ids,
                                depth)[0]
-        o, d = tracer.camera_rays(self.cam, w, h, ids, uni[:, 0], uni[:, 1], torch.float32)
+        o, d = tracer.camera_rays(self.cam, w, h, ids, uni[:, 0:4], torch.float32)
         record = []
         tracer.trace(ref, o, d, uni, depth, record)
         return ref, record

@@ -25,19 +25,22 @@ from caitlynrenderer_tpu_torch.core.types import Camera, Lights, Materials, Rend
 from caitlynrenderer_tpu_torch.render import progressive
 from caitlynrenderer_tpu_torch.utils import metrics
 
-from cellbench.scenes.builtin import CAMERA_FIELDS, LIGHT_FIELDS, MATERIAL_FIELDS
+from cellbench.scenes.builtin import CAMERA_FIELDS, IMAGES, LIGHT_FIELDS, MATERIAL_FIELDS
 
 LOGGER = "caitlynrenderer_tpu_torch"
 
 
 def scene_arrays(sc: dict) -> SceneArrays:
-    """The program's SceneArrays holding copies of the arrays of `sc`."""
+    """The program's SceneArrays holding copies of the arrays of `sc`;
+    `textures` and `env_map` None where `sc` has none."""
+    images = {k: None if sc.get(k) is None else sc[k].copy() for k in IMAGES}
     return SceneArrays(
         vertices=sc["vertices"].copy(), normals=sc["normals"].copy(),
         texcoords=sc["texcoords"].copy(), tri_v=sc["tri_v"].copy(),
         tri_vn=sc["tri_vn"].copy(), tri_vt=sc["tri_vt"].copy(),
         materials=Materials(*(sc["materials"][k].copy() for k in MATERIAL_FIELDS)),
         lights=Lights(*(sc["lights"][k].copy() for k in LIGHT_FIELDS)),
+        **images,
     )
 
 
@@ -48,7 +51,10 @@ def camera(cam: dict) -> Camera:
 class Renderer:
     """One configuration uploaded to `device`: `upload()` builds the
     accelerator and moves the scene there, then `launch`, `display` and
-    `new_image` drive the progressive loop."""
+    `new_image` drive the progressive loop.  The program samples the
+    scene's `env_map` on a miss where the scene carries one
+    (`RenderOptions.use_env_map`), as the references refuse exactly such a
+    scene."""
 
     def __init__(self, cfg: dict, sc: dict, cam: dict, device):
         self.device = torch.device(device)
@@ -58,6 +64,7 @@ class Renderer:
         accel = cfg["accel"]
         self.accel = pscene.auto_accel(self.scene) if accel == "auto" else accel
         self.options = RenderOptions(width=self.w, height=self.h, max_depth=cfg["max_depth"],
+                                     use_env_map=self.scene.env_map is not None,
                                      accel=self.accel,
                                      families=pscene.scene_families(self.scene))
         self.ds = None

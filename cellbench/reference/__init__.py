@@ -11,8 +11,13 @@ every other material.  A reference module gives:
                                     or a lower one for the control.  The
                                     result has `.geo`, an accel.Geometry,
                                     which the roofline readers read.
-    camera_rays(cam, width, height, pixel_ids, u0, u1, dtype)
-                                    (o, d) of pixels `pixel_ids`
+    refuse_camera(cam)              raises ValueError for a camera it does
+                                    not trace; `check.Reference` calls it
+                                    with `load_scene`, before any ray
+    camera_rays(cam, width, height, pixel_ids, raygen, dtype)
+                                    (o, d) of pixels `pixel_ids` from their
+                                    four raygen uniforms `raygen` ((N, 4):
+                                    the tent jitter pair, the lens pair)
     trace(scene, o, d, uni, max_depth, record=None)
                                     (N, 3) float32 radiance of the paths
                                     from (o, d) under the uniforms `uni`
@@ -27,5 +32,10 @@ every other material.  A reference module gives:
     display(acc, samples)           the display values of an accumulation
 
 `sampler` (the program's uniforms) and `accel` (the queries) serve every
-reference.
+reference.  A reference raises ValueError for what it does not trace,
+so that no configuration is judged against one that drops part of its
+light or its lens: `tracer`, `disney` and `specular` refuse an
+environment map, a texture atlas or textured material (`load_scene`),
+and a camera whose aperture is above 0 (`refuse_camera`, which their
+`camera_rays` calls too).
 """

@@ -15,8 +15,9 @@ diffuse, GGX half-vectors and GTR1 half-vectors, weighted by
 in it, and the mixture's pdf is the weighted sum of the three lobes'
 pdfs, both toward a light sample (NEE under the power heuristic) and for
 a continuation.  The BRDF's value is returned times cos(theta_l).  No
-Russian roulette, no environment map, no mirror, glass, texture or
-interpolated normal: `load_scene` refuses them.
+Russian roulette; no environment map, mirror, glass, texture or
+interpolated normal, which `load_scene` refuses, and no thin lens, which
+`refuse_camera` refuses.
 
 The arithmetic keeps the order of the program's float32 expressions, so
 that on one device the two agree to rounding; `dtype` is the precision it
@@ -32,11 +33,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cellbench.reference import accel, sampler
-# camera_rays and display are this reference's too (the interface of
-# cellbench/reference/__init__.py).
+from cellbench.reference import accel, sampler, tracer
+# refuse_camera, camera_rays and display are this reference's too (the
+# interface of cellbench/reference/__init__.py).
 from cellbench.reference.tracer import (EPS, RAY_OFFSET, _onb, _power, camera_rays,  # noqa: F401
-                                        display, normalize)
+                                        display, normalize, refuse_camera)
 
 LAMBERT = {0, 16}  # DIFFUSE, LIGHT_DIFFUSE
 # The types this reference does not trace: mirror, the glasses and
@@ -75,7 +76,8 @@ class Scene(NamedTuple):
 def load_scene(sc: dict, device, dtype=torch.float32) -> Scene:
     """The reference's tables of a scene dict (cellbench.scenes.builtin's
     layout).  Raises ValueError for what it does not trace: mirror, glass
-    and the other specular types, textures, interpolated vertex normals."""
+    and the other specular types, an environment map, textures,
+    interpolated vertex normals."""
     mats = sc["materials"]
     tri_v = sc["tri_v"]
     types = set(np.unique(mats["albedo"][:, 3]).astype(int).tolist())
@@ -83,8 +85,9 @@ def load_scene(sc: dict, device, dtype=torch.float32) -> Scene:
     if bad:
         raise ValueError(f"the reference traces Lambert and Disney materials only; "
                          f"material types {bad}")
-    if (sc["tri_vn"][:, 3] == 1).any() or (mats["tex_ind"][:, 0] >= 0).any():
-        raise ValueError("the reference traces flat-shaded, untextured scenes only")
+    tracer.refuse_images(sc)
+    if (sc["tri_vn"][:, 3] == 1).any():
+        raise ValueError("the reference traces flat-shaded scenes only")
     v = sc["vertices"].astype(np.float32)
     p0, p1, p2 = (v[tri_v[:, k]] for k in range(3))
     m = tri_v[:, 3]
@@ -367,7 +370,7 @@ def radiance(scene: Scene, cam: dict, width: int, height: int, max_depth: int, k
     s, p = uni.shape[:2]
     uni = uni.reshape(s * p, -1)
     ids = pixel_ids.repeat(s)
-    o, d = camera_rays(cam, width, height, ids, uni[:, 0], uni[:, 1], scene.dtype)
+    o, d = camera_rays(cam, width, height, ids, uni[:, 0:4], scene.dtype)
     return trace(scene, o, d, uni, max_depth).reshape(s, p, 3)
 
 

@@ -42,8 +42,9 @@ Departures from PBRT's description, each the program's:
   by zero; a floored lane is a total internal reflection, whose
   reflectance is 1 whatever the floor gives.
 
-No Russian roulette, no environment map, no Disney or other material,
-no texture: `load_scene` refuses them.  The arithmetic keeps the order of
+No Russian roulette; no environment map, Disney or other material, or
+texture, which `load_scene` refuses, and no thin lens, which
+`refuse_camera` refuses.  The arithmetic keeps the order of
 the program's float32 expressions, so that on one device the two agree to
 rounding; `dtype` is the precision it runs in, as in `tracer`.  The
 camera, the display and the uniforms are `tracer`'s and `sampler`'s.
@@ -60,10 +61,10 @@ import torch
 
 from cellbench.reference import accel, tracer
 from cellbench.reference.disney import _cosine, _reflect as reflect, _to_world
-# camera_rays and display are this reference's too (the interface of
-# cellbench/reference/__init__.py).
+# refuse_camera, camera_rays and display are this reference's too (the
+# interface of cellbench/reference/__init__.py).
 from cellbench.reference.tracer import (EPS, RAY_OFFSET, _power, camera_rays,  # noqa: F401
-                                        display, normalize)
+                                        display, normalize, refuse_camera)
 
 DIFFUSE, MIRROR, GLASS, LIGHT_DIFFUSE = 0, 1, 2, 16
 TRACED = {DIFFUSE, MIRROR, GLASS, LIGHT_DIFFUSE}
@@ -87,15 +88,15 @@ def load_scene(sc: dict, device, dtype=torch.float32) -> Scene:
     """The reference's tables of a scene dict (cellbench.scenes.builtin's
     layout).  Raises ValueError for what it does not trace: a material
     that is neither Lambert, mirror nor glass (the Disney BRDF, the
-    coloured and thin glasses, the conductors), textures."""
+    coloured and thin glasses, the conductors), an environment map,
+    textures."""
     mats = sc["materials"]
     tri_v = sc["tri_v"]
     types = set(np.unique(mats["albedo"][:, 3]).astype(int).tolist())
     if not types <= TRACED:
         raise ValueError(f"the reference traces Lambert, mirror and glass materials only; "
                          f"material types {sorted(types - TRACED)}")
-    if (mats["tex_ind"][:, 0] >= 0).any():
-        raise ValueError("the reference traces untextured scenes only")
+    tracer.refuse_images(sc)
     v = sc["vertices"].astype(np.float32)
     p0, p1, p2 = (v[tri_v[:, k]] for k in range(3))
     m = tri_v[:, 3]

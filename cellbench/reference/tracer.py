@@ -5,7 +5,8 @@ A path starts at the camera's tent-filtered primary ray of its pixel and
 takes `max_depth` bounces: closest hit, emission weighted by multiple
 importance sampling (power heuristic) against next-event estimation, one
 light sample with a shadow any-hit query, then a cosine-weighted
-continuation.  No Russian roulette, no environment map.  The arithmetic
+continuation.  No Russian roulette; no environment map, texture or thin
+lens, which `load_scene` and `refuse_camera` refuse.  The arithmetic
 follows the order of the reference renderer's integrator, so that on one
 device the two agree to rounding, and every path is a function of (base
 key, sample, pixel) alone: any set of pixels and samples is traced
@@ -40,17 +41,38 @@ class Scene(NamedTuple):
     dtype: torch.dtype
 
 
+def refuse_images(sc: dict) -> None:
+    """Raises ValueError where the scene dict `sc` holds what none of these
+    references traces: an environment map (their misses are black), a
+    texture atlas or a textured material (their albedo is the material's)."""
+    if sc.get("env_map") is not None:
+        raise ValueError("the reference traces no environment map; the scene has one")
+    if sc.get("textures") is not None or (sc["materials"]["tex_ind"][:, 0] >= 0).any():
+        raise ValueError("the reference traces untextured scenes only; the scene has "
+                         "a texture atlas or a textured material")
+
+
+def refuse_camera(cam: dict) -> None:
+    """Raises ValueError for a thin lens (aperture > 0), which none of
+    these references traces: their rays leave the pinhole."""
+    if float(cam["aperture"]) > 0.0:
+        raise ValueError(f"the reference traces a pinhole camera only; the camera's aperture "
+                         f"is {float(cam['aperture'])!r}")
+
+
 def load_scene(sc: dict, device, dtype=torch.float32) -> Scene:
     """The reference's tables of a scene dict (cellbench.scenes.builtin).
     Raises ValueError for what this reference does not trace: a material
-    that is not Lambert, textures, interpolated vertex normals."""
+    that is not Lambert, an environment map, textures, interpolated vertex
+    normals."""
     mats = sc["materials"]
     tri_v = sc["tri_v"]
     types = set(np.unique(mats["albedo"][:, 3]).astype(int).tolist())
     if not types <= {DIFFUSE, LIGHT_DIFFUSE}:
         raise ValueError(f"the reference traces Lambert scenes only; material types {sorted(types)}")
-    if (sc["tri_vn"][:, 3] == 1).any() or (mats["tex_ind"][:, 0] >= 0).any():
-        raise ValueError("the reference traces flat-shaded, untextured scenes only")
+    refuse_images(sc)
+    if (sc["tri_vn"][:, 3] == 1).any():
+        raise ValueError("the reference traces flat-shaded scenes only")
     v = sc["vertices"].astype(np.float32)
     p0, p1, p2 = (v[tri_v[:, k]] for k in range(3))
     m = tri_v[:, 3]
@@ -71,9 +93,13 @@ def normalize(v):
     return v * torch.reciprocal(torch.sqrt(torch.clamp(accel.dot(v, v)[..., None], min=1e-20)))
 
 
-def camera_rays(cam: dict, width: int, height: int, pixel_ids, u0, u1, dtype):
+def camera_rays(cam: dict, width: int, height: int, pixel_ids, raygen, dtype):
     """Tent-filtered pinhole rays of pixels `pixel_ids` (row-major from
-    the bottom row) from their first two uniforms."""
+    the bottom row) from their raygen uniforms `raygen` ((N, 4): the
+    tent jitter pair, then the lens pair, which a pinhole leaves unread).
+    Raises ValueError for a thin lens, as `refuse_camera` does."""
+    refuse_camera(cam)
+    u0, u1 = raygen[:, 0], raygen[:, 1]
     dev = pixel_ids.device
 
     def vec(x):
@@ -205,7 +231,7 @@ def radiance(scene: Scene, cam: dict, width: int, height: int, max_depth: int, k
     s, p = uni.shape[:2]
     uni = uni.reshape(s * p, -1)
     ids = pixel_ids.repeat(s)
-    o, d = camera_rays(cam, width, height, ids, uni[:, 0], uni[:, 1], scene.dtype)
+    o, d = camera_rays(cam, width, height, ids, uni[:, 0:4], scene.dtype)
     return trace(scene, o, d, uni, max_depth).reshape(s, p, 3)
 
 

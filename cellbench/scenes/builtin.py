@@ -5,8 +5,17 @@ The benchmark makes every triangle itself from a configuration's `scene`
 entry and hands the same arrays to the program under test and to the
 plain reference, so a change to the program's own scene generators cannot
 move the yardstick.  A scene is a dict of numpy arrays with the layout of
-the program's `SceneArrays` (vertices, normals, texcoords, tri_v, tri_vn,
-tri_vt, and `materials` and `lights` as dicts of arrays).
+the program's `SceneArrays`: vertices, normals, texcoords, tri_v, tri_vn,
+tri_vt, and `materials` and `lights` as dicts of arrays (`lights` may
+have no rows), and two optional keys:
+
+    textures   (K, H, W, 3) float32 albedo atlas, K >= 1, finite and >= 0;
+               a material's layer `tex_ind[:, 0]` is -1 (untextured) or an
+               integer below K, and the triangles of a textured material
+               index `texcoords` within range
+    env_map    (He, We, 3) float32 equirectangular radiance map, finite and
+               >= 0, which the program samples on a miss wherever the scene
+               carries one
 
 A configuration's scene names a generator: one of `GENERATORS` below, or
 the module cellbench/scenes/<generator>.py, whose `make(**args)` returns
@@ -28,6 +37,8 @@ LIGHT_FIELDS = ("p", "u", "v", "n", "e", "area_pdf")
 GEOMETRY = {"vertices": (3, np.float32), "normals": (3, np.float32),
             "texcoords": (2, np.float32), "tri_v": (4, np.int32), "tri_vn": (4, np.int32),
             "tri_vt": (4, np.int32)}
+# The optional images: their rank (the last axis rgb).
+IMAGES = {"textures": 4, "env_map": 3}
 
 
 class SceneBuilder:
@@ -214,11 +225,13 @@ def make_scene(spec: dict) -> dict:
 
 
 def layout_problems(sc: dict) -> list:
-    """How `sc` departs from the layout `SceneBuilder.build` gives: its
-    keys, the materials' and lights' fields, and each array's columns,
-    dtype and rows; empty where it keeps to it."""
+    """How `sc` departs from the layout: its keys, the materials' and
+    lights' fields, each array's columns, dtype and rows, the optional
+    `textures` and `env_map` (module docstring) and the texture layers and
+    texture coordinates the materials use; empty where it keeps to it."""
     groups = {"materials": MATERIAL_FIELDS, "lights": LIGHT_FIELDS}
-    if set(sc) != set(GEOMETRY) | set(groups):
+    required = set(GEOMETRY) | set(groups)
+    if not required <= set(sc) <= required | set(IMAGES):
         return [f"keys {sorted(sc)}"]
     bad = [f"{g} fields {sorted(sc[g])}" for g, fields in groups.items()
            if set(sc[g]) != set(fields)]
@@ -237,8 +250,39 @@ def layout_problems(sc: dict) -> list:
             bad.append(f"{name} is not an array of {cols} {np.dtype(dt).name} columns")
         else:
             rows.setdefault(shared, set()).add(len(a))
-    return bad + [f"{shared} of unequal rows {sorted(n)}" for shared, n in rows.items()
-                  if len(n) > 1]
+    bad += [f"{shared} of unequal rows {sorted(n)}" for shared, n in rows.items() if len(n) > 1]
+    for name, rank in IMAGES.items():
+        a = sc.get(name)
+        if a is None:
+            continue
+        if not (isinstance(a, np.ndarray) and a.dtype == np.float32 and a.ndim == rank
+                and a.shape[-1] == 3 and a.size):
+            bad.append(f"{name} is not a non-empty float32 array of rank {rank} and 3 channels")
+        elif not (np.isfinite(a).all() and (a >= 0).all()):
+            bad.append(f"{name} holds values that are not finite or are below 0")
+    return bad or _texture_problems(sc)
+
+
+def _texture_problems(sc: dict) -> list:
+    """How the materials' texture layers and the textured triangles'
+    texture coordinates depart from the atlas and `texcoords`."""
+    atlas = sc.get("textures")
+    k = 0 if atlas is None else atlas.shape[0]
+    layer = sc["materials"]["tex_ind"][:, 0]
+    wrong = ~((layer == -1) | ((layer == np.floor(layer)) & (layer >= 0) & (layer < k)))
+    if wrong.any():
+        return [f"materials {np.flatnonzero(wrong)[:5].tolist()} have texture layers "
+                f"{layer[wrong][:5].tolist()}, not -1 or an integer below the atlas's {k}"]
+    mtl = sc["tri_v"][:, 3]
+    textured = np.zeros(len(mtl), bool)  # a material index out of range is the program's to refuse
+    known = (mtl >= 0) & (mtl < len(layer))
+    textured[known] = layer[mtl[known]] >= 0
+    vt = sc["tri_vt"][textured, :3]
+    n = len(sc["texcoords"])
+    if vt.size and (vt.min() < 0 or vt.max() >= n):
+        return [f"textured triangles index texcoords {int(vt.min())}..{int(vt.max())}, "
+                f"outside [0, {n})"]
+    return []
 
 
 def make_camera(position, look_at, fov_degrees: float = 40.0, up_hint=(0.0, 1.0, 0.0),

@@ -22,8 +22,9 @@ CELLS = ["cornell700.offline", "grid1m.offline", "cornell700.interactive"]
 def tiny_bench(tmp_path, pixels=None, image_spp=40):
     """BENCHMARK.json with each configuration in a file of its own under
     tmp_path at a tiny size: the cornell box at 24x20, the grid at 47x47
-    vertices (4,232 triangles: the program's wide BVH and the reference's
-    own BVH walk) and 2 bounces at 16x16."""
+    vertices (4,232 triangles: the program's binary BVH, which `auto`
+    picks above 2048 triangles, and the reference's own BVH walk) and 2
+    bounces at 16x16."""
     bench = manifest.load()
     # The interactive mix (one sample a launch, every frame shown) has no
     # cell of its own in BENCHMARK.json yet; its path is held here.

@@ -37,6 +37,7 @@ def _noted(name):
 
 load_scene, camera_rays, trace, accumulate, display = map(
     _noted, ("load_scene", "camera_rays", "trace", "accumulate", "display"))
+refuse_camera = tracer.refuse_camera
 '''
 PROBE_SCENE = '''
 import cellbench_probe
@@ -162,14 +163,52 @@ def test_unknown_names_fail_naming_the_file(bench):
         manifest.reader("no_such")
 
 
-def test_tracer_refuses_what_it_does_not_trace(bench):
-    """A configuration with a Disney floor that names no reference fails
-    at set-up rather than be compared against Lambert physics."""
+@pytest.mark.parametrize("what,match", [
+    ("disney", "Lambert"), ("env_map", "environment map"), ("atlas", "untextured"),
+    ("texture", "untextured"), ("lens", "pinhole")])
+def test_tracer_refuses_what_it_does_not_trace(bench, what, match):
+    """A configuration with a Disney floor, an environment map, a texture
+    or a thin lens that names no reference is refused where its reference
+    is built, rather than be compared against Lambert physics that drops
+    part of its light or its lens."""
     cfg = manifest.config(bench, "cornell700")
     sc = builtin.make_scene(cfg["scene"])
-    sc["materials"]["albedo"][0, 3] = 17  # the program's Disney material type
-    with pytest.raises(ValueError, match="Lambert"):
-        check.Reference(cfg, sc, builtin.make_camera(**cfg["camera"]), SEED, "cpu")
+    cam = builtin.make_camera(**cfg["camera"], aperture=0.1 if what == "lens" else 0.0)
+    if what == "disney":
+        sc["materials"]["albedo"][0, 3] = 17  # the program's Disney material type
+    elif what == "env_map":
+        sc["env_map"] = np.full((2, 4, 3), 0.5, np.float32)
+    elif what == "atlas":
+        sc["textures"] = np.full((1, 2, 2, 3), 0.5, np.float32)
+    elif what == "texture":
+        sc["materials"]["tex_ind"][0, 0] = 0
+    with pytest.raises(ValueError, match=match):
+        check.Reference(cfg, sc, cam, SEED, "cpu")
+
+
+def test_a_generator_may_bring_an_atlas_and_an_environment(tmp_path, monkeypatch):
+    """A generator's `textures` and `env_map` pass `make_scene` as they are;
+    a textured floor's triangles index the scene's texture coordinates."""
+    (tmp_path / "scenes").mkdir()
+    (tmp_path / "scenes" / "sky_box.py").write_text(
+        "import numpy as np\n"
+        "from cellbench.scenes import builtin\n\n\n"
+        "def make(layers):\n"
+        "    sc = builtin.cornell_box()\n"
+        "    sc['textures'] = np.full((layers, 4, 4, 3), 0.25, np.float32)\n"
+        "    sc['env_map'] = np.full((8, 16, 3), 2.0, np.float32)\n"
+        "    sc['materials']['tex_ind'][0, 0] = layers - 1\n"
+        "    sc['texcoords'] = np.array([[0, 0], [1, 0], [1, 1]], np.float32)\n"
+        "    sc['tri_vt'][sc['tri_v'][:, 3] == 0, :3] = [0, 1, 2]\n"
+        "    return sc\n")
+    monkeypatch.setattr(manifest, "HERE", str(tmp_path))
+    sc = builtin.make_scene({"generator": "sky_box", "args": {"layers": 2}})
+    assert sc["textures"].shape == (2, 4, 4, 3) and (sc["textures"] == 0.25).all()
+    assert sc["env_map"].shape == (8, 16, 3) and (sc["env_map"] == 2.0).all()
+    assert builtin.layout_problems(sc) == []
+    arrays = program.scene_arrays(sc)
+    assert np.array_equal(arrays.textures, sc["textures"])
+    assert np.array_equal(arrays.env_map, sc["env_map"])
 
 
 def test_a_generator_is_held_to_the_layout(tmp_path, monkeypatch):

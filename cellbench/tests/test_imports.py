@@ -19,7 +19,7 @@ BANNED = set(FORBIDDEN) | {"benchmarks"}
 PROGRAM = "caitlynrenderer_tpu_torch"
 # Modules that may import the program: the adapter and what runs it.
 DRIVERS = {"program.py", "drive.py", "run.py", os.path.join("tests", "test_reference.py"),
-           os.path.join("tests", "test_faults.py")}
+           os.path.join("tests", "test_faults.py"), os.path.join("tests", "test_scene_inputs.py")}
 
 
 def _modules():
