@@ -232,8 +232,9 @@ def _rays_per_sample(ds, camera, options, seed: int, device) -> int:
     instrumented pass of the seed's first uniforms), for the rays counted
     in the progress records; logged as a "rays" record with the live lanes
     entering each bounce's closest-hit query, those shading their hit with
-    the Disney BRDF, those shading it with a mirror or glass and each
-    bounce's any-hit candidates."""
+    the Disney BRDF, those shading it with a mirror or glass, those that
+    miss and take the environment map, those whose albedo the texture
+    atlas gives and each bounce's any-hit candidates."""
     from caitlynrenderer_tpu_torch.core.camera import generate_rays
     from caitlynrenderer_tpu_torch.render import sampling
     from caitlynrenderer_tpu_torch.render.integrator import trace_paths
@@ -246,7 +247,8 @@ def _rays_per_sample(ds, camera, options, seed: int, device) -> int:
     rays = {k: int(stats[k]) for k in ("rays_closest", "rays_anyhit")}
     metrics.log_record("rays", {"rays": w * h, **rays, **{
         k: stats[k].tolist() for k in ("alive_per_bounce", "disney_per_bounce",
-                                       "specular_per_bounce", "anyhit_per_bounce")}})
+                                       "specular_per_bounce", "sky_per_bounce",
+                                       "textured_per_bounce", "anyhit_per_bounce")}})
     return rays["rays_closest"] + rays["rays_anyhit"]
 
 

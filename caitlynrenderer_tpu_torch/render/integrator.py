@@ -289,16 +289,22 @@ def _shading_normal_from_rows(rows, u, v):
     return torch.where((rows[:, 18] > 0.5)[:, None], interp, geo_n)
 
 
-def _albedo_from_rows(sc, rows, u, v):
+def _textured(sc) -> bool:
+    """Whether the scene's albedo can come from its texture atlas."""
+    return sc.textures is not None and sc.texcoords.shape[0] > 0
+
+
+def _albedo_from_rows(sc, rows, u, v, phase: str = "texture"):
     """The material's albedo, sampled from the texture atlas where the
-    material carries a layer (column 46)."""
+    material carries a layer (column 46); the lookup in span `phase`."""
     base = rows[:, 26:29]
-    if sc.textures is None or sc.texcoords.shape[0] == 0:
+    if not _textured(sc):
         return base
-    layer_f = rows[:, 46]
-    uv = cm.interpolate(rows[:, 19:21], rows[:, 21:23], rows[:, 23:25], u, v)
-    sampled = sample_bilinear(sc.textures, torch.round(layer_f), uv)
-    return torch.where((layer_f >= 0)[:, None], sampled, base)
+    with metrics.span(phase):
+        layer_f = rows[:, 46]
+        uv = cm.interpolate(rows[:, 19:21], rows[:, 21:23], rows[:, 23:25], u, v)
+        sampled = sample_bilinear(sc.textures, torch.round(layer_f), uv)
+        return torch.where((layer_f >= 0)[:, None], sampled, base)
 
 
 def bounce_uniforms(uniforms, bounce: int):
@@ -372,15 +378,16 @@ class Surface(NamedTuple):
 
 
 def surface(ds: DeviceScene, hf: HitFrame, families, phase: str = "bsdf",
-            spec_phase: str = "specular") -> Surface:
+            spec_phase: str = "specular", tex_phase: str = "texture") -> Surface:
     """The Surface of a HitFrame's rows.  Only the families named in
     `families` are traced (the reference's static specialization); every
     type that is neither Lambert nor specular takes the Disney BRDF, whose
     mask and parameters are gathered in span `phase`; the specular, mirror
-    and glass masks are made in span `spec_phase`."""
+    and glass masks are made in span `spec_phase`; the texture atlas is
+    read in span `tex_phase`."""
     rows = hf.rows
     mat_type = torch.round(rows[:, 29]).to(torch.int64)
-    albedo = _albedo_from_rows(ds.scene, rows, hf.u, hf.v)
+    albedo = _albedo_from_rows(ds.scene, rows, hf.u, hf.v, tex_phase)
     has_mirror, has_glass = "mirror" in families, "glass" in families
     mirror = glass = None
     if has_mirror or has_glass:
@@ -522,7 +529,7 @@ def fused_shading(ds: DeviceScene, o, d, uniforms, options: RenderOptions,
     return (all(x.device.type == "cuda" for x in tensors)
             and "lambert" in options.families
             and set(options.families) <= set(FUSED_FAMILIES)
-            and (sc.textures is None or sc.texcoords.shape[0] == 0)
+            and not _textured(sc)
             and not options.use_env_map
             and ds.light_tab.shape[0] > 0
             and not with_stats
@@ -554,10 +561,13 @@ def shade_bounce_plain(ds: DeviceScene, o, d, tri, uniforms, bounce: int,
     loop reads the outputs: ldir and pending where cand; o, d and prev_pdf
     where the lane went on shading (alive, a hit, not emissive); elsewhere
     they are what the arithmetic gives, where B6 holds the lane's values.
-    Spans b<k>.hit, .nee and .bounce (.bsdf and .specular inside) hold
-    all its work; `stats`, a dict of lists, gets the live lanes the Disney
-    BRDF shades under "disney_per_bounce" and those a mirror or glass
-    shades under "specular_per_bounce"."""
+    Spans b<k>.hit, .nee and .bounce (.bsdf and .specular inside, and
+    .sky and .texture inside hit) hold all its work; `stats`, a dict of
+    lists, gets the live lanes the Disney BRDF shades under
+    "disney_per_bounce", those a mirror or glass shades under
+    "specular_per_bounce", the alive lanes that miss and take the
+    environment map under "sky_per_bounce" and the live lanes whose albedo
+    the atlas gives under "textured_per_bounce"."""
     b = f"b{bounce}."
     alive, T, L, prev_pdf, specular = state
     lit = ds.light_tab.shape[0] > 0
@@ -569,19 +579,24 @@ def shade_bounce_plain(ds: DeviceScene, o, d, tri, uniforms, bounce: int,
         hf = hit_frame(ds, o, d, 0.0, tri, 0.0, 0.0)
         live = alive & hf.keep
         if options.use_env_map:  # lit only through BSDF samples: w_mis = 1
-            L = L + torch.where((alive & ~live)[:, None], T * sample_env(ds.scene.env_map, d),
-                                0.0)
-        surf = surface(ds, hf, options.families, b + "bsdf", b + "specular")
+            with metrics.span(b + "sky"):
+                L = L + torch.where((alive & ~live)[:, None],
+                                    T * sample_env(ds.scene.env_map, d), 0.0)
+        surf = surface(ds, hf, options.families, b + "bsdf", b + "specular", b + "texture")
         if lit:
             hit_light = live & (hf.rows[:, 33] != -1)
             L = L + _emitted(ds.light_tab, d, hf, T, hit_light, prev_pdf if bounce else None,
                              specular)
             live = live & ~hit_light
         if stats is not None:
+            zero = torch.zeros((), dtype=torch.int64, device=o.device)
+            textured = (hf.rows[:, 46] >= 0) if _textured(ds.scene) else None
             for key, mask in (("disney_per_bounce", surf.disney),
-                              ("specular_per_bounce", _delta_mask(surf))):
-                stats[key].append((live & mask).sum() if mask is not None
-                                  else torch.zeros((), dtype=torch.int64, device=o.device))
+                              ("specular_per_bounce", _delta_mask(surf)),
+                              ("textured_per_bounce", textured)):
+                stats[key].append((live & mask).sum() if mask is not None else zero)
+            stats["sky_per_bounce"].append((alive & ~hf.keep).sum() if options.use_env_map
+                                           else zero)
     with metrics.span(b + "nee"):
         ldir = t_max = cand = pending = None  # no light: no NEE and no any-hit query
         if lit:
@@ -612,8 +627,11 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
     closest-hit query), "disney_per_bounce" ((max_depth,): the live lanes
     that shade their hit with the Disney BRDF, 0 where options.families
     leaves it out), "specular_per_bounce" (the same of the mirror and
-    glass lanes) and "anyhit_per_bounce" (the any-hit candidates of each
-    bounce's NEE; empty without lights).
+    glass lanes), "sky_per_bounce" (the alive lanes that miss and take the
+    environment map; 0 without one), "textured_per_bounce" (the live
+    lanes whose albedo the texture atlas gives; 0 without one) and
+    "anyhit_per_bounce" (the any-hit candidates of each bounce's NEE;
+    empty without lights).
 
     uniforms: (N, 4 + 7*max_depth), layout in render/sampling.py; the first
     4 (raygen) entries are unused here.
@@ -636,7 +654,8 @@ def trace_paths(ds: DeviceScene, o, d, uniforms, options: RenderOptions, with_st
                                 specular=(torch.empty(n, dtype=torch.bool, device=dev)
                                           if delta else None))
     alive_per_bounce, anyhit_per_bounce = [], []
-    shaded = {"disney_per_bounce": [], "specular_per_bounce": []} if with_stats else None
+    shaded = ({k: [] for k in ("disney_per_bounce", "specular_per_bounce", "sky_per_bounce",
+                               "textured_per_bounce")} if with_stats else None)
     prev = None
     for bounce in range(options.max_depth):
         b = f"b{bounce}."
@@ -704,7 +723,7 @@ def trace_aov(ds: DeviceScene, o, d, options: RenderOptions):
         if options.aov == "normal":
             n_shade = _shading_normal_from_rows(hf.rows, hf.u, hf.v)
             return torch.where(got, 0.5 * (n_shade + 1.0), 0.0)
-        albedo = _albedo_from_rows(ds.scene, hf.rows, hf.u, hf.v)
+        albedo = _albedo_from_rows(ds.scene, hf.rows, hf.u, hf.v, "b0.texture")
         emissive = (hf.rows[:, 33] != -1)[:, None]
         return torch.where(got, torch.where(emissive, hf.rows[:, 30:33], albedo), 0.0)
 

@@ -115,11 +115,14 @@ PREFIX = "caitlyn."
 # pdf toward the light, its sample), a span inside its hit, nee and bounce.
 # "specular" is the mirror and glass lanes' work in the plain bounce (their
 # masks, the reflection, the Fresnel choice, the refraction and its
-# origin), a span inside its hit and bounce.
-GROUPS = ("raygen", "query", "hit", "nee", "bounce", "shade", "bsdf", "specular")
+# origin), a span inside its hit and bounce.  "sky" is the environment
+# map's lookup and add on a miss, and "texture" the atlas's lookup of a
+# hit's albedo, both spans inside the plain bounce's hit.
+GROUPS = ("raygen", "query", "hit", "nee", "bounce", "shade", "bsdf", "specular", "sky",
+          "texture")
 _BOUNCE_GROUPS = {"closest": "query", "anyhit": "query", "hit": "hit", "nee": "nee",
                   "rr": "bounce", "bounce": "bounce", "shade": "shade", "bsdf": "bsdf",
-                  "specular": "specular"}
+                  "specular": "specular", "sky": "sky", "texture": "texture"}
 _BOUNCE_PHASE = re.compile(r"^b\d+\.(\w+)$")
 _NULL = contextlib.nullcontext()
 # The PhaseCapture of the CUDA-graph capture running, if any.
@@ -146,8 +149,10 @@ def phase_group(phase: Optional[str]) -> Optional[str]:
     "nee" (its `anyhit` apart); "bounce" for `rr` and `bounce`; "shade"
     for a bounce's `shade` (kernel B6 on the fused path); "bsdf" for a
     bounce's `bsdf` (the Disney BRDF's work on the torch path); "specular"
-    for a bounce's `specular` (the mirror and glass lanes').  Any other
-    phase is a group of its own (`capture`, `resolve`); None stays None."""
+    for a bounce's `specular` (the mirror and glass lanes'); "sky" and
+    "texture" for a bounce's `sky` (the environment map on a miss) and
+    `texture` (the atlas's albedo).  Any other phase is a group of its own
+    (`capture`, `resolve`); None stays None."""
     if phase is None:
         return None
     if phase == "raygen" or phase.startswith(("launch.", "sample.")):

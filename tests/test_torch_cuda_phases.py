@@ -44,10 +44,12 @@ SPP = 4
 QUERY_KERNELS = {"mt_brute_kernel", "mega_kernel"}
 # The groups a capture's nodes fall in, by shading path: B6 does the hit,
 # nee and bounce groups' work, and rr issues nothing with roulette off;
-# these Lambert scenes leave the Disney BRDF's group, bsdf, and the mirror
-# and glass lanes' group, specular, empty.
+# these Lambert scenes leave the Disney BRDF's group, bsdf, the mirror
+# and glass lanes' group, specular, and the environment map's and the
+# atlas's groups, sky and texture, empty.
 SHADING_GROUPS = {"fused": {"raygen", "query", "shade"},
-                  "torch": set(metrics.GROUPS) - {"shade", "bsdf", "specular"}}
+                  "torch": set(metrics.GROUPS) - {"shade", "bsdf", "specular", "sky",
+                                                  "texture"}}
 
 
 @pytest.fixture(scope="module")
@@ -219,7 +221,8 @@ def test_disney_graph_names_its_families_and_its_bsdf_nodes(dev, monkeypatch):
     graph, = progressive._graphs.values()
     rec = metrics.last_records["graph_capture"]
     assert not graph.fused_shading and rec["torch_families"] == []
-    assert set(graph.phase_nodes) == set(metrics.GROUPS) - {"shade", "specular"}
+    assert set(graph.phase_nodes) == set(metrics.GROUPS) - {"shade", "specular", "sky",
+                                                             "texture"}
     assert rec["phase_nodes"]["bsdf"] == graph.phase_nodes["bsdf"] > 0
     assert bool(torch.isfinite(got.accum).all()) and float(got.accum.sum()) > 0
     assert torch.equal(got.accum, eager.accum)

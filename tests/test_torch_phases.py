@@ -165,9 +165,10 @@ def test_capture_phase_map_covers_every_node(monkeypatch, accel):
     assert None not in phases
     # CPU tensors shade with B6's plain twin, whose spans hold all its ops:
     # no "shade" group (B6's), and a Lambert scene no "bsdf" group (the
-    # Disney BRDF) and no "specular" group (mirror and glass).
+    # Disney BRDF), no "specular" group (mirror and glass), and without an
+    # environment map or an atlas no "sky" and no "texture" group.
     groups = {metrics.phase_group(p) for p in phases}
-    assert groups == set(metrics.GROUPS) - {"shade", "bsdf", "specular"}
+    assert groups == set(metrics.GROUPS) - {"shade", "bsdf", "specular", "sky", "texture"}
     assert {p for p in phases if p.startswith("b")} >= {
         f"b{b}.{p}" for b in range(options.max_depth) for p in BOUNCE_PHASES}
     pairs = [(p, name) for (_, _, name), p in zip(nodes, phases)]
